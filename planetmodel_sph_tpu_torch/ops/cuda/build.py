@@ -1,0 +1,111 @@
+"""Build and load the hand-written CUDA kernels (nvcc + ctypes).
+
+Each source ``planetmodel_sph_tpu_torch/csrc/<name>.cu`` compiles with
+``nvcc`` into its own shared library with a plain C interface under
+``planetmodel_sph_tpu_torch/build/`` (listed in ``.gitignore``), at first
+use or when the source is newer than the library. :func:`build_all` starts
+one ``nvcc`` per source, all at once, and waits for them together.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+
+# name -> C argument signature: "p" pointer (incl. the stream), "i" int,
+# "f" float. Each C function returns cudaGetLastError() after its launch.
+SIGNATURES = {
+    "filter_sph": "p" * 13 + "iii" + "p",
+    "pass1_gradh": "p" * 12 + "iii" + "p",
+    "pass2": "p" * 26 + "iiii" + "f" + "p",
+    "gravity_fused": "p" * 4 + "p" * 10 + "p" + "p" * 10 + "p" + "p" * 6
+                     + "iiiii" + "f" + "p",
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Kernels whose output holds an exact decision on r2 (the filter mask,
+# pass 1's q < 2 count) build without multiply-add contraction, so r2 and
+# cut*cut round as the plain PyTorch versions' separate ops do and
+# knife-edge compares agree. pass2 and gravity_fused decide only on m > 0
+# and accept, and their sums are held to a tolerance: they keep FMA.
+NO_FMAD = ("filter_sph", "pass1_gradh")
+
+_LIBS: dict = {}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    so = lib_path(name)
+    if not os.path.exists(so):
+        return True
+    newest = max(os.path.getmtime(os.path.join(CSRC, f))
+                 for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
+    return os.path.getmtime(so) < newest
+
+
+def build_all(names=None, force=False) -> dict:
+    """Compile the named kernels (default: all) in parallel.
+
+    Returns {name: (seconds, ptxas report)}; raises with the compiler's
+    output if any build fails."""
+    names = list(names or SIGNATURES)
+    todo = [n for n in names if force or _stale(n)]
+    if not todo:
+        return {}
+    os.makedirs(BUILD, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        fmad = ["-fmad=false"] if n in NO_FMAD else []
+        cmd = [nvcc, *NVCC_FLAGS, *fmad, "-o", lib_path(n),
+               os.path.join(CSRC, f"{n}.cu")]
+        procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+    out, failed = {}, []
+    for n, p in procs.items():
+        log, _ = p.communicate()
+        out[n] = (time.perf_counter() - t0, log)
+        if p.returncode != 0:
+            failed.append(f"--- {n} (rc {p.returncode})\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+_CT = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
+def kernel(name: str):
+    """The C entry point ``psph_<name>`` (building the library if needed)."""
+    fn = _LIBS.get(name)
+    if fn is None:
+        build_all([name])
+        lib = ctypes.CDLL(lib_path(name))
+        fn = getattr(lib, f"psph_{name}")
+        fn.argtypes = [_CT[c] for c in SIGNATURES[name]]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = fn
+    return fn

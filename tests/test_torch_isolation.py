@@ -1,0 +1,91 @@
+"""The port stands alone: no module of ``planetmodel_sph_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package; entry points default to
+the card and refuse to fall back to the CPU; the smoke run refuses to run
+without a card or outside the repository."""
+
+import ast
+import inspect
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from planetmodel_sph_tpu_torch import bench, state
+from planetmodel_sph_tpu_torch.runtime import snapshot
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "planetmodel_sph_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "planetmodel_sph_tpu")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_scan_sees_the_package():
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    assert {"ops/structure.py", "ops/cuda/groups2.py", "models/planet.py",
+            "runtime/snapshot.py"} <= names
+
+
+@pytest.mark.parametrize("fn", [state.from_numpy, state.zeros,
+                                snapshot.load, bench.run_bench])
+def test_entry_points_default_to_cuda(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_no_silent_cpu_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state.zeros(state.SimConfig(n=4))
+    assert state.resolve_device("cpu").type == "cpu"
+
+
+def _smoke(cwd, env):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_smoke_refuses_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = _smoke(ROOT, env)
+    assert r.returncode != 0 and r.stdout == ""
+    assert "CUDA" in r.stderr
+
+
+def test_smoke_refuses_outside_the_repo(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = _smoke(str(tmp_path), env)
+    assert r.returncode != 0 and r.stdout == ""
