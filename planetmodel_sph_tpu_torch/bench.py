@@ -1,12 +1,20 @@
-"""Steps/s of the cached production step from a settled checkpoint
-(PyTorch port of ``planetmodel_sph_tpu.bench.run_bench``).
+"""Steps/s of the port (``planetmodel_sph_tpu.bench.run_bench`` in PyTorch).
 
-The timed region ends in ``torch.cuda.synchronize()`` so it measures the
-device's work, not the enqueue, and the result names the device it ran on.
+Two operating points, as the reference has: a cold start from a preset's
+initial conditions (the early transient of the collapsing ball), or a
+settled checkpoint with the config in its header. The timed region ends in
+``torch.cuda.synchronize()`` so it measures the device's work, not the
+enqueue, and the result names the device it ran on.
 
-    python -m planetmodel_sph_tpu_torch.bench --repeat 3
+    python -m planetmodel_sph_tpu_torch.bench --preset jupiter_3k --n 3000 \\
+        --steps 200
+    python -m planetmodel_sph_tpu_torch.bench --repeat 3      # settled 100k
 
 prints the card's name and power limit, then one JSON line per repeat.
+
+`vs_baseline` divides by 150,000 particle-steps/s: the rate the Unity
+project this system was modelled on targets on a gaming laptop (3000
+particles at its fixed 50 steps/s). It is not a rate of any accelerator.
 """
 
 from __future__ import annotations
@@ -19,7 +27,8 @@ import time
 
 import torch
 
-from .models import planet
+from . import config as config_mod
+from .models import ics, planet
 from .runtime import snapshot
 
 REFERENCE_PARTICLE_STEPS_PER_SEC = 3000 * 50.0
@@ -48,17 +57,35 @@ def _device_times(prof, top=12):
     return busy, dict(ranked)
 
 
-def run_bench(checkpoint_path: str = SETTLED, steps: int = 64,
-              warmup_steps: int = 64, device="cuda",
-              profile: bool = False) -> dict:
-    """Load the settled checkpoint with its own config and time `steps`
-    steps of ``planet.run_info`` after `warmup_steps` untimed steps (the
-    reference warms up with the same step count). `profile`: trace the
+PRESETS = ("default", "jupiter_3k", "jupiter_100k")
+
+
+def run_bench(checkpoint_path: str | None = SETTLED, steps: int = 64,
+              warmup_steps: int | None = None, device="cuda",
+              profile: bool = False, preset: str | None = None,
+              n: int | None = None) -> dict:
+    """Time `steps` steps of ``planet.run_info`` after `warmup_steps`
+    untimed steps (default: the same count, as the reference warms up).
+
+    With `preset` the run is a cold start: the preset's config (at `n`
+    particles when given), ``ics.jupiter`` and ``planet.prime``. Otherwise
+    `checkpoint_path` is loaded with its own config. `profile`: trace the
     timed run with torch.profiler and add the device's busy time, its idle
     share of that same run's wall, and the largest device times by kernel
     (the trace slows the host, so the wall time of a profiled run is not
     the step rate)."""
-    state, cfg, _ = snapshot.load(checkpoint_path, device=device)
+    if preset is not None:
+        if preset not in PRESETS:
+            raise ValueError(f"preset={preset!r}: one of {PRESETS}")
+        preset_fn = getattr(config_mod, preset)
+        cfg = preset_fn(n=n) if n else preset_fn()
+        state = planet.prime(ics.jupiter(cfg, device=device), cfg)
+        operating_point = "early_transient"
+    else:
+        state, cfg, _ = snapshot.load(checkpoint_path, device=device)
+        operating_point = "settled"
+    if warmup_steps is None:
+        warmup_steps = steps
     dev = state.pos.device
     if profile and dev.type != "cuda":
         raise ValueError("profile=True reads the card's kernel times: it "
@@ -91,7 +118,7 @@ def run_bench(checkpoint_path: str = SETTLED, steps: int = 64,
         "steps_per_sec": sps,
         "n": cfg.n,
         "wall_s": wall,
-        "operating_point": "settled",
+        "operating_point": operating_point,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }
@@ -100,8 +127,13 @@ def run_bench(checkpoint_path: str = SETTLED, steps: int = 64,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkpoint", default=SETTLED)
+    ap.add_argument("--preset", choices=PRESETS, default=None,
+                    help="cold start from this preset's initial conditions "
+                    "instead of the settled checkpoint")
+    ap.add_argument("--n", type=int, default=None,
+                    help="particle count of the cold start")
     ap.add_argument("--steps", type=int, default=64)
-    ap.add_argument("--warmup-steps", type=int, default=64)
+    ap.add_argument("--warmup-steps", type=int, default=None)
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
@@ -113,14 +145,13 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True,
                              text=True, timeout=60)
         print(smi.stdout.strip(), flush=True)
+    kw = dict(checkpoint_path=args.checkpoint, steps=args.steps,
+              warmup_steps=args.warmup_steps, device=args.device,
+              preset=args.preset, n=args.n)
     for _ in range(args.repeat):
-        print(json.dumps(run_bench(args.checkpoint, args.steps,
-                                   args.warmup_steps, args.device)),
-              flush=True)
+        print(json.dumps(run_bench(**kw)), flush=True)
     if args.profile:
-        print(json.dumps(run_bench(args.checkpoint, args.steps,
-                                   args.warmup_steps, args.device,
-                                   profile=True)), flush=True)
+        print(json.dumps(run_bench(profile=True, **kw)), flush=True)
     return 0
 
 

@@ -6,9 +6,10 @@ package configures the other, and the presets ``default``, ``jupiter_3k``
 and ``jupiter_100k``. The field documentation lives with the reference
 dataclass; the notes here only say what the port does with each group.
 
-The port runs one slice of the reference today (the cached grid + tree
-RESPA chunk of ``jupiter_100k``); :func:`check_slice` names every option
-outside it and refuses it loudly instead of ignoring it.
+The port runs two paths of the reference today: the cached grid + tree
+RESPA chunk of ``jupiter_100k`` and the uncached dense all-pairs step of
+``jupiter_3k``; :func:`check_slice` names every option outside them and
+refuses it loudly instead of ignoring it.
 """
 
 from __future__ import annotations
@@ -150,30 +151,63 @@ def from_dict(d: dict) -> SimConfig:
     return SimConfig(**{k: v for k, v in d.items() if k in known})
 
 
-def check_slice(cfg: SimConfig) -> None:
-    """Refuse, by name, every option the port does not run yet.
+def parse_override(key: str, value: str):
+    """Coerce a CLI ``k=v`` override to the SimConfig field's type.
 
-    The port covers the cached grid + tree pipeline with grad-h SPH, the
-    polytropic EOS, the fused residual-P2P pass 2 and the dense block far
-    scan (the ``jupiter_100k`` production step)."""
-    if cfg.neighbor_mode != "grid":
-        raise NotImplementedError(
-            f"neighbor_mode={cfg.neighbor_mode!r}: the port runs the grid "
-            "pipeline only")
-    if cfg.gravity_solver != "tree":
-        raise NotImplementedError(
-            f"gravity_solver={cfg.gravity_solver!r}: the port runs tree "
-            "gravity only")
-    if cfg.grad_p_mode != "grad_h":
-        raise NotImplementedError(
-            f"grad_p_mode={cfg.grad_p_mode!r}: the port runs grad_h only")
+    `type(default)(v)` is wrong for bools (bool('0') is True); tools that
+    accept overrides must route through this."""
+    fld = type(getattr(SimConfig(), key))
+    if fld is bool:
+        if value.lower() in ("1", "true", "yes", "on"):
+            return True
+        if value.lower() in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"bad bool for {key}: {value!r}")
+    return fld(value)
+
+
+def _check_common(cfg: SimConfig) -> None:
     if cfg.eos_mode != "polytropic":
         raise NotImplementedError(
             f"eos_mode={cfg.eos_mode!r}: the port runs the polytropic EOS "
             "only")
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"dtype={cfg.dtype!r}: kernels are f32")
+
+
+def _check_dense(cfg: SimConfig) -> None:
+    """The dense path: all-pairs SPH with direct (or no) gravity, rebuilt
+    every step (the ``jupiter_3k`` step and its options)."""
+    if cfg.gravity_solver == "tree":
+        raise NotImplementedError(
+            "gravity_solver='tree' with neighbor_mode='dense': the block "
+            "tree's standalone gravity sweep is not ported; use 'direct' or "
+            "'none'")
+    if cfg.rebuild_every > 1:
+        raise NotImplementedError(
+            f"rebuild_every={cfg.rebuild_every} with neighbor_mode='dense': "
+            "the cached dense step is not ported; use rebuild_every=1")
+
+
+def _check_grid(cfg: SimConfig) -> None:
+    """The grid path: the cached grid + tree pipeline with grad-h SPH, the
+    fused residual-P2P pass 2 and the dense block far scan (the
+    ``jupiter_100k`` production step)."""
+    if cfg.gravity_solver != "tree":
+        raise NotImplementedError(
+            f"gravity_solver={cfg.gravity_solver!r} with neighbor_mode="
+            "'grid': the port's grid pipeline runs tree gravity only")
+    if cfg.grad_p_mode != "grad_h":
+        raise NotImplementedError(
+            f"grad_p_mode={cfg.grad_p_mode!r} with neighbor_mode='grid': "
+            "the port's grid pipeline runs grad_h only")
     if cfg.av_alpha > 0.0:
-        raise NotImplementedError("av_alpha>0: artificial viscosity is not "
-                                  "ported")
+        raise NotImplementedError("av_alpha>0 with neighbor_mode='grid': "
+                                  "artificial viscosity is ported on the "
+                                  "dense path only")
+    if cfg.kernel_deriv_sign_bug:
+        raise NotImplementedError("kernel_deriv_sign_bug with neighbor_mode="
+                                  "'grid': ported on the dense path only")
     if cfg.sph_exact_window > 0:
         raise NotImplementedError("sph_exact_window>0: particle-exact SPH "
                                   "lists are not ported")
@@ -187,8 +221,8 @@ def check_slice(cfg: SimConfig) -> None:
             "fuse_p2p_residual)")
     if cfg.softening_mode != "symmetric_max":
         raise NotImplementedError(
-            f"softening_mode={cfg.softening_mode!r}: the port runs "
-            "symmetric_max softening only")
+            f"softening_mode={cfg.softening_mode!r} with neighbor_mode="
+            "'grid': the port's grid pipeline runs symmetric_max only")
     if cfg.grav_pair_dtype != "float32":
         raise NotImplementedError(
             f"grav_pair_dtype={cfg.grav_pair_dtype!r}: the bfloat16 pair "
@@ -198,8 +232,19 @@ def check_slice(cfg: SimConfig) -> None:
                          "has no meaning in the port; use 1")
     if cfg.multipole_order not in (1, 2):
         raise ValueError(f"multipole_order={cfg.multipole_order}: 1 or 2")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"dtype={cfg.dtype!r}: kernels are f32")
+
+
+def check_slice(cfg: SimConfig) -> None:
+    """Refuse, by name, every option the port does not run yet. Two paths
+    are admitted, selected by `neighbor_mode`: 'dense' and 'grid'."""
+    _check_common(cfg)
+    if cfg.neighbor_mode == "dense":
+        _check_dense(cfg)
+    elif cfg.neighbor_mode == "grid":
+        _check_grid(cfg)
+    else:
+        raise ValueError(f"neighbor_mode={cfg.neighbor_mode!r}: 'dense' or "
+                         "'grid'")
 
 
 def default(**kw) -> SimConfig:

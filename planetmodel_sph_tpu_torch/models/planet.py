@@ -1,12 +1,23 @@
-"""The planet model's cached stepping (PyTorch port, production path).
+"""The planet model's stepping (PyTorch port).
 
-Counterpart of ``planetmodel_sph_tpu/models/planet.py`` for the path the
-``jupiter_100k`` preset runs: Verlet-cached chunks of `rebuild_every`
-leapfrog KDK steps with the Newton h-solve at each chunk boundary, the
-state kept in the Morton-sorted padded layout for the chunk, per-step h
-tracking, impulse-RESPA far-field kicks and the centre-of-mass correction.
+Counterpart of ``planetmodel_sph_tpu/models/planet.py`` for the two paths
+the port runs:
+
+- the uncached step (``rebuild_every <= 1``): one full force evaluation per
+  step, staggered Euler or leapfrog KDK, fixed or CFL dt, relax-mode or
+  Newton h. On dense neighbours (the ``jupiter_3k`` preset) every step is
+  one all-pairs pass 1 and one pass 2, through the CUDA kernels of
+  ``ops/cuda/pairwise.py`` where `cfg.use_pallas` (the reference's switch
+  for its fused kernels) and through ``ops/dense.py`` otherwise;
+- the cached chunks of the ``jupiter_100k`` preset: `rebuild_every`
+  leapfrog KDK steps with the Newton h-solve at each chunk boundary, the
+  state kept in the Morton-sorted padded layout for the chunk, per-step h
+  tracking, impulse-RESPA far-field kicks and the centre-of-mass
+  correction.
+
 The reference's ``lax.scan`` loops are Python loops here; the eager
-operations run on whatever device holds the state's tensors.
+operations run on whatever device holds the state's tensors, and nothing in
+a step reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -18,7 +29,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import SimConfig, check_slice
-from ..ops import structure
+from ..ops import dense, eos as eos_ops, structure
+from ..ops.cuda import pairwise
 from ..state import ParticleState
 
 
@@ -34,7 +46,54 @@ class Forces(NamedTuple):
     accel: torch.Tensor
     h: torch.Tensor
     du_dt: torch.Tensor
+    # next-step Balsara AV-limiter factor (None unless cfg.av_balsara with
+    # AV on)
+    balsara: Optional[torch.Tensor] = None
+    # structure overflow counters of any structure built INSIDE the force
+    # evaluation; None when none was (dense + direct cannot drop)
     overflow: Optional[dict] = None
+
+
+def update_h(h, n_neighbors, cfg: SimConfig):
+    """Adaptive smoothing-length relaxation: h <- h * 0.5 * (1 +
+    (target/N)^(1/3)), unchanged when N = 0. N is the neighbour count of
+    the PREVIOUS step's kernel evaluation."""
+    if not cfg.adaptive_h:
+        return h
+    nn = n_neighbors.to(h.dtype)
+    ratio = torch.pow(cfg.target_neighbors / torch.where(nn > 0, nn, 1.0),
+                      1.0 / 3.0)
+    h_next = h * 0.5 * (1.0 + ratio)
+    h_next = torch.where(n_neighbors > 0, h_next, h)
+    if cfg.h_max > 0.0:
+        h_next = torch.clamp(h_next, max=cfg.h_max)
+    return h_next
+
+
+def current_dt(state: ParticleState, cfg: SimConfig):
+    """The timestep the next step will take, a 0-d tensor on the state's
+    device. dt_mode='fixed': cfg.dt. dt_mode='cfl': C * min_i(h_i/(c_i +
+    |v_i|), sqrt(h_i/|a_i|)) from the state's last-step fields, clipped to
+    [cfg.dt_min, cfg.dt]; particles with mass 0 are excluded."""
+    dtype, dev = state.pos.dtype, state.pos.device
+    if cfg.dt_mode == "fixed":
+        # filled on the device: no host-to-device copy in the step
+        return torch.full((), cfg.dt, dtype=dtype, device=dev)
+    live = state.mass > 0.0
+    cs = eos_ops.sound_speed_cfg(torch.clamp(state.rho, min=1e-30), cfg)
+    v = torch.sqrt((state.vel * state.vel).sum(dim=-1))
+    a = torch.sqrt((state.accel * state.accel).sum(dim=-1))
+    dt_c = torch.where(live, state.h / (cs + v + 1e-30), 3e30)
+    dt_f = torch.where(
+        live, torch.sqrt(state.h / torch.clamp(a, min=1e-30)), 3e30)
+    dt = cfg.cfl_number * torch.minimum(dt_c.min(), dt_f.min())
+    return torch.clamp(dt, cfg.dt_min, cfg.dt).to(dtype)
+
+
+def _step_dt(state: ParticleState, cfg: SimConfig):
+    """dt as the integrators use it: the Python float under dt_mode='fixed'
+    (no device op), else :func:`current_dt`'s 0-d tensor."""
+    return cfg.dt if cfg.dt_mode == "fixed" else current_dt(state, cfg)
 
 
 def h_eta(cfg: SimConfig) -> float:
@@ -50,6 +109,97 @@ def com_correct(grad_phi, mass, cfg: SimConfig):
         return grad_phi
     f = (mass[:, None] * grad_phi).sum(dim=0)
     return grad_phi - f[None, :] / mass.sum()
+
+
+balsara_factor = dense.balsara_factor
+
+
+def compute_forces(pos, h, mass, cfg: SimConfig, vel=None,
+                   fbal=None) -> Forces:
+    """Full field evaluation at the given positions and smoothing lengths
+    (the uncached path: any structure is built fresh, with zero skin).
+
+    `vel` is needed only with artificial viscosity, `fbal` (the previous
+    step's Balsara factors) only under cfg.av_balsara. Grid neighbours go
+    through the block pipeline of ``ops/structure.py``."""
+    check_slice(cfg)
+    if cfg.neighbor_mode == "grid":
+        st = structure.build(pos, h, mass, cfg)
+        return _forces_block(pos, h, mass, cfg, st, vel=vel)
+    if cfg.grad_p_mode == "grad_h":
+        return _compute_forces_gradh(pos, h, mass, cfg, vel=vel, fbal=fbal)
+
+    balsara = cfg.av_balsara and cfg.av_alpha > 0.0 and vel is not None
+    # cfg.use_pallas is the reference's switch for its fused all-pairs
+    # kernels; here it selects their CUDA counterparts (on CPU tensors the
+    # wrappers run their plain versions)
+    sweeps = pairwise if cfg.use_pallas else dense
+    p1 = sweeps.pass1(pos, h, mass, cfg)
+    rho, nn, phi, grad_phi, n_direct = p1
+    prs = eos_ops.pressure_cfg(rho, cfg)
+    kw = {"fbal": fbal} if balsara else {}
+    out = sweeps.pass2(pos, h, mass, rho, prs, cfg, vel=vel, **kw)
+    grad_p = out[0] if isinstance(out, tuple) else out
+    f_next = None
+    if balsara:
+        f_next = balsara_factor(out[-1], eos_ops.sound_speed_cfg(rho, cfg),
+                                rho, h)
+    # dv/dt = -grad P / rho - grad Phi
+    accel = -grad_p / rho[:, None] - grad_phi
+    return Forces(rho, prs, grad_p, phi, grad_phi, nn, n_direct,
+                  torch.zeros_like(n_direct), accel, h,
+                  torch.zeros_like(rho), f_next, None)
+
+
+def _viscosity(pos, vel, h, mass, rho, cfg: SimConfig):
+    """Monaghan AV as a standalone sweep (flag-gated); the all-pairs and
+    windowed pass 2 fuse it instead."""
+    if cfg.av_alpha <= 0.0:
+        return torch.zeros_like(pos)
+    if vel is None:
+        raise ValueError("artificial viscosity needs velocities; pass "
+                         "vel= to compute_forces")
+    return dense.viscosity_accel(pos, vel, h, mass, rho, cfg)
+
+
+def _compute_forces_gradh(pos, h, mass, cfg: SimConfig, vel=None,
+                          fbal=None) -> Forces:
+    """Grad-h SPH (Springel & Hernquist 2002) on the dense pipeline:
+    gather-form density with Omega correction factors and, under
+    h_mode='newton', the fixed-point solve of h = eta (m/rho)^(1/3)."""
+    if cfg.adaptive_h and cfg.h_mode == "newton":
+        eta = h_eta(cfg)
+        for _ in range(cfg.h_newton_iters):
+            rho, _, _ = dense.density_gradh(pos, h, mass, cfg)
+            h = eta * torch.pow(mass / rho, 1.0 / 3.0)
+            if cfg.h_max > 0.0:
+                h = torch.clamp(h, max=cfg.h_max)
+
+    rho, omega, nn = dense.density_gradh(pos, h, mass, cfg)
+    prs = eos_ops.pressure_cfg(rho, cfg)
+    grad_p = dense.pass2_gradh(pos, h, mass, rho, omega, prs, cfg)
+    if cfg.gravity_solver == "direct":
+        g1 = dense.pass1(pos, h, mass, cfg, sph=False)
+        phi, grad_phi, n_direct = g1.phi, g1.grad_phi, g1.n_direct
+    else:
+        phi = torch.zeros_like(rho)
+        grad_phi = torch.zeros_like(pos)
+        n_direct = torch.zeros_like(nn)
+    accel = -grad_p / rho[:, None] - grad_phi
+    f_next = None
+    if cfg.av_alpha > 0.0:
+        if vel is None:
+            raise ValueError("artificial viscosity needs velocities; pass "
+                             "vel= to compute_forces")
+        va = dense.viscosity_accel(pos, vel, h, mass, rho, cfg, fbal=fbal)
+        if cfg.av_balsara:
+            va, dc = va
+            f_next = balsara_factor(dc, eos_ops.sound_speed_cfg(rho, cfg),
+                                    rho, h)
+        accel = accel + va
+    return Forces(rho, prs, grad_p, phi, grad_phi, nn, n_direct,
+                  torch.zeros_like(n_direct), accel, h,
+                  torch.zeros_like(rho), f_next, None)
 
 
 def _skin(cfg: SimConfig, vel, accel):
@@ -95,35 +245,107 @@ def _forces_block(pos, h, mass, cfg: SimConfig, st, vel=None, solve_h=True,
     accel = -bf.grad_p / bf.rho[:, None] - grad_phi
     return Forces(bf.rho, bf.pressure, bf.grad_p, bf.phi, grad_phi,
                   bf.n_neighbors, bf.n_direct, bf.n_approx, accel, h,
-                  bf.du_dt, structure.overflow_info(st))
+                  bf.du_dt, None, structure.overflow_info(st))
 
 
 def _damp(vel, dt, cfg: SimConfig):
     """Settling-run velocity damping (cfg.vel_damping; no-op by default)."""
     if cfg.vel_damping <= 0.0 or cfg.freeze_velocity:
         return vel
+    if isinstance(dt, torch.Tensor):
+        return vel * torch.exp(-cfg.vel_damping * dt)
     return vel * math.exp(-cfg.vel_damping * dt)
 
 
 def _apply_forces(state: ParticleState, f: Forces) -> ParticleState:
-    return state.replace(
+    out = state.replace(
         rho=f.rho, pressure=f.pressure, grad_p=f.grad_p, phi=f.phi,
         grad_phi=f.grad_phi, n_neighbors=f.n_neighbors,
         n_direct=f.n_direct, n_approx=f.n_approx, accel=f.accel, h=f.h,
         du_dt=f.du_dt)
+    if f.balsara is not None:
+        out = out.replace(balsara=f.balsara)
+    return out
 
 
-def step_kdk(state: ParticleState, cfg: SimConfig, forces_fn):
-    """Leapfrog kick-drift-kick; state.accel carries a(x_n). The smoothing
-    length is whatever the caller put in the state (the cached runner
+def _default_forces(cfg: SimConfig):
+    def fn(pos, h, mass, vel=None, fbal=None):
+        return compute_forces(pos, h, mass, cfg, vel=vel, fbal=fbal)
+    return fn
+
+
+def _forces_kw(cfg: SimConfig, fbal):
+    """Thread fbal into a forces_fn only under cfg.av_balsara, so closures
+    that take (pos, h, mass, vel=) keep working."""
+    return {"fbal": fbal} if cfg.av_balsara and fbal is not None else {}
+
+
+def prime(state: ParticleState, cfg: SimConfig,
+          forces_fn=None) -> ParticleState:
+    """Evaluate forces once at the initial state (fills accel for KDK)."""
+    forces_fn = forces_fn or _default_forces(cfg)
+    return _apply_forces(state, forces_fn(
+        state.pos, state.h, state.mass, vel=state.vel,
+        **_forces_kw(cfg, state.balsara)))
+
+
+def overflow_zero(device=None):
+    """The all-zero structure-overflow counter dict."""
+    return {"nbr_overflow": torch.zeros((), dtype=torch.int32, device=device),
+            "tree_overflow": torch.zeros((), dtype=torch.int32,
+                                         device=device)}
+
+
+def _step_info(f: Forces, device):
+    return f.overflow if f.overflow is not None else overflow_zero(device)
+
+
+def step_staggered(state: ParticleState, cfg: SimConfig, forces_fn=None,
+                   update_smoothing=True, return_info=False):
+    """Reference-ordered step: forces at x_n, then x_{n+1} = x_n + v_n dt
+    (the OLD velocity), then v_{n+1} = v_n + a(x_n) dt. `return_info=True`
+    also returns the overflow counters of any structure built inside the
+    force evaluation (zeros when none was)."""
+    forces_fn = forces_fn or _default_forces(cfg)
+    dt = _step_dt(state, cfg)
+    h = update_h(state.h, state.n_neighbors, cfg) if update_smoothing \
+        else state.h
+    f = forces_fn(state.pos, h, state.mass, vel=state.vel,
+                  **_forces_kw(cfg, state.balsara))
+    pos = state.pos + state.vel * dt
+    vel = state.vel if cfg.freeze_velocity else state.vel + f.accel * dt
+    out = _apply_forces(state, f).replace(pos=pos, vel=_damp(vel, dt, cfg))
+    if return_info:
+        return out, _step_info(f, pos.device)
+    return out
+
+
+def step_kdk(state: ParticleState, cfg: SimConfig, forces_fn=None,
+             update_smoothing=True, return_info=False):
+    """Leapfrog kick-drift-kick; state.accel carries a(x_n) from the last
+    step. `update_smoothing=False` keeps the state's h (the cached runner
     updates it at chunk boundaries and by tracking)."""
-    dt = cfg.dt
+    forces_fn = forces_fn or _default_forces(cfg)
+    dt = _step_dt(state, cfg)
     v_half = state.vel if cfg.freeze_velocity \
         else state.vel + 0.5 * dt * state.accel
     pos = state.pos + dt * v_half
-    f = forces_fn(pos, state.h, state.mass, vel=v_half)
+    h = update_h(state.h, state.n_neighbors, cfg) if update_smoothing \
+        else state.h
+    f = forces_fn(pos, h, state.mass, vel=v_half,
+                  **_forces_kw(cfg, state.balsara))
     vel = v_half if cfg.freeze_velocity else v_half + 0.5 * dt * f.accel
-    return _apply_forces(state, f).replace(pos=pos, vel=_damp(vel, dt, cfg))
+    out = _apply_forces(state, f).replace(pos=pos, vel=_damp(vel, dt, cfg))
+    if return_info:
+        return out, _step_info(f, pos.device)
+    return out
+
+
+def step(state: ParticleState, cfg: SimConfig, forces_fn=None,
+         return_info=False):
+    if cfg.integrator == "staggered_euler":
+        return step_staggered(state, cfg, forces_fn, return_info=return_info)
+    return step_kdk(state, cfg, forces_fn, return_info=return_info)
 
 
 def _permute_state(state: ParticleState, idx):
@@ -134,15 +356,15 @@ def _permute_state(state: ParticleState, idx):
 
 
 def _check_runner(cfg: SimConfig):
+    """What the cached chunk runner (rebuild_every > 1) serves."""
     check_slice(cfg)
-    if cfg.rebuild_every <= 1:
-        raise NotImplementedError("rebuild_every<=1: the uncached step is "
-                                  "not ported; the port runs cached chunks")
     if not (cfg.adaptive_h and cfg.h_mode == "newton"):
-        raise NotImplementedError("the port runs the Newton h-solve only "
-                                  "(adaptive_h=True, h_mode='newton')")
+        raise NotImplementedError("rebuild_every>1: cached chunks run the "
+                                  "Newton h-solve only (adaptive_h=True, "
+                                  "h_mode='newton')")
     if cfg.integrator != "leapfrog_kdk" or cfg.dt_mode != "fixed":
-        raise NotImplementedError("the port runs fixed-dt leapfrog KDK only")
+        raise NotImplementedError("rebuild_every>1: cached chunks run "
+                                  "fixed-dt leapfrog KDK only")
     if not cfg.sorted_chunks:
         raise NotImplementedError("sorted_chunks=False is not ported")
 
@@ -215,7 +437,8 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
         for _ in range(k // m):
             out = out.replace(vel=out.vel - (0.5 * m * dt) * gphi_f)
             for _ in range(m):
-                out = step_kdk(_tracked(out), cfg, near_fn)
+                out = step_kdk(_tracked(out), cfg, near_fn,
+                               update_smoothing=False)
             phi_f, gphi_f, na_f = far_eval(out)
             out = out.replace(vel=out.vel - (0.5 * m * dt) * gphi_f)
         # restore the full-field invariant (all at the final positions)
@@ -225,7 +448,8 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
     else:
         full_fn = forces_fn("all")
         for _ in range(k):
-            out = step_kdk(_tracked(out), cfg, full_fn)
+            out = step_kdk(_tracked(out), cfg, full_fn,
+                           update_smoothing=False)
     out = _permute_state(out, st.groups.unsort_idx)
     if return_groups:
         return out, info, st.groups
@@ -259,13 +483,49 @@ def _run_cached_span(state: ParticleState, cfg: SimConfig, n_steps: int):
     return state, info
 
 
+def _add_info(a, b):
+    return {key: a[key] + b[key] for key in a}
+
+
+def _run_steps(state: ParticleState, cfg: SimConfig, n_steps: int):
+    """n_steps uncached steps; returns (state, summed overflow info)."""
+    info = overflow_zero(state.pos.device)
+    for _ in range(n_steps):
+        state, i1 = step(state, cfg, return_info=True)
+        info = _add_info(info, i1)
+    return state, info
+
+
+def _run_span(state: ParticleState, cfg: SimConfig, n_steps: int):
+    if cfg.rebuild_every > 1:
+        _check_runner(cfg)
+        return _run_cached_span(state, cfg, n_steps)
+    return _run_steps(state, cfg, n_steps)
+
+
 def run_info(state: ParticleState, cfg: SimConfig, n_steps: int):
     """Advance n_steps; returns (state, info) where info sums the structure
     overflow counters over every rebuild in the run."""
-    _check_runner(cfg)
-    return _run_cached_span(state, cfg, n_steps)
+    return _run_span(state, cfg, n_steps)
 
 
 def run(state: ParticleState, cfg: SimConfig, n_steps: int) -> ParticleState:
     """Advance n_steps (state only; see run_info for overflow accounting)."""
     return run_info(state, cfg, n_steps)[0]
+
+
+def run_with_diagnostics(state: ParticleState, cfg: SimConfig,
+                         n_chunks: int, chunk: int):
+    """Advance n_chunks*chunk steps, measuring diagnostics every `chunk`
+    steps. Returns (state, diags): each value of diags is an [n_chunks]
+    tensor on the state's device (stacked once, at the end), with the
+    chunk's summed overflow counters beside the measured quantities."""
+    from ..utils import diagnostics
+
+    rows = []
+    for _ in range(n_chunks):
+        state, info = _run_span(state, cfg, chunk)
+        d = diagnostics.measure(state, cfg)
+        d.update({k: v.to(torch.int32) for k, v in info.items()})
+        rows.append(d)
+    return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

@@ -29,17 +29,20 @@ SIGNATURES = {
     "pass2": "p" * 26 + "iiii" + "f" + "p",
     "gravity_fused": "p" * 4 + "p" * 10 + "p" + "p" * 10 + "p" + "p" * 6
                      + "iiiii" + "f" + "p",
+    "pairwise_pass1": "p" * 10 + "iiii" + "f" + "p",
+    "pairwise_pass2": "p" * 12 + "iiiiii" + "ff" + "p",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Kernels whose output holds an exact decision on r2 (the filter mask,
-# pass 1's q < 2 count) build without multiply-add contraction, so r2 and
-# cut*cut round as the plain PyTorch versions' separate ops do and
-# knife-edge compares agree. pass2 and gravity_fused decide only on m > 0
-# and accept, and their sums are held to a tolerance: they keep FMA.
-NO_FMAD = ("filter_sph", "pass1_gradh")
+# Kernels whose output holds an exact decision on r2 (the filter mask, the
+# q < 2 counts of both pass 1s) build without multiply-add contraction, so
+# r2 and cut*cut round as the plain PyTorch versions' separate ops do and
+# knife-edge compares agree. The pass 2s and gravity_fused count nothing
+# that rounding moves, and their sums are held to a tolerance: they keep
+# FMA.
+NO_FMAD = ("filter_sph", "pass1_gradh", "pairwise_pass1")
 
 _LIBS: dict = {}
 

@@ -11,8 +11,8 @@ each with
   or raises — it never falls back;
 - a plain PyTorch version (``*_plain``): the same math as one masked
   [G, B, S] broadcast contraction, the counterpart of ``fallback.py``;
-- a launch counter, ``LAUNCHES[name]``, incremented only where the wrapper
-  launches its kernel.
+- a launch counter, ``LAUNCHES[name]`` (shared by every kernel module, see
+  ``launch.py``), incremented only where the wrapper launches its kernel.
 
 The shared contract (``groups2.py:6-40`` of the reference): targets are
 [G*B, 1] sorted-layout columns, sources [G, S] window rows of which the
@@ -25,41 +25,16 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from .launch import (LAUNCHES, is_cuda as _is_cuda, launch as _launch,
+                     need as _need, reset_launches)
 
 INV_PI = 1.0 / 3.14159265358979323846
 KERNELS = ("filter_sph", "pass1_gradh", "pass2", "gravity_fused")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
-# argument checks and the launch
+# argument checks
 # ---------------------------------------------------------------------------
-
-def _is_cuda(name, tensors) -> bool:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    return dev.type == "cuda"
-
-
-def _need(name, what, t, shape, dtype=torch.float32):
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: {what} is {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: {what} is not contiguous")
-
 
 def _check_window(name, nv, tgt, rows, b):
     g, s = rows[0].shape
@@ -69,18 +44,6 @@ def _check_window(name, nv, tgt, rows, b):
     for k, r in enumerate(rows):
         _need(name, f"source row {k}", r, (g, s))
     return g, s
-
-
-def _launch(name, args):
-    dev = args[0].device
-    fn = build.kernel(name)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args]
-    rc = fn(*conv, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    LAUNCHES[name] += 1
 
 
 def _out(like, g, b, n, dtype=torch.float32):

@@ -38,7 +38,7 @@ def sound_speed(rho, k: float, gamma: float = 2.0):
     return torch.sqrt(gamma * k * torch.pow(rho, gamma - 1.0))
 
 
-def _polytropic_only(cfg):
+def require_polytropic(cfg):
     if cfg.eos_mode != "polytropic":
         raise NotImplementedError(
             f"eos_mode={cfg.eos_mode!r}: the port runs the polytropic EOS "
@@ -47,11 +47,11 @@ def _polytropic_only(cfg):
 
 def pressure_cfg(rho, cfg, u=None, matid=None):
     """P from the configured EOS (polytropic: u and matid are unused)."""
-    _polytropic_only(cfg)
+    require_polytropic(cfg)
     return pressure(rho, cfg.eos_k, cfg.eos_gamma)
 
 
 def sound_speed_cfg(rho, cfg, u=None, matid=None):
     """c_s from the configured EOS, floor-safe at rho=0."""
-    _polytropic_only(cfg)
+    require_polytropic(cfg)
     return sound_speed(torch.clamp(rho, min=0.0), cfg.eos_k, cfg.eos_gamma)

@@ -80,3 +80,10 @@ def measure(state: ParticleState, cfg: SimConfig) -> dict:
     out.update(stats(state.phi, "phi"))
     out.update(stats(u, "specific_internal_energy"))
     return out
+
+
+def energy_drift(diags: dict):
+    """Relative drift |E(t) - E(0)| / |E(0)| from a stacked diagnostics
+    dict."""
+    e = diags["total_energy"]
+    return (e - e[0]).abs() / e[0].abs()

@@ -1,0 +1,204 @@
+"""The port's blocked all-pairs passes (``ops/dense.py``) against the JAX
+package's, function by function, from the same particles (the JAX initial
+conditions, handed over as numpy arrays).
+
+Both are the same f32 expressions; only the order of the sums over j
+differs (XLA's reduction against PyTorch's), so counts must be equal and
+floats agree to rtol 1e-5, with an atol of 1e-5 of the field's largest
+magnitude for the vector sums whose terms cancel (grad P, grad phi, the
+div/curl sums)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from planetmodel_sph_tpu import config as jc
+from planetmodel_sph_tpu.models import ics as jics
+from planetmodel_sph_tpu.ops import dense as jd
+from planetmodel_sph_tpu.ops import eos as jeos
+from planetmodel_sph_tpu_torch import config as tc
+from planetmodel_sph_tpu_torch.ops import dense as td
+
+KW = dict(n=200, radius=8.0, particle_radius=2.0, gravity_solver="direct",
+          block_n=64)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """PyTorch's first multi-threaded CPU call in a process can round a few
+    rows differently from every later call; one thread keeps the tight
+    tolerances here deterministic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfgs(**kw):
+    kw = {**KW, **kw}
+    return jc.SimConfig(**kw), tc.SimConfig(**kw)
+
+
+def _particles(jcfg, rotating=False):
+    """(numpy dict, jax state) from the JAX ICs, with a density and
+    pressure from the JAX pass 1 so pass 2 sees realistic fields."""
+    st = jics.rotating_planet(jcfg, omega=0.3) if rotating \
+        else jics.jupiter(jcfg)
+    if rotating:
+        # a contraction on top of the rotation, so pairs approach
+        st = st.replace(vel=st.vel - 0.2 * st.pos)
+    p1 = jd.pass1(st.pos, st.h, st.mass, jcfg)
+    prs = jeos.pressure(p1.rho, jcfg.eos_k, jcfg.eos_gamma)
+    st = st.replace(rho=p1.rho, pressure=prs)
+    arr = {k: np.asarray(getattr(st, k))
+           for k in ("pos", "vel", "h", "mass", "rho", "pressure")}
+    return arr, st
+
+
+def _t(arr, *names):
+    return [torch.from_numpy(np.array(arr[k])) for k in names]
+
+
+def _close(out, ref, rtol=1e-5, cancelling=False):
+    ref = np.asarray(ref)
+    atol = 1e-5 * np.abs(ref).max() if cancelling else 0.0
+    np.testing.assert_allclose(out.numpy(), ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("softening", ["receiver_h", "symmetric_max"])
+@pytest.mark.parametrize("gravity", ["direct", "none"])
+def test_pass1_matches_jax(softening, gravity):
+    jcfg, tcfg = _cfgs(softening_mode=softening, gravity_solver=gravity)
+    arr, st = _particles(jcfg)
+    ref = jd.pass1(st.pos, st.h, st.mass, jcfg)
+    out = td.pass1(*_t(arr, "pos", "h", "mass"), tcfg)
+    _close(out.rho, ref.rho)
+    np.testing.assert_array_equal(out.n_neighbors.numpy(),
+                                  np.asarray(ref.n_neighbors))
+    _close(out.phi, ref.phi)
+    _close(out.grad_phi, ref.grad_phi, cancelling=True)
+    np.testing.assert_array_equal(out.n_direct.numpy(),
+                                  np.asarray(ref.n_direct))
+    assert out.n_neighbors.dtype == torch.int32
+    assert bool(out.n_direct.any()) == (gravity == "direct")
+
+
+def test_pass1_gravity_only_matches_jax():
+    jcfg, tcfg = _cfgs()
+    arr, st = _particles(jcfg)
+    ref = jd.pass1(st.pos, st.h, st.mass, jcfg, sph=False)
+    out = td.pass1(*_t(arr, "pos", "h", "mass"), tcfg, sph=False)
+    assert not out.rho.any() and not out.n_neighbors.any()
+    _close(out.phi, ref.phi)
+    _close(out.grad_phi, ref.grad_phi, cancelling=True)
+
+
+def test_pass1_src_and_target_offset_match_jax():
+    """Targets = rows 64..136 of the particle set, sources = all of it with
+    two inert (mass 0) particles: the sharded-sources form."""
+    jcfg, tcfg = _cfgs()
+    arr, _ = _particles(jcfg)
+    arr["mass"] = arr["mass"].copy()
+    arr["mass"][[3, 100]] = 0.0
+    sl = slice(64, 136)
+    jsrc = tuple(jnp.asarray(arr[k]) for k in ("pos", "h", "mass"))
+    ref = jd.pass1(*(a[sl] for a in jsrc), jcfg, src=jsrc, target_offset=64)
+    tsrc = tuple(_t(arr, "pos", "h", "mass"))
+    out = td.pass1(*(a[sl] for a in tsrc), tcfg, src=tsrc, target_offset=64)
+    _close(out.rho, ref.rho)
+    np.testing.assert_array_equal(out.n_neighbors.numpy(),
+                                  np.asarray(ref.n_neighbors))
+    np.testing.assert_array_equal(out.n_direct.numpy(),
+                                  np.asarray(ref.n_direct))
+    _close(out.grad_phi, ref.grad_phi, cancelling=True)
+    assert int(out.n_direct[0]) == 200 - 1 - 2
+
+
+@pytest.mark.parametrize("mode", ["reference_asymmetric", "symmetric"])
+@pytest.mark.parametrize("bug", [False, True])
+def test_pass2_matches_jax(mode, bug):
+    jcfg, tcfg = _cfgs(grad_p_mode=mode, kernel_deriv_sign_bug=bug)
+    arr, st = _particles(jcfg)
+    ref = jd.pass2(st.pos, st.h, st.mass, st.rho, st.pressure, jcfg)
+    out = td.pass2(*_t(arr, "pos", "h", "mass", "rho", "pressure"), tcfg)
+    _close(out, ref, cancelling=True)
+
+
+@pytest.mark.parametrize("bug", [False, True])
+@pytest.mark.parametrize("balsara", [False, True])
+def test_pass2_viscosity_matches_jax(balsara, bug):
+    jcfg, tcfg = _cfgs(av_alpha=1.0, av_beta=2.0, av_balsara=balsara,
+                       kernel_deriv_sign_bug=bug)
+    arr, st = _particles(jcfg, rotating=True)
+    fb = np.linspace(0.2, 1.0, jcfg.n).astype(np.float32)
+    kw_j = dict(fbal=jnp.asarray(fb)) if balsara else {}
+    kw_t = dict(fbal=torch.from_numpy(fb)) if balsara else {}
+    ref = jd.pass2(st.pos, st.h, st.mass, st.rho, st.pressure, jcfg,
+                   vel=st.vel, **kw_j)
+    out = td.pass2(*_t(arr, "pos", "h", "mass", "rho", "pressure"), tcfg,
+                   vel=_t(arr, "vel")[0], **kw_t)
+    if balsara:
+        _close(out[0], ref[0], cancelling=True)
+        _close(out[1], ref[1], cancelling=True)
+        assert out[1].shape == (jcfg.n, 4)
+    else:
+        _close(out, ref, cancelling=True)
+    # the viscosity is not a no-op on this velocity field
+    plain = td.pass2(*_t(arr, "pos", "h", "mass", "rho", "pressure"),
+                     tcfg.replace(av_alpha=0.0))
+    gp = out[0] if balsara else out
+    assert not torch.allclose(gp, plain, rtol=1e-3)
+
+
+@pytest.mark.parametrize("balsara", [False, True])
+def test_viscosity_accel_matches_jax(balsara):
+    jcfg, tcfg = _cfgs(av_alpha=1.0, av_beta=2.0, av_balsara=balsara)
+    arr, st = _particles(jcfg, rotating=True)
+    ref = jd.viscosity_accel(st.pos, st.vel, st.h, st.mass, st.rho, jcfg)
+    out = td.viscosity_accel(*_t(arr, "pos", "vel", "h", "mass", "rho"),
+                             tcfg)
+    if balsara:
+        _close(out[0], ref[0], cancelling=True)
+        _close(out[1], ref[1], cancelling=True)
+    else:
+        _close(out, ref, cancelling=True)
+
+
+def test_gradh_density_and_force_match_jax():
+    jcfg, tcfg = _cfgs(grad_p_mode="grad_h")
+    arr, st = _particles(jcfg)
+    rho, omega, nn = jd.density_gradh(st.pos, st.h, st.mass, jcfg)
+    t_rho, t_omega, t_nn = td.density_gradh(*_t(arr, "pos", "h", "mass"),
+                                            tcfg)
+    _close(t_rho, rho)
+    _close(t_omega, omega)
+    np.testing.assert_array_equal(t_nn.numpy(), np.asarray(nn))
+    prs = jeos.pressure(rho, jcfg.eos_k, jcfg.eos_gamma)
+    ref = jd.pass2_gradh(st.pos, st.h, st.mass, rho, omega, prs, jcfg)
+    out = td.pass2_gradh(*_t(arr, "pos", "h", "mass"),
+                         torch.from_numpy(np.array(rho)),
+                         torch.from_numpy(np.array(omega)),
+                         torch.from_numpy(np.array(prs)), tcfg)
+    _close(out, ref, cancelling=True)
+
+
+def test_balsara_factor_matches_jax():
+    rng = np.random.default_rng(1)
+    dc = rng.normal(size=(50, 4)).astype(np.float32)
+    cs, rho, h = (rng.uniform(0.5, 2.0, 50).astype(np.float32)
+                  for _ in range(3))
+    ref = jd.balsara_factor(*(jnp.asarray(x) for x in (dc, cs, rho, h)))
+    out = td.balsara_factor(*(torch.from_numpy(x) for x in (dc, cs, rho, h)))
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("kw,word", [
+    (dict(energy=True), "energy"), (dict(u=torch.zeros(4)), "u"),
+    (dict(matid=torch.zeros(4)), "matid")])
+def test_unported_inputs_refused_by_name(kw, word):
+    _, tcfg = _cfgs(n=4)
+    z = torch.zeros(4)
+    with pytest.raises(NotImplementedError, match=word):
+        td.pass2(torch.zeros(4, 3), z + 1, z + 1, z + 1, z, tcfg, **kw)

@@ -13,7 +13,8 @@ import sys
 import pytest
 import torch
 
-from planetmodel_sph_tpu_torch import bench, state
+from planetmodel_sph_tpu_torch import bench, cli, state
+from planetmodel_sph_tpu_torch.models import ics
 from planetmodel_sph_tpu_torch.runtime import snapshot
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,13 +54,38 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     names = {os.path.relpath(p, PKG) for p in _sources()}
     assert {"ops/structure.py", "ops/cuda/groups2.py", "models/planet.py",
-            "runtime/snapshot.py"} <= names
+            "runtime/snapshot.py", "ops/cuda/pairwise.py", "ops/dense.py",
+            "ops/kernels.py", "models/ics.py", "cli.py", "bench.py"} <= names
 
 
 @pytest.mark.parametrize("fn", [state.from_numpy, state.zeros,
-                                snapshot.load, bench.run_bench])
+                                snapshot.load, bench.run_bench,
+                                ics.jupiter, ics.polytrope,
+                                ics.two_planet_collision,
+                                ics.rotating_planet])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("call", [
+    lambda: ics.jupiter(state.SimConfig(n=8)),
+    lambda: ics.polytrope(state.SimConfig(n=8)),
+    lambda: ics.rotating_planet(state.SimConfig(n=8)),
+    lambda: ics.two_planet_collision(state.SimConfig(n=8)),
+    lambda: bench.run_bench(preset="jupiter_3k", n=8, steps=1),
+    lambda: cli.main(["run", "--n", "8", "--steps", "1"]),
+    lambda: cli.main(["bench", "--n", "8", "--steps", "1"]),
+], ids=["jupiter", "polytrope", "rotating_planet", "two_planet_collision",
+        "bench_cold_start", "cli_run", "cli_bench"])
+def test_new_entry_points_raise_without_a_card(call, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+def test_cli_device_flag_defaults_to_cuda():
+    src = inspect.getsource(cli.main)
+    assert src.count('"--device", default="cuda"') == 2     # run and bench
 
 
 def test_no_silent_cpu_fallback(monkeypatch):

@@ -93,5 +93,10 @@ def test_cpu_run_launches_no_kernel(runs):
 
 
 def test_runner_refuses_uncached_step():
+    """The uncached step itself is ported (tests/test_torch_step.py); what
+    the runner still refuses around rebuild_every is the cached step on
+    dense neighbours, and cached chunks without the Newton h-solve."""
     with pytest.raises(NotImplementedError, match="rebuild_every"):
-        tp.run_info(None, TCFG.replace(rebuild_every=1), 4)
+        tp.run_info(None, tc.jupiter_3k(n=64, rebuild_every=4), 4)
+    with pytest.raises(NotImplementedError, match="rebuild_every"):
+        tp.run_info(None, TCFG.replace(h_mode="relax"), 4)

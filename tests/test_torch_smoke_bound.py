@@ -1,6 +1,7 @@
 """chip_smoke.py's bound counts only the work this data needs.
 
-Each case places a few window slots in known branches (q < 1, 1 <= q < 2,
+Each case places a few window slots (for the all-pairs kernels: four
+particles) in known branches (q < 1, 1 <= q < 2,
 q >= 2; Dyer-Ip x < 1 and x >= 1; a slot with m = 0 and one past nv) and
 checks the operation and byte counts against the per-branch costs written
 beside the constants in ``chip_smoke.py``. Runs on the CPU through the
@@ -113,3 +114,94 @@ def test_filter_ops_stop_at_first_hit_and_bytes_skip_past_nv():
     _, _, nbytes, ops = cs.bound("filter_sph", a, {"b": b}, out)
     assert ops == cs.OPS_FILTER * (3 + 1 + 3) + 4 * cs.OPS_SLOT_TEST
     assert nbytes == 5 * b * 4 + 4 + 4 * 6 * 4 + 6 * 4
+
+
+# ---- the all-pairs kernels -------------------------------------------------
+
+def _four_particles():
+    """x = 0, 0.5 (h = 1), x = 5 (h = 3), x = 100 (h = 1). Ordered pairs
+    inside either support: (0,1), (1,0) with q_i, q_j < 1; (0,2), (1,2)
+    with q_i >= 2 and 1 <= q_j < 2; (2,0), (2,1) the reverse. The six pairs
+    with particle 3 lie outside both supports. Dyer-Ip under
+    max-softening: near only for (0,1), (1,0)."""
+    pos = torch.tensor([[0.0, 0, 0], [0.5, 0, 0], [5.0, 0, 0],
+                        [100.0, 0, 0]])
+    h = torch.tensor([1.0, 1.0, 3.0, 1.0])
+    return pos, h, torch.ones(4)
+
+
+def _pw_common(n=4):
+    return cs.OPS_PW_SELF * n * n + cs.OPS_PW_GEOM * n * (n - 1)
+
+
+@pytest.mark.parametrize("softening", ["symmetric_max", "receiver_h"])
+def test_pairwise_pass1_ops_and_bytes_by_branch(softening):
+    from planetmodel_sph_tpu_torch import config as tc
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    cfg = tc.jupiter_3k(n=4, softening_mode=softening)
+    args = _four_particles()
+    out = pw.pass1(*args, cfg)
+    assert out.n_neighbors.tolist() == [1, 1, 2, 0]
+    _, by, nbytes, ops = cs.pairwise_bound("pairwise_pass1", args, {}, cfg,
+                                           tuple(out))
+    w, di = cs.OPS_PW_W, cs.OPS_DYER_IP
+    sph = 6 * cs.OPS_PW_RHO + 4 * (w["inner"] + w["outer"] + w["none"])
+    fmin = 1 if softening == "receiver_h" else 0
+    grav = 12 * (cs.OPS_PW_GRAV - fmin) + 2 * di["near"] + 10 * di["far"]
+    assert ops == _pw_common() + sph + grav
+    assert nbytes == (48 + 16 + 16) + (16 + 16 + 16 + 48 + 16)
+    assert by == "bytes"          # four particles: the arrays outweigh it
+    # without gravity only the geometry and the spline branches remain
+    cfg0 = cfg.replace(gravity_solver="none")
+    _, _, _, ops0 = cs.pairwise_bound("pairwise_pass1", args, {}, cfg0,
+                                      tuple(pw.pass1(*args, cfg0)))
+    assert ops0 == _pw_common() + sph
+
+
+def _pass2_args():
+    pos, h, m = _four_particles()
+    return (pos, h, m, torch.ones(4), torch.ones(4))
+
+
+def _pw_grad():
+    g = cs.OPS_PW_GW
+    return (4 * (g["inner"] + g["outer"] + g["none"])
+            + 4 * cs.OPS_PW_GW_CJ + 6 * cs.OPS_PW_GW_SYM)
+
+
+@pytest.mark.parametrize("mode", ["symmetric", "reference_asymmetric"])
+def test_pairwise_pass2_ops_by_branch(mode):
+    from planetmodel_sph_tpu_torch import config as tc
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    cfg = tc.jupiter_3k(n=4, grad_p_mode=mode)
+    args = _pass2_args()
+    out = pw.pass2(*args, cfg)
+    _, _, nbytes, ops = cs.pairwise_bound("pairwise_pass2", args, {}, cfg,
+                                          (out,))
+    coef = cs.OPS_PW_COEF["symmetric" if mode == "symmetric"
+                          else "asymmetric"]
+    assert ops == _pw_common() + _pw_grad() + 6 * (coef + cs.OPS_PW_GP_SUM)
+    assert nbytes == (48 + 4 * 16) + 48
+
+
+@pytest.mark.parametrize("sign,approaching", [(-1.0, 6), (1.0, 0)])
+def test_pairwise_pass2_viscosity_ops_count_approaching_pairs(sign,
+                                                              approaching):
+    from planetmodel_sph_tpu_torch import config as tc
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    cfg = tc.jupiter_3k(n=4, av_alpha=1.0, av_beta=2.0, av_balsara=True,
+                        kernel_deriv_sign_bug=True)
+    args = _pass2_args()
+    # homologous contraction (every pair approaches) or expansion (none)
+    kw = dict(vel=sign * 0.1 * args[0], fbal=torch.ones(4))
+    out = pw.pass2(*args, cfg, **kw)
+    _, _, nbytes, ops = cs.pairwise_bound("pairwise_pass2", args, kw, cfg,
+                                          tuple(out))
+    base = _pw_common() + _pw_grad() + 6 * (cs.OPS_PW_COEF["symmetric"]
+                                            + cs.OPS_PW_GP_SUM)
+    av = (6 * cs.OPS_PW_VDOTR
+          + approaching * (cs.OPS_PW_PI + cs.OPS_PW_PI_BAL)
+          + _pw_grad()            # the correct derivative again (sign bug)
+          + 6 * cs.OPS_PW_DC)
+    assert ops == base + av
+    assert nbytes == (48 + 4 * 16) + (48 + 16) + (48 + 64)
