@@ -13,6 +13,9 @@ enqueue, and the result names the device it ran on.
         --set h_mode=relax --set fuse_p2p_sph=false \\
         --set fuse_p2p_residual=false --set p2p_window=256 \\
         --set m2p_window=256             # the settled state, another config
+    python -m planetmodel_sph_tpu_torch.bench --preset basalt_impact \\
+        --ic two_planet_collision --materials basalt,ice \\
+        --separation 2e7 --approach-speed 3e5 --steps 100  # Tillotson impact
 
 prints the card's name and power limit, then one JSON line per repeat.
 
@@ -33,6 +36,7 @@ import torch
 
 from . import config as config_mod
 from .models import ics, planet
+from .ops import eos as eos_ops
 from .runtime import snapshot
 
 REFERENCE_PARTICLE_STEPS_PER_SEC = 3000 * 50.0
@@ -61,24 +65,82 @@ def _device_times(prof, top=12):
     return busy, dict(ranked)
 
 
-PRESETS = ("auto", "default", "jupiter_3k", "jupiter_100k", "parity")
-ICS = ("jupiter", "polytrope")
+PRESETS = ("auto", "basalt_impact", "default", "jupiter_3k", "jupiter_100k",
+           "parity")
+ICS = ("jupiter", "polytrope", "two_planet_collision",
+       "differentiated_planet")
+
+
+def add_ic_arguments(ap) -> None:
+    """The cold start's initial conditions and their parameters."""
+    ap.add_argument("--ic", choices=ICS, default="jupiter",
+                    help="initial conditions of the cold start")
+    ap.add_argument("--materials", default=None, metavar="A,B",
+                    help="Tillotson materials: the two bodies of "
+                    "two_planet_collision, or core,mantle of "
+                    "differentiated_planet")
+    ap.add_argument("--separation", type=float, default=None,
+                    help="two_planet_collision: initial centre separation")
+    ap.add_argument("--approach-speed", type=float, default=None,
+                    help="two_planet_collision: closing bulk speed")
+
+
+def parse_materials(text):
+    """``--materials A,B`` as a pair of names, or None."""
+    if not text:
+        return None
+    mats = tuple(text.split(","))
+    if len(mats) != 2:
+        raise SystemExit("--materials wants two comma-separated names, "
+                         "e.g. basalt,ice")
+    return mats
+
+
+def ic_kwargs(args) -> dict:
+    """Keyword arguments of the chosen initial conditions from parsed
+    :func:`add_ic_arguments` options."""
+    kw = {}
+    mats = parse_materials(args.materials)
+    if args.ic == "two_planet_collision":
+        if mats:
+            kw["materials"] = mats
+        if args.separation is not None:
+            kw["separation"] = args.separation
+        if args.approach_speed is not None:
+            kw["approach_speed"] = args.approach_speed
+    elif args.ic == "differentiated_planet" and mats:
+        kw.update(core_material=mats[0], mantle_material=mats[1])
+    return kw
+
+
+def with_thermal_state(state, stored_cfg, cfg):
+    """`state` as a run under `cfg` starts from it. A run under the
+    polytropic EOS never updates u (a state stored by one carries its
+    initial conditions' u): when `cfg` evolves the internal energy and
+    `stored_cfg` did not, u starts from the polytropic relation at the
+    stored density, which with gamma = 2 is the same pressure."""
+    if cfg.evolves_u and not stored_cfg.evolves_u:
+        return state.replace(u=eos_ops.internal_energy(
+            state.rho, stored_cfg.eos_k, stored_cfg.eos_gamma))
+    return state
 
 
 def run_bench(checkpoint_path: str | None = SETTLED, steps: int = 64,
               warmup_steps: int | None = None, device="cuda",
               profile: bool = False, preset: str | None = None,
               n: int | None = None, overrides: dict | None = None,
-              ic: str = "jupiter") -> dict:
+              ic: str = "jupiter", ic_kw: dict | None = None) -> dict:
     """Time `steps` steps of ``planet.run_info`` after `warmup_steps`
     untimed steps (default: the same count, as the reference warms up).
 
     With `preset` the run is a cold start: the preset's config (at `n`
-    particles when given), the initial conditions `ic` (``ics.jupiter`` or
-    ``ics.polytrope``) and ``planet.prime``. Otherwise
+    particles when given), the initial conditions `ic` (one of ``ICS``,
+    with the keyword arguments `ic_kw`) and ``planet.prime``. Otherwise
     `checkpoint_path` is loaded with its own config. `overrides` replace
     SimConfig fields of either; a loaded state is then primed again, so
-    its force fields are the new configuration's. `profile`: trace the
+    its force fields are the new configuration's (and its internal energy
+    starts from the polytropic relation when the overrides switch the
+    evolved energy on: :func:`with_thermal_state`). `profile`: trace the
     timed run with torch.profiler and add the device's busy time, its idle
     share of that same run's wall, and the largest device times by kernel
     (the trace slows the host, so the wall time of a profiled run is not
@@ -94,15 +156,17 @@ def run_bench(checkpoint_path: str | None = SETTLED, steps: int = 64,
         config_mod.check_slice(cfg)
         if ic not in ICS:
             raise ValueError(f"ic={ic!r}: one of {ICS}")
-        state = planet.prime(getattr(ics, ic)(cfg, device=device), cfg)
+        state = planet.prime(
+            getattr(ics, ic)(cfg, device=device, **(ic_kw or {})), cfg)
         operating_point = "early_transient"
     else:
         state, cfg, _ = snapshot.load(checkpoint_path, device=device)
         if overrides:
-            cfg = cfg.replace(**overrides)
+            stored, cfg = cfg, cfg.replace(**overrides)
             config_mod.check_slice(cfg)
-            state = planet.prime(state, cfg.replace(rebuild_every=1,
-                                                    respa_every=1))
+            state = planet.prime(
+                with_thermal_state(state, stored, cfg),
+                cfg.replace(rebuild_every=1, respa_every=1))
         operating_point = "settled"
     if warmup_steps is None:
         warmup_steps = steps
@@ -152,8 +216,7 @@ def main(argv=None) -> int:
                     "instead of the settled checkpoint")
     ap.add_argument("--n", type=int, default=None,
                     help="particle count of the cold start")
-    ap.add_argument("--ic", choices=ICS, default="jupiter",
-                    help="initial conditions of the cold start")
+    add_ic_arguments(ap)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--warmup-steps", type=int, default=None)
     ap.add_argument("--repeat", type=int, default=1)
@@ -173,7 +236,8 @@ def main(argv=None) -> int:
     kw = dict(checkpoint_path=args.checkpoint, steps=args.steps,
               warmup_steps=args.warmup_steps, device=args.device,
               preset=args.preset, n=args.n,
-              overrides=config_mod.parse_overrides(args.set), ic=args.ic)
+              overrides=config_mod.parse_overrides(args.set), ic=args.ic,
+              ic_kw=ic_kwargs(args))
     for _ in range(args.repeat):
         print(json.dumps(run_bench(**kw)), flush=True)
     if args.profile:

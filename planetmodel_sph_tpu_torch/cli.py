@@ -10,13 +10,16 @@ checkpoint/resume. Runs on the card unless ``--device cpu`` is given.
     python -m planetmodel_sph_tpu_torch.cli bench --n 3000 --steps 200
 
 What the reference's CLI has and this one refuses by name: rendering and
-the live viewer, ``--devices`` (data parallelism), ``--eos`` and
-``--materials`` (adiabatic/Tillotson), npz checkpoints, and the preset
-``basalt_impact``.
+the live viewer, ``--devices`` (data parallelism) and npz checkpoints.
 
     python -m planetmodel_sph_tpu_torch.cli run --preset parity --steps 100
     python -m planetmodel_sph_tpu_torch.cli run --preset auto --n 50000 \\
         --av 1.0 --balsara --steps 64 --diag-every 32    # grid + tree
+    python -m planetmodel_sph_tpu_torch.cli run --preset basalt_impact \\
+        --ic two_planet_collision --materials basalt,ice \\
+        --separation 2e7 --approach-speed 3e5 --steps 100  # Tillotson impact
+    python -m planetmodel_sph_tpu_torch.cli run --eos adiabatic --av 1.0 \\
+        --steps 100                      # the evolved internal energy
 
 ``--neighbor grid --gravity tree`` on the default preset runs too; its
 window capacities (``--set nbr_window=...``, ``p2p_window``, ``m2p_window``)
@@ -49,20 +52,28 @@ _UNPORTED = {
     "render": "rendering", "render_every": "rendering",
     "animate": "rendering", "serve": "the live viewer",
     "devices": "data parallelism over several devices",
-    "eos": "the adiabatic and Tillotson EOS",
-    "materials": "Tillotson materials",
     "debug_nans": "a JAX debugging switch",
 }
 
 
 def _make_ic(args, cfg, device):
+    mats = bench_mod.parse_materials(args.materials)
+    if mats and args.ic not in ("two_planet_collision",
+                                "differentiated_planet"):
+        raise SystemExit("--materials goes with --ic two_planet_collision "
+                         "(body A, body B) or differentiated_planet (core, "
+                         "mantle)")
     if args.ic == "rotating_planet":
         return ics.rotating_planet(cfg, omega=args.omega, device=device)
     if args.ic == "two_planet_collision":
         return ics.two_planet_collision(
             cfg, separation=args.separation,
             approach_speed=args.approach_speed,
-            impact_parameter=args.impact_parameter, device=device)
+            impact_parameter=args.impact_parameter, materials=mats,
+            device=device)
+    if args.ic == "differentiated_planet":
+        kw = dict(zip(("core_material", "mantle_material"), mats or ()))
+        return ics.differentiated_planet(cfg, device=device, **kw)
     return getattr(ics, args.ic)(cfg, device=device)
 
 
@@ -85,6 +96,8 @@ def _build_cfg(args) -> config_mod.SimConfig:
         kw["av_beta"] = 2.0 * args.av
     if args.balsara:
         kw["av_balsara"] = True
+    if args.eos:
+        kw["eos_mode"] = args.eos
     kw.update(config_mod.parse_overrides(args.set))
     return _PRESETS[args.preset](**kw)
 
@@ -112,9 +125,16 @@ def cmd_run(args) -> int:
         state, cfg, start_step = snapshot.load(args.restore, device=device)
         _log(f"restored {args.restore} at step {start_step} (n={cfg.n})")
     else:
-        cfg = _build_cfg(args)
-        config_mod.check_slice(cfg)
-        state = planet.prime(_make_ic(args, cfg, device), cfg)
+        try:
+            cfg = _build_cfg(args)
+            config_mod.check_slice(cfg)
+            state = _make_ic(args, cfg, device)
+        except ValueError as e:
+            # a configuration or initial condition that contradicts itself:
+            # name it, exit non-zero
+            _log(f"error: {e}")
+            return 2
+        state = planet.prime(state, cfg)
         start_step = 0
 
     if args.metrics_jsonl and not args.restore:
@@ -175,7 +195,8 @@ def cmd_run(args) -> int:
 def cmd_bench(args) -> int:
     result = bench_mod.run_bench(
         n=args.n, steps=args.steps, preset=args.preset, device=args.device,
-        overrides=config_mod.parse_overrides(args.set))
+        overrides=config_mod.parse_overrides(args.set), ic=args.ic,
+        ic_kw=bench_mod.ic_kwargs(args))
     print(json.dumps(result), flush=True)
     return 0
 
@@ -221,11 +242,18 @@ def main(argv=None) -> int:
                          "(beta=2*alpha), fused into pass 2")
     pr.add_argument("--balsara", action="store_true",
                     help="Balsara (1995) AV limiter")
+    pr.add_argument("--eos", choices=("polytropic", "adiabatic",
+                                      "tillotson"), default=None,
+                    help="equation of state; adiabatic and tillotson evolve "
+                         "the internal energy")
+    pr.add_argument("--materials", default=None, metavar="A,B",
+                    help="Tillotson materials: the two bodies of "
+                         "two_planet_collision, or core,mantle of "
+                         "differentiated_planet (e.g. basalt,ice)")
     pr.add_argument("--freeze-velocity", action="store_true",
                     help="compute fields but never apply accelerations")
     # refused by name in cmd_run (see _UNPORTED)
-    for flag in ("--render", "--render-every", "--animate", "--eos",
-                 "--materials"):
+    for flag in ("--render", "--render-every", "--animate"):
         pr.add_argument(flag, default=None, help=argparse.SUPPRESS)
     pr.add_argument("--serve", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -244,6 +272,7 @@ def main(argv=None) -> int:
     pb.add_argument("--device", default="cuda")
     pb.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="generic SimConfig override (repeatable)")
+    bench_mod.add_ic_arguments(pb)
     pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)

@@ -3,15 +3,16 @@
 A framework-free copy of ``planetmodel_sph_tpu.config.SimConfig``: the same
 fields and the same defaults, so a checkpoint header written by either
 package configures the other, and the presets ``default``, ``auto``,
-``parity``, ``jupiter_3k`` and ``jupiter_100k``. The field documentation
-lives with the reference dataclass; the notes here only say what the port
-does with each group.
+``parity``, ``basalt_impact``, ``jupiter_3k`` and ``jupiter_100k``. The
+field documentation lives with the reference dataclass; the notes here only
+say what the port does with each group.
 
 The port runs the grid + tree block pipeline (every pressure form,
-viscosity, fused or separate near gravity, cached chunks or a rebuild per
-step) and the uncached dense all-pairs step with direct, tree or no
-gravity; :func:`check_slice` names every option outside them and refuses
-it loudly instead of ignoring it.
+viscosity, the three EOS with the energy equation, fused or separate near
+gravity, the supergroup far tier, cached chunks or a rebuild per step) and
+the uncached dense all-pairs step with direct, tree or no gravity;
+:func:`check_slice` names every option outside them and refuses it loudly
+instead of ignoring it.
 """
 
 from __future__ import annotations
@@ -178,11 +179,32 @@ def parse_overrides(items) -> dict:
     return out
 
 
+def fuse_active(cfg: SimConfig) -> bool:
+    """Whether the pass-2 P2P fusion (cfg.fuse_p2p_sph) is in effect.
+
+    The fusion rides the sub-granular SPH window rows of the grid
+    pipeline's pass 2, so it is undefined for dense-SPH configs,
+    particle-exact SPH lists and the supergroup far tier (whose block
+    bookkeeping cannot exclude single sub-blocks); those raise."""
+    if not cfg.fuse_p2p_sph:
+        if cfg.fuse_p2p_residual:
+            raise ValueError("fuse_p2p_residual extends fuse_p2p_sph — "
+                             "enable both")
+        return False
+    if (cfg.neighbor_mode != "grid" or cfg.sph_exact_window > 0
+            or cfg.sg_blocks > 1):
+        raise ValueError(
+            "fuse_p2p_sph needs the grid pipeline with sub-granular SPH "
+            "windows and no supergroup tier (got neighbor_mode=%r "
+            "sph_exact_window=%r sg_blocks=%r)" % (
+                cfg.neighbor_mode, cfg.sph_exact_window, cfg.sg_blocks))
+    return True
+
+
 def _check_common(cfg: SimConfig) -> None:
-    if cfg.eos_mode != "polytropic":
-        raise NotImplementedError(
-            f"eos_mode={cfg.eos_mode!r}: the port runs the polytropic EOS "
-            "only")
+    if cfg.eos_mode not in ("polytropic", "adiabatic", "tillotson"):
+        raise ValueError(f"eos_mode={cfg.eos_mode!r}: 'polytropic', "
+                         "'adiabatic' or 'tillotson'")
     if cfg.dtype != "float32":
         raise NotImplementedError(f"dtype={cfg.dtype!r}: kernels are f32")
 
@@ -190,9 +212,7 @@ def _check_common(cfg: SimConfig) -> None:
 def _check_tree(cfg: SimConfig) -> None:
     """The block tree's gravity tiers (grid runs, and dense SPH with tree
     gravity)."""
-    if cfg.sg_blocks > 1:
-        raise NotImplementedError("sg_blocks>1: the supergroup far tier is "
-                                  "not ported")
+    fuse_active(cfg)       # raises on a fusion the tiers cannot serve
     if cfg.grav_pair_dtype != "float32":
         raise NotImplementedError(
             f"grav_pair_dtype={cfg.grav_pair_dtype!r}: the bfloat16 pair "
@@ -277,6 +297,43 @@ def parity(**kw) -> SimConfig:
         integrator="staggered_euler",
         gravity_solver="tree",
         adaptive_h=True,
+    )
+    base.update(kw)
+    return SimConfig(**base)
+
+
+def basalt_impact(**kw) -> SimConfig:
+    """Planetary-impact scenario in cgs units: two cold basalt bodies under
+    the Tillotson EOS. Scales: two R = 50 km basalt planetesimals
+    (rho0 = 2.7 g/cm^3, M ~ 1.4e21 g each), G in cgs, cold interiors
+    (u0 = 1e9 erg/g << e_iv = 4.72e10). The cold basalt bulk sound speed
+    sqrt(A/rho0) ~ 3.1e5 cm/s sets the CFL scale: a dt ceiling of 1 s with
+    the adaptive CFL timestep. Pair with ics.two_planet_collision(
+    separation ~ 2e7 cm, approach_speed ~ a few 1e5 cm/s)."""
+    r_body = 5.0e6                        # 50 km in cm
+    rho0 = 2.7
+    m_body = 4.0 / 3.0 * 3.14159265 * r_body ** 3 * rho0
+    base = dict(
+        n=4096,
+        eos_mode="tillotson",
+        material="basalt",
+        u0=1.0e9,
+        g_const=6.674e-8,
+        radius=r_body,
+        total_mass=2.0 * m_body,          # two_planet_collision splits it
+        particle_radius=r_body * (100.0 / 4096.0) ** (1.0 / 3.0),
+        av_alpha=1.0,
+        av_beta=2.0,
+        dt_mode="cfl",
+        # Tillotson is stiff (the cold bulk sound speed does not depend on
+        # u): the total-energy error of a Mach-10 impact falls first-order
+        # in dt; 0.1 is the reference's accuracy/cost default
+        cfl_number=0.1,
+        dt=1.0,                           # dt ceiling (seconds)
+        dt_min=1e-4,
+        h_max=r_body,                     # vacuum-halo h cap at body scale
+        gravity_solver="direct",
+        neighbor_mode="dense",
     )
     base.update(kw)
     return SimConfig(**base)

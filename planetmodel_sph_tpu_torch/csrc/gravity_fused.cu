@@ -1,13 +1,14 @@
 // Tree gravity in one launch: the near P2P window (optional), the ring
-// sub-block multipoles and the dense far scan over the block multipoles
-// under the frozen acceptance mask.
+// sub-block multipoles, the windowed block multipoles of the supergroup
+// partition (optional) and the dense far scan over the block (or
+// supergroup) multipoles under the frozen acceptance mask.
 //
 // Replaces: planetmodel_sph_tpu/ops/pallas/groups2.py gravity_fused
-// (:969), body _gravity_fused_kernel (:821), without the supergroup block
-// tier: has_p2p on (every tier, the uncached step and the standalone
-// gravity sweep) or off (the RESPA outer force), both softenings, nm = 10
-// moment fields (monopole m, cm + traceless quadrupole Qxx..Qzz) or nm = 4
-// (monopole only).
+// (:969), body _gravity_fused_kernel (:821): has_p2p on (every tier, the
+// uncached step and the standalone gravity sweep) or off (the RESPA outer
+// force), has_blk on or off, both softenings, nm = 10 moment fields
+// (monopole m, cm + traceless quadrupole Qxx..Qzz) or nm = 4 (monopole
+// only).
 //
 // Per target i of group g:
 //   near tier (has_p2p): the first nv_p2p[g] slots of the [G, Sp] rows x,
@@ -16,12 +17,15 @@
 //     (self pair included, as is its potential -2.4 m/a);
 //   ring tier: the first nv_ring[g] entries of the group's [G, Sr] moment
 //     rows, entries with m > 0;
-//   far tier: every entry e of the shared [NBpad] block-moment rows with
-//     accept[g, e] > 0.5 and m_e > 0.
+//   blk tier (has_blk): the first nv_blk[g] entries of the group's
+//     [G, Sb] block-moment rows, entries with m > 0: blocks that pass the
+//     acceptance test while their supergroup does not;
+//   far tier: every entry e of the shared [NBpad] moment rows (blocks, or
+//     supergroups under has_blk) with accept[g, e] > 0.5 and m_e > 0.
 //   Each entry adds the unsoftened monopole (-m/r, m d/r^3) and, for nm=10,
 //   the traceless quadrupole (-(d^T Q d)/(2 r^5), -(Q d)/r^5
 //   + (5/2)(d^T Q d) d/r^7), d = x_i - cm. Outputs g_const * (phi, g), the
-//   count of ring and far entries used (n_approx) and n_direct (0 without
+//   count of ring, blk and far entries used (n_approx) and n_direct (0 without
 //   the near tier): two counters, where the TPU kernel reuses one.
 //
 // Bound on the H100: per group the [NBpad] accept row (22.5 KB at 100k)
@@ -81,18 +85,38 @@ struct Rows {
   const float* f[10];
 };
 
+// One windowed moment tier: the first n entries of the rows starting at
+// `row`, staged PSPH_TILE at a time; entries with m > 0 are evaluated.
+// Every thread of the block must call it (it synchronises).
+__device__ __forceinline__ void moment_window(const Rows& rows, size_t row,
+                                              int n, int nm,
+                                              float (*c)[PSPH_TILE], float x,
+                                              float y, float z, Acc& a) {
+  const int i = threadIdx.x;
+  for (int base = 0; base < n; base += PSPH_TILE) {
+    const int cnt = min(PSPH_TILE, n - base);
+    for (int j = i; j < cnt; j += blockDim.x)
+      for (int k = 0; k < nm; ++k) c[k][j] = rows.f[k][row + base + j];
+    __syncthreads();
+    for (int j = 0; j < cnt; ++j)
+      if (c[0][j] > 0.0f) mono_quad(c, j, nm, x, y, z, a);
+    __syncthreads();
+  }
+}
+
 // HAS_P2P: 0 no near tier, 1 min-h softening, 2 receiver softening
 template <int HAS_P2P>
 __global__ void gravity_fused_kernel(
     const float* __restrict__ tx, const float* __restrict__ ty,
     const float* __restrict__ tz, const float* __restrict__ tih, Rows p2p,
     const int* __restrict__ nv_p2p, Rows ring,
-    const int* __restrict__ nv_ring, Rows far,
+    const int* __restrict__ nv_ring, Rows blk,
+    const int* __restrict__ nv_blk, Rows far,
     const float* __restrict__ accept, float* __restrict__ phi_out,
     float* __restrict__ gx_out, float* __restrict__ gy_out,
     float* __restrict__ gz_out, int* __restrict__ nd_out,
-    int* __restrict__ na_out, int b, int sp, int sr, int nbpad, int nm,
-    float g_const) {
+    int* __restrict__ na_out, int b, int sp, int sr, int sb, int nbpad,
+    int nm, float g_const) {
   __shared__ float c[10][PSPH_TILE];
   __shared__ float acc[PSPH_TILE];
   const int g = blockIdx.x;
@@ -110,20 +134,17 @@ __global__ void gravity_fused_kernel(
                                   a.phi, a.gx, a.gy, a.gz, nd);
 
   // ring tier: windowed sub-block moments
-  size_t row = (size_t)g * sr;
-  const int n = min(nv_ring[g], sr);
-  for (int base = 0; base < n; base += PSPH_TILE) {
-    const int cnt = min(PSPH_TILE, n - base);
-    for (int j = i; j < cnt; j += blockDim.x)
-      for (int k = 0; k < nm; ++k) c[k][j] = ring.f[k][row + base + j];
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j)
-      if (c[0][j] > 0.0f) mono_quad(c, j, nm, x, y, z, a);
-    __syncthreads();
-  }
+  moment_window(ring, (size_t)g * sr, min(nv_ring[g], sr), nm, c, x, y, z,
+                a);
+  // blk tier: windowed block moments (null without the supergroup tier;
+  // the same test for every thread of the grid)
+  if (nv_blk != nullptr)
+    moment_window(blk, (size_t)g * sb, min(nv_blk[g], sb), nm, c, x, y, z,
+                  a);
 
-  // far tier: dense scan over block moments under the frozen mask
-  row = (size_t)g * nbpad;
+  // far tier: dense scan over block (or supergroup) moments under the
+  // frozen mask
+  const size_t row = (size_t)g * nbpad;
   for (int base = 0; base < nbpad; base += PSPH_TILE) {
     const int cnt = min(PSPH_TILE, nbpad - base);
     for (int j = i; j < cnt; j += blockDim.x) {
@@ -145,27 +166,32 @@ __global__ void gravity_fused_kernel(
 }
 
 // The P2P rows and nv_p2p are null when has_p2p == 0, pih also under
-// receiver_soft; ring and far rows 4..9 are null when nm == 4.
+// receiver_soft; the blk rows and nv_blk are null without the supergroup
+// tier; ring, blk and far rows 4..9 are null when nm == 4.
 extern "C" int psph_gravity_fused(
     const float* tx, const float* ty, const float* tz, const float* tih,
     const float* px, const float* py, const float* pz, const float* pih,
     const float* pm, const int* nv_p2p, const float* r0, const float* r1,
     const float* r2, const float* r3, const float* r4, const float* r5,
     const float* r6, const float* r7, const float* r8, const float* r9,
-    const int* nv_ring, const float* f0, const float* f1, const float* f2,
+    const int* nv_ring, const float* b0, const float* b1, const float* b2,
+    const float* b3, const float* b4, const float* b5, const float* b6,
+    const float* b7, const float* b8, const float* b9, const int* nv_blk,
+    const float* f0, const float* f1, const float* f2,
     const float* f3, const float* f4, const float* f5, const float* f6,
     const float* f7, const float* f8, const float* f9, const float* accept,
     float* phi, float* gx, float* gy, float* gz, int* nd, int* na, int g,
-    int b, int sp, int sr, int nbpad, int nm, int has_p2p,
+    int b, int sp, int sr, int sb, int nbpad, int nm, int has_p2p,
     int receiver_soft, float g_const, void* stream) {
   Rows p2p = {{px, py, pz, pih, pm, 0, 0, 0, 0, 0}};
   Rows ring = {{r0, r1, r2, r3, r4, r5, r6, r7, r8, r9}};
+  Rows blk = {{b0, b1, b2, b3, b4, b5, b6, b7, b8, b9}};
   Rows far = {{f0, f1, f2, f3, f4, f5, f6, f7, f8, f9}};
   cudaStream_t st = (cudaStream_t)stream;
 #define PSPH_GF(P)                                                        \
   gravity_fused_kernel<P><<<g, b, 0, st>>>(                               \
-      tx, ty, tz, tih, p2p, nv_p2p, ring, nv_ring, far, accept, phi, gx,  \
-      gy, gz, nd, na, b, sp, sr, nbpad, nm, g_const)
+      tx, ty, tz, tih, p2p, nv_p2p, ring, nv_ring, blk, nv_blk, far,      \
+      accept, phi, gx, gy, gz, nd, na, b, sp, sr, sb, nbpad, nm, g_const)
   if (g > 0) {
     if (!has_p2p)
       PSPH_GF(0);

@@ -5,12 +5,15 @@ port runs:
 
 - the uncached step (``rebuild_every <= 1``): one full force evaluation per
   step, staggered Euler or leapfrog KDK, fixed or CFL dt, relax-mode or
-  Newton h. On dense neighbours (the ``jupiter_3k`` preset) every step is
-  one all-pairs pass 1 and one pass 2, through the CUDA kernels of
-  ``ops/cuda/pairwise.py`` where `cfg.use_pallas` (the reference's switch
-  for its fused kernels) and through ``ops/dense.py`` otherwise, with tree
-  gravity from a fresh block structure when asked for (the ``parity``
-  preset); on grid neighbours it is a fresh block structure and the
+  Newton h, the polytropic EOS or an evolved internal energy (adiabatic,
+  Tillotson with per-particle materials). On dense neighbours (the
+  ``jupiter_3k`` preset) every step is one all-pairs pass 1 and one pass
+  2, through the CUDA kernels of ``ops/cuda/pairwise.py`` where
+  `cfg.use_pallas` (the reference's switch for its fused kernels) and
+  through ``ops/dense.py`` otherwise or when the internal energy is
+  evolved (those kernels have no energy column, in the reference either),
+  with tree gravity from a fresh block structure when asked for (the
+  ``parity`` preset); on grid neighbours it is a fresh block structure and the
   sweeps of ``ops/structure.py``;
 - cached chunks on grid neighbours (``rebuild_every > 1``, the
   ``jupiter_100k`` preset and its variants): the smoothing-length update
@@ -84,7 +87,10 @@ def current_dt(state: ParticleState, cfg: SimConfig):
         # filled on the device: no host-to-device copy in the step
         return torch.full((), cfg.dt, dtype=dtype, device=dev)
     live = state.mass > 0.0
-    cs = eos_ops.sound_speed_cfg(torch.clamp(state.rho, min=1e-30), cfg)
+    cs = eos_ops.sound_speed_cfg(
+        torch.clamp(state.rho, min=1e-30), cfg,
+        u=state.u if cfg.evolves_u else None,
+        matid=state.matid if cfg.eos_mode == "tillotson" else None)
     v = torch.sqrt((state.vel * state.vel).sum(dim=-1))
     a = torch.sqrt((state.accel * state.accel).sum(dim=-1))
     dt_c = torch.where(live, state.h / (cs + v + 1e-30), 3e30)
@@ -118,26 +124,35 @@ def com_correct(grad_phi, mass, cfg: SimConfig):
 balsara_factor = dense.balsara_factor
 
 
-def compute_forces(pos, h, mass, cfg: SimConfig, vel=None,
-                   fbal=None) -> Forces:
+def compute_forces(pos, h, mass, cfg: SimConfig, vel=None, u=None,
+                   matid=None, fbal=None) -> Forces:
     """Full field evaluation at the given positions and smoothing lengths
     (the uncached path: any structure is built fresh, with zero skin).
 
-    `vel` is needed only with artificial viscosity, `fbal` (the previous
-    step's Balsara factors) only under cfg.av_balsara. Grid neighbours go
-    through the block pipeline of ``ops/structure.py``."""
+    `vel` is needed only with artificial viscosity or an evolved internal
+    energy, `u` only under an evolved-u EOS, `matid` (per-particle material
+    ids) only under the Tillotson EOS with several materials, `fbal` (the
+    previous step's Balsara factors) only under cfg.av_balsara. Grid
+    neighbours go through the block pipeline of ``ops/structure.py``."""
     check_slice(cfg)
+    energy = cfg.evolves_u
+    if energy and u is None:
+        raise ValueError(f"eos_mode={cfg.eos_mode!r} needs the internal "
+                         "energy; pass u= to compute_forces")
     if cfg.neighbor_mode == "grid":
         st = structure.build(pos, h, mass, cfg)
-        return _forces_block(pos, h, mass, cfg, st, vel=vel, fbal=fbal)
+        return _forces_block(pos, h, mass, cfg, st, vel=vel, u=u,
+                             matid=matid, fbal=fbal)
     if cfg.grad_p_mode == "grad_h":
-        return _compute_forces_gradh(pos, h, mass, cfg, vel=vel, fbal=fbal)
+        return _compute_forces_gradh(pos, h, mass, cfg, vel=vel, u=u,
+                                     matid=matid, fbal=fbal)
 
     balsara = cfg.av_balsara and cfg.av_alpha > 0.0 and vel is not None
     # cfg.use_pallas is the reference's switch for its fused all-pairs
     # kernels; here it selects their CUDA counterparts (on CPU tensors the
-    # wrappers run their plain versions)
-    sweeps = pairwise if cfg.use_pallas else dense
+    # wrappers run their plain versions). They have no energy column, in
+    # the reference either: an evolved u takes ops/dense.py
+    sweeps = pairwise if cfg.use_pallas and not energy else dense
     p1 = sweeps.pass1(pos, h, mass, cfg)
     rho, nn, phi, grad_phi, n_direct = p1
     n_approx = torch.zeros_like(n_direct)
@@ -145,19 +160,29 @@ def compute_forces(pos, h, mass, cfg: SimConfig, vel=None,
     if cfg.gravity_solver == "tree":
         phi, grad_phi, n_direct, n_approx, ov = _block_gravity(pos, h, mass,
                                                                cfg)
-    prs = eos_ops.pressure_cfg(rho, cfg)
-    kw = {"fbal": fbal} if balsara else {}
-    out = sweeps.pass2(pos, h, mass, rho, prs, cfg, vel=vel, **kw)
-    grad_p = out[0] if isinstance(out, tuple) else out
+    prs = eos_ops.pressure_cfg(rho, cfg, u=u, matid=matid)
+    # only the Tillotson sound speed reads matid, and that EOS evolves u
+    kw = {"matid": matid} if matid is not None and energy else {}
+    if balsara:
+        kw["fbal"] = fbal
+    if energy:
+        # the energy equation rides the same sweep
+        out = sweeps.pass2(pos, h, mass, rho, prs, cfg, vel=vel, energy=True,
+                           u=u, **kw)
+        grad_p, du_dt = out[:2]
+    else:
+        out = sweeps.pass2(pos, h, mass, rho, prs, cfg, vel=vel, **kw)
+        grad_p = out[0] if isinstance(out, tuple) else out
+        du_dt = torch.zeros_like(rho)
     f_next = None
     if balsara:
-        f_next = balsara_factor(out[-1], eos_ops.sound_speed_cfg(rho, cfg),
-                                rho, h)
+        cs = eos_ops.sound_speed_cfg(rho, cfg, u=u, matid=matid)
+        f_next = balsara_factor(out[-1], cs, rho, h)
     # dv/dt = -grad P / rho - grad Phi
     grad_phi = com_correct(grad_phi, mass, cfg)
     accel = -grad_p / rho[:, None] - grad_phi
     return Forces(rho, prs, grad_p, phi, grad_phi, nn, n_direct, n_approx,
-                  accel, h, torch.zeros_like(rho), f_next, ov)
+                  accel, h, du_dt, f_next, ov)
 
 
 def _block_gravity(pos, h, mass, cfg: SimConfig):
@@ -179,8 +204,8 @@ def _viscosity(pos, vel, h, mass, rho, cfg: SimConfig):
     return dense.viscosity_accel(pos, vel, h, mass, rho, cfg)
 
 
-def _compute_forces_gradh(pos, h, mass, cfg: SimConfig, vel=None,
-                          fbal=None) -> Forces:
+def _compute_forces_gradh(pos, h, mass, cfg: SimConfig, vel=None, u=None,
+                          matid=None, fbal=None) -> Forces:
     """Grad-h SPH (Springel & Hernquist 2002) on the dense pipeline:
     gather-form density with Omega correction factors and, under
     h_mode='newton', the fixed-point solve of h = eta (m/rho)^(1/3)."""
@@ -192,9 +217,15 @@ def _compute_forces_gradh(pos, h, mass, cfg: SimConfig, vel=None,
             if cfg.h_max > 0.0:
                 h = torch.clamp(h, max=cfg.h_max)
 
+    energy = cfg.evolves_u
     rho, omega, nn = dense.density_gradh(pos, h, mass, cfg)
-    prs = eos_ops.pressure_cfg(rho, cfg)
-    grad_p = dense.pass2_gradh(pos, h, mass, rho, omega, prs, cfg)
+    prs = eos_ops.pressure_cfg(rho, cfg, u=u, matid=matid)
+    if energy:
+        grad_p, du_dt = dense.pass2_gradh(pos, h, mass, rho, omega, prs, cfg,
+                                          energy=True, vel=vel)
+    else:
+        grad_p = dense.pass2_gradh(pos, h, mass, rho, omega, prs, cfg)
+        du_dt = torch.zeros_like(rho)
     ov = None
     if cfg.gravity_solver == "direct":
         g1 = dense.pass1(pos, h, mass, cfg, sph=False)
@@ -214,14 +245,19 @@ def _compute_forces_gradh(pos, h, mass, cfg: SimConfig, vel=None,
         if vel is None:
             raise ValueError("artificial viscosity needs velocities; pass "
                              "vel= to compute_forces")
-        va = dense.viscosity_accel(pos, vel, h, mass, rho, cfg, fbal=fbal)
+        bkw = {"fbal": fbal} if cfg.av_balsara else {}
+        va = dense.viscosity_accel(pos, vel, h, mass, rho, cfg,
+                                   energy=energy, u=u, matid=matid, **bkw)
+        if not isinstance(va, tuple):
+            va = (va,)
+        accel = accel + va[0]
+        if energy:
+            du_dt = du_dt + va[1]      # the viscous heating
         if cfg.av_balsara:
-            va, dc = va
-            f_next = balsara_factor(dc, eos_ops.sound_speed_cfg(rho, cfg),
-                                    rho, h)
-        accel = accel + va
+            cs = eos_ops.sound_speed_cfg(rho, cfg, u=u, matid=matid)
+            f_next = balsara_factor(va[-1], cs, rho, h)
     return Forces(rho, prs, grad_p, phi, grad_phi, nn, n_direct, n_approx,
-                  accel, h, torch.zeros_like(rho), f_next, ov)
+                  accel, h, du_dt, f_next, ov)
 
 
 def _skin(cfg: SimConfig, vel, accel):
@@ -249,8 +285,9 @@ def _build_caches(pos, h, mass, vel, cfg: SimConfig, accel=None,
                            groups=groups, h_margin=cfg.h_track_margin)
 
 
-def _forces_block(pos, h, mass, cfg: SimConfig, st, vel=None, fbal=None,
-                  solve_h=True, sorted_io=False, grav_tiers="all") -> Forces:
+def _forces_block(pos, h, mass, cfg: SimConfig, st, vel=None, u=None,
+                  matid=None, fbal=None, solve_h=True, sorted_io=False,
+                  grav_tiers="all") -> Forces:
     """Force evaluation on the block pipeline. `solve_h`: run the bounded
     Newton h-solve and a fresh build first (the uncached path); the cached
     runner passes False. `sorted_io`: state in the padded sorted layout."""
@@ -258,8 +295,9 @@ def _forces_block(pos, h, mass, cfg: SimConfig, st, vel=None, fbal=None,
             and cfg.grad_p_mode == "grad_h"):
         h = structure.solve_h_newton(pos, h, mass, cfg, h_eta(cfg))
         st = structure.build(pos, h, mass, cfg)
-    bf = structure.forces(pos, h, mass, cfg, st, vel=vel, fbal=fbal,
-                          sorted_io=sorted_io, grav_tiers=grav_tiers)
+    bf = structure.forces(pos, h, mass, cfg, st, vel=vel, u=u, matid=matid,
+                          fbal=fbal, sorted_io=sorted_io,
+                          grav_tiers=grav_tiers)
     # padding slots duplicate real particles: weight the COM reduction by
     # the live mask so duplicates don't bias the net force
     m_eff = mass * st.groups.live.reshape(-1) if sorted_io else mass
@@ -291,15 +329,22 @@ def _apply_forces(state: ParticleState, f: Forces) -> ParticleState:
 
 
 def _default_forces(cfg: SimConfig):
-    def fn(pos, h, mass, vel=None, fbal=None):
-        return compute_forces(pos, h, mass, cfg, vel=vel, fbal=fbal)
+    def fn(pos, h, mass, vel=None, u=None, matid=None, fbal=None):
+        return compute_forces(pos, h, mass, cfg, vel=vel, u=u, matid=matid,
+                              fbal=fbal)
     return fn
 
 
-def _forces_kw(cfg: SimConfig, fbal):
-    """Thread fbal into a forces_fn only under cfg.av_balsara, so closures
-    that take (pos, h, mass, vel=) keep working."""
-    return {"fbal": fbal} if cfg.av_balsara and fbal is not None else {}
+def _forces_kw(cfg: SimConfig, u, matid=None, fbal=None):
+    """Thread u (matid under tillotson, fbal under av_balsara) into a
+    forces_fn only when the configuration consumes them, so closures that
+    take (pos, h, mass, vel=) keep working."""
+    kw = {"u": u} if cfg.evolves_u else {}
+    if cfg.eos_mode == "tillotson" and matid is not None:
+        kw["matid"] = matid
+    if cfg.av_balsara and fbal is not None:
+        kw["fbal"] = fbal
+    return kw
 
 
 def prime(state: ParticleState, cfg: SimConfig,
@@ -308,7 +353,7 @@ def prime(state: ParticleState, cfg: SimConfig,
     forces_fn = forces_fn or _default_forces(cfg)
     return _apply_forces(state, forces_fn(
         state.pos, state.h, state.mass, vel=state.vel,
-        **_forces_kw(cfg, state.balsara)))
+        **_forces_kw(cfg, state.u, state.matid, state.balsara)))
 
 
 def overflow_zero(device=None):
@@ -333,10 +378,13 @@ def step_staggered(state: ParticleState, cfg: SimConfig, forces_fn=None,
     h = update_h(state.h, state.n_neighbors, cfg) if update_smoothing \
         else state.h
     f = forces_fn(state.pos, h, state.mass, vel=state.vel,
-                  **_forces_kw(cfg, state.balsara))
+                  **_forces_kw(cfg, state.u, state.matid, state.balsara))
     pos = state.pos + state.vel * dt
     vel = state.vel if cfg.freeze_velocity else state.vel + f.accel * dt
     out = _apply_forces(state, f).replace(pos=pos, vel=_damp(vel, dt, cfg))
+    if cfg.evolves_u:
+        # forward-Euler u update matching the staggered v update
+        out = out.replace(u=state.u + dt * f.du_dt)
     if return_info:
         return out, _step_info(f, pos.device)
     return out
@@ -346,7 +394,16 @@ def step_kdk(state: ParticleState, cfg: SimConfig, forces_fn=None,
              update_smoothing=True, return_info=False):
     """Leapfrog kick-drift-kick; state.accel carries a(x_n) from the last
     step. `update_smoothing=False` keeps the state's h (the cached runner
-    updates it at chunk boundaries and by tracking)."""
+    updates it at chunk boundaries and by tracking).
+
+    Under an evolved-u EOS the internal energy gets the same half-kick
+    treatment as the velocity (state.du_dt carries du/dt(x_n)): the force
+    evaluation at x_{n+1} sees u at the half step, mirroring v_half. u is
+    deliberately NOT floored at 0: the Tillotson cold-pressure term keeps
+    doing expansion work as u -> 0, so a floor would inject energy at every
+    clamp. u may run a small negative debt instead; the EOS functions clamp
+    u >= 0 for evaluation, so the pressure stays physical while the ledger
+    sum(m u) stays exact."""
     forces_fn = forces_fn or _default_forces(cfg)
     dt = _step_dt(state, cfg)
     v_half = state.vel if cfg.freeze_velocity \
@@ -354,10 +411,13 @@ def step_kdk(state: ParticleState, cfg: SimConfig, forces_fn=None,
     pos = state.pos + dt * v_half
     h = update_h(state.h, state.n_neighbors, cfg) if update_smoothing \
         else state.h
+    u_half = state.u + 0.5 * dt * state.du_dt if cfg.evolves_u else state.u
     f = forces_fn(pos, h, state.mass, vel=v_half,
-                  **_forces_kw(cfg, state.balsara))
+                  **_forces_kw(cfg, u_half, state.matid, state.balsara))
     vel = v_half if cfg.freeze_velocity else v_half + 0.5 * dt * f.accel
     out = _apply_forces(state, f).replace(pos=pos, vel=_damp(vel, dt, cfg))
+    if cfg.evolves_u:
+        out = out.replace(u=u_half + 0.5 * dt * f.du_dt)
     if return_info:
         return out, _step_info(f, pos.device)
     return out
@@ -444,9 +504,10 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
         _tracked = lambda s: s
 
     def forces_fn(tiers):
-        return lambda p, hh, m, vel=None, fbal=None: _forces_block(
-            p, hh, m, cfg, st, vel=vel, fbal=fbal, solve_h=False,
-            sorted_io=True, grav_tiers=tiers)
+        return lambda p, hh, m, vel=None, u=None, matid=None, fbal=None: \
+            _forces_block(p, hh, m, cfg, st, vel=vel, u=u, matid=matid,
+                          fbal=fbal, solve_h=False, sorted_io=True,
+                          grav_tiers=tiers)
 
     one_step = step_staggered if cfg.integrator == "staggered_euler" \
         else step_kdk

@@ -27,13 +27,14 @@ SIGNATURES = {
     "filter_sph": "p" * 13 + "iii" + "p",
     "pass1_gradh": "p" * 12 + "iii" + "p",
     "pass1_sym": "p" * 12 + "iii" + "p",
-    # 12 target columns, 13 source rows, 5 P2P rows, nv, nv2, 15 outputs;
-    # g, b, s, s2 and six flags; av_alpha, av_beta, g_const
-    "pass2": "p" * 47 + "i" * 10 + "fff" + "p",
+    # 12 target columns, 13 source rows, 5 P2P rows, nv, nv2, 16 outputs;
+    # g, b, s, s2 and seven flags; av_alpha, av_beta, g_const
+    "pass2": "p" * 48 + "i" * 11 + "fff" + "p",
     "p2p": "p" * 15 + "iiii" + "f" + "p",
-    # 4 target columns, 5 P2P rows, nv_p2p, 10 ring rows, nv_ring, 10 far
-    # rows, accept, 6 outputs; g, b, sp, sr, nbpad, nm and two flags
-    "gravity_fused": "p" * 38 + "i" * 8 + "f" + "p",
+    # 4 target columns, 5 P2P rows, nv_p2p, 10 ring rows, nv_ring, 10 blk
+    # rows, nv_blk, 10 far rows, accept, 6 outputs; g, b, sp, sr, sb, nbpad,
+    # nm and two flags
+    "gravity_fused": "p" * 49 + "i" * 9 + "f" + "p",
     "pairwise_pass1": "p" * 10 + "iiii" + "f" + "p",
     "pairwise_pass2": "p" * 12 + "iiiiii" + "ff" + "p",
 }

@@ -195,8 +195,8 @@ def p2p_plain(nv, tgt, src, *, receiver_soft, g_const=1.0):
 
 
 def pass2_plain(nv, tgt, src, *, mode="grad_h", av=False, sign_bug=False,
-                av_alpha=0.0, av_beta=0.0, balsara=False, grav=False,
-                receiver_soft=False, g_const=1.0, nv_p2p=None,
+                av_alpha=0.0, av_beta=0.0, balsara=False, energy=False,
+                grav=False, receiver_soft=False, g_const=1.0, nv_p2p=None,
                 p2p_rows=None):
     g, s = src[0].shape
     b = tgt[0].shape[0] // g
@@ -229,13 +229,16 @@ def pass2_plain(nv, tgt, src, *, mode="grad_h", av=False, sign_bug=False,
         coef = m * (tc + scc) * (0.5 * (gw_i + gw_j))
     red = lambda v: _col(v.sum(dim=2))
     outs = [red(dxx * coef), red(dxy * coef), red(dxz * coef)]
-    if av:
-        tvx, tvy, tvz, th, tcs, trho = (next(it) for _ in range(6))
-        svx, svy, svz, sh, scs, srho = (next(sit) for _ in range(6))
+    if av or energy:
+        tvx, tvy, tvz = (next(it) for _ in range(3))
+        svx, svy, svz = (next(sit) for _ in range(3))
         dvx = tvx - svx
         dvy = tvy - svy
         dvz = tvz - svz
         vdotr = dvx * dxx + dvy * dxy + dvz * dxz
+    if av:
+        th, tcs, trho = (next(it) for _ in range(3))
+        sh, scs, srho = (next(sit) for _ in range(3))
         hbar = 0.5 * (th + sh)
         # slots past nv hold whatever the gather left there (zeros in the
         # padding): they are selected out BEFORE the divisions, as the
@@ -263,6 +266,16 @@ def pass2_plain(nv, tgt, src, *, mode="grad_h", av=False, sign_bug=False,
                      red(g_dc * (dvy * dxz - dvz * dxy)),
                      red(g_dc * (dvz * dxx - dvx * dxz)),
                      red(g_dc * (dvx * dxy - dvy * dxx))]
+    if energy:
+        # conjugate energy equation on the same pair quantities: pressure
+        # work plus half the viscous dissipation, complete as summed
+        if mode == "grad_h":
+            du = tc * (m * gw_i) * vdotr
+        else:
+            du = 0.5 * coef * vdotr
+        if av:
+            du = du + 0.5 * cav * vdotr
+        outs.append(red(du))
     if grav:
         inv_a = tih if receiver_soft else torch.minimum(tih, sih)
         sums = [v.sum(dim=2)
@@ -305,7 +318,7 @@ def _mono_quad(m, dxx, dxy, dxz, quad):
 
 def gravity_fused_plain(nv_ring, tgt, ring_rows, far_rows, accept, *,
                         g_const=1.0, nv_p2p=None, p2p_rows=None,
-                        receiver_soft=False):
+                        receiver_soft=False, nv_blk=None, blk_rows=None):
     nm = len(ring_rows)
     g = ring_rows[0].shape[0]
     b = tgt[0].shape[0] // g
@@ -319,7 +332,7 @@ def gravity_fused_plain(nv_ring, tgt, ring_rows, far_rows, accept, *,
         parts = _mono_quad(m, tx - cx, ty - cy, tz - cz, quad)
         return [v.sum(dim=2) for v in parts] + [(m > 0.0).sum(dim=2)]
 
-    # the TPU kernel's order: near tier, ring, far scan
+    # the TPU kernel's order: near tier, ring, blk, far scan
     tot = [0.0] * 4
     nd = None
     if p2p_rows is not None:
@@ -327,6 +340,10 @@ def gravity_fused_plain(nv_ring, tgt, ring_rows, far_rows, accept, *,
         tot, nd = _p2p_window(nv_p2p, p2p_rows, g, b, tx, ty, tz, tih,
                               receiver_soft)
     ring = tier(ring_rows, _slot_mask(nv_ring, g, ring_rows[0].shape[1]))
+    if blk_rows is not None:
+        # supergroup partition: windowed block moments, same pair body
+        blk = tier(blk_rows, _slot_mask(nv_blk, g, blk_rows[0].shape[1]))
+        ring = [a + c for a, c in zip(ring, blk)]
     # far tier: [1, NBpad] moments broadcast under the [G, NBpad] mask
     far = [r.expand(g, r.shape[1]) for r in far_rows]
     far = [torch.where(accept > 0.5, far[0], 0.0)] + far[1:]
@@ -396,30 +413,40 @@ def pass1_sym(nv, tgt, src, *, b):
     return rho, nn
 
 
-def _pass2_layout(mode, av, balsara):
+def _pass2_layout(mode, av, balsara, energy=False):
     """(target columns, source rows) pass 2 takes under these flags."""
     if mode not in MODES:
         raise ValueError(f"pass2: mode={mode!r}, one of {MODES}")
     if balsara and not av:
         raise ValueError("pass2: balsara needs av")
-    extra = (7 if balsara else 6) if av else 0
+    if energy and mode == "reference_asymmetric":
+        raise ValueError("pass2: energy needs a momentum-conserving pressure "
+                         "form (grad_h or symmetric)")
+    # viscosity brings its six fields (seven with balsara); the energy
+    # equation without it only the three velocities
+    extra = (7 if balsara else 6) if av else (3 if energy else 0)
     return (4 if mode == "reference_asymmetric" else 5) + extra, 6 + extra
 
 
 def pass2(nv, tgt, src, *, b, mode="grad_h", av=False, sign_bug=False,
-          av_alpha=0.0, av_beta=0.0, balsara=False, grav=False,
-          receiver_soft=False, g_const=1.0, nv_p2p=None, p2p_rows=None):
+          av_alpha=0.0, av_beta=0.0, balsara=False, energy=False,
+          grav=False, receiver_soft=False, g_const=1.0, nv_p2p=None,
+          p2p_rows=None):
     """Pressure-gradient sweep with precomputed per-particle coefficients.
 
     tgt cols: x, y, z, ih, then tc (absent for reference_asymmetric), then
-    with av: vx, vy, vz, h, cs, rho, then with balsara: f. src rows: x, y,
-    z, ih, m, cc, then the matching AV rows. Per pair:
+    with av: vx, vy, vz, h, cs, rho, then with balsara: f; with energy and
+    no av just vx, vy, vz. src rows: x, y, z, ih, m, cc, then the matching
+    AV or velocity rows. Per pair:
       grad_h:    coef = m (tc gw_i + cc gw_j)      tc = cc = P/(Omega rho^2)
       symmetric: coef = m (tc + cc) gsym           tc = cc = P/rho^2
       reference_asymmetric: coef = m cc gsym       cc = P/rho
     Returns (gpx, gpy, gpz) — the caller applies the target's rho — then
     (avx, avy, avz) with av (the caller scales by rho too), then the raw
-    div/curl sums (4) with balsara, then with grav the fused Dyer-Ip near
+    div/curl sums (4) with balsara, then with energy (not under
+    reference_asymmetric) the specific-internal-energy rate du, complete as
+    summed (no caller scale): tc m gw_i v.d under grad_h, else coef v.d / 2,
+    plus m Pi gsym v.d / 2 with av; then with grav the fused Dyer-Ip near
     gravity over the same rows, (phi, gx, gy, gz) scaled by g_const and
     n_direct; phi includes the self term and n_direct the self pair.
 
@@ -427,7 +454,7 @@ def pass2(nv, tgt, src, *, b, mode="grad_h", av=False, sign_bug=False,
     z, [ih,] m; ih absent under receiver softening) into the same gravity
     sums, the residual-P2P merge."""
     name = "pass2"
-    n_t, n_s = _pass2_layout(mode, av, balsara)
+    n_t, n_s = _pass2_layout(mode, av, balsara, energy)
     merged = p2p_rows is not None
     if merged and not grav:
         raise ValueError(f"{name}: the residual-P2P merge needs grav=True")
@@ -442,7 +469,7 @@ def pass2(nv, tgt, src, *, b, mode="grad_h", av=False, sign_bug=False,
     s2 = _check_window(name, nv_p2p, tgt[:4], p2p_rows, b)[1] if merged \
         else 0
     kw = dict(mode=mode, av=av, sign_bug=sign_bug, av_alpha=av_alpha,
-              av_beta=av_beta, balsara=balsara, grav=grav,
+              av_beta=av_beta, balsara=balsara, energy=energy, grav=grav,
               receiver_soft=receiver_soft, g_const=g_const)
     if not cuda:
         return pass2_plain(nv, tgt, src, nv_p2p=nv_p2p if merged else None,
@@ -460,15 +487,18 @@ def pass2(nv, tgt, src, *, b, mode="grad_h", av=False, sign_bug=False,
     gp = _out(nv, g, b, 3)
     avo = _out(nv, g, b, 3) if av else [None] * 3
     dco = _out(nv, g, b, 4) if balsara else [None] * 4
+    duo = _out(nv, g, b, 1) if energy else [None]
     gro = _out(nv, g, b, 4) if grav else [None] * 4
     nd = _out(nv, g, b, 1, torch.int32) if grav else [None]
     _launch(name, [*tcols, *t_av, *rows, *prow, nv,
-                   nv_p2p if merged else None, *gp, *avo, *dco, *gro, *nd,
-                   g, b, s, s2, MODES.index(mode), int(sign_bug), int(av),
-                   int(balsara), (2 if merged else 1) if grav else 0,
+                   nv_p2p if merged else None, *gp, *avo, *dco, *duo, *gro,
+                   *nd, g, b, s, s2, MODES.index(mode), int(sign_bug),
+                   int(av), int(balsara), int(energy),
+                   (2 if merged else 1) if grav else 0,
                    int(receiver_soft), float(av_alpha), float(av_beta),
                    float(g_const)])
-    return tuple(o for o in (*gp, *avo, *dco, *gro, *nd) if o is not None)
+    return tuple(o for o in (*gp, *avo, *dco, *duo, *gro, *nd)
+                 if o is not None)
 
 
 def p2p(nv, tgt, src, *, b, receiver_soft, g_const=1.0):
@@ -498,33 +528,38 @@ def p2p(nv, tgt, src, *, b, receiver_soft, g_const=1.0):
 
 def gravity_fused(nv_ring, tgt, ring_rows, far_rows, accept, *, b,
                   g_const=1.0, nv_p2p=None, p2p_rows=None,
-                  receiver_soft=False, blk_rows=None):
+                  receiver_soft=False, nv_blk=None, blk_rows=None):
     """Tree gravity in one launch: the near P2P window (when `p2p_rows` is
-    given), windowed ring multipoles and the dense far scan.
+    given), windowed ring multipoles, the windowed block multipoles of the
+    supergroup partition (when `blk_rows` is given) and the dense far scan.
 
     tgt cols: x, y, z, ih. ring_rows: 4 (m, cmx, cmy, cmz) or 10 (+ Qxx,
     Qxy, Qxz, Qyy, Qyz, Qzz) [G, Sr] rows valid to nv_ring. far_rows: the
     same fields as [1, NBpad] rows. accept: [G, NBpad] f32 frozen MAC mask.
     p2p_rows: x, y, z, [ih,] m [G, Sp] rows valid to nv_p2p (ih absent
     under receiver softening); without them this is the far-only launch of
-    the RESPA outer force. Returns (phi, gx, gy, gz, n_direct, n_approx);
-    with the near tier phi includes the self term and n_direct the self
-    pair, without it n_direct is 0."""
+    the RESPA outer force. blk_rows: the ring's fields as [G, Sb] rows valid
+    to nv_blk, blocks that pass the acceptance test while their supergroup
+    does not; far_rows and accept then hold supergroups. Returns (phi, gx,
+    gy, gz, n_direct, n_approx); with the near tier phi includes the self
+    term and n_direct the self pair, without it n_direct is 0."""
     name = "gravity_fused"
-    if blk_rows is not None:
-        raise NotImplementedError(f"{name}: blk_rows (the supergroup block "
-                                  "tier, has_blk) is not ported")
     nm = len(ring_rows)
     has_p2p = p2p_rows is not None
+    has_blk = blk_rows is not None
+    blk_rows = list(blk_rows or ())
     n_p = (4 if receiver_soft else 5) if has_p2p else 0
     p2p_rows = list(p2p_rows or ())
     if nm not in (4, 10) or len(far_rows) != nm or len(tgt) != 4 \
-            or len(p2p_rows) != n_p:
+            or len(p2p_rows) != n_p or (has_blk and len(blk_rows) != nm):
         raise ValueError(f"{name}: 4 target columns, 4 or 10 moment "
-                         f"fields for both tiers and {n_p} P2P rows")
+                         f"fields for every tier and {n_p} P2P rows")
     cuda = _is_cuda(name, [nv_ring, *tgt, *ring_rows, *far_rows, accept,
-                           *p2p_rows] + ([nv_p2p] if has_p2p else []))
+                           *p2p_rows, *blk_rows]
+                    + ([nv_p2p] if has_p2p else [])
+                    + ([nv_blk] if has_blk else []))
     g, sr = _check_window(name, nv_ring, tgt, ring_rows, b)
+    sb = _check_window(name, nv_blk, tgt, blk_rows, b)[1] if has_blk else 0
     sp = _check_window(name, nv_p2p, tgt, p2p_rows, b)[1] if has_p2p else 0
     nbpad = far_rows[0].shape[1]
     for k, r in enumerate(far_rows):
@@ -535,7 +570,9 @@ def gravity_fused(nv_ring, tgt, ring_rows, far_rows, accept, *, b,
             nv_ring, tgt, ring_rows, far_rows, accept, g_const=g_const,
             nv_p2p=nv_p2p if has_p2p else None,
             p2p_rows=p2p_rows if has_p2p else None,
-            receiver_soft=receiver_soft)
+            receiver_soft=receiver_soft,
+            nv_blk=nv_blk if has_blk else None,
+            blk_rows=blk_rows if has_blk else None)
     outs = _out(nv_ring, g, b, 4)
     nd, na = _out(nv_ring, g, b, 2, torch.int32)
     none = [None] * (10 - nm)
@@ -543,8 +580,10 @@ def gravity_fused(nv_ring, tgt, ring_rows, far_rows, accept, *, b,
     if has_p2p:
         prow = (p2p_rows[:3] + [None, p2p_rows[3]] if receiver_soft
                 else p2p_rows)
+    brow = blk_rows + none if has_blk else [None] * 10
     _launch(name, [*tgt, *prow, nv_p2p if has_p2p else None, *ring_rows,
-                   *none, nv_ring, *far_rows, *none, accept, *outs, nd, na,
-                   g, b, sp, sr, nbpad, nm, int(has_p2p),
+                   *none, nv_ring, *brow, nv_blk if has_blk else None,
+                   *far_rows, *none, accept, *outs, nd, na,
+                   g, b, sp, sr, sb, nbpad, nm, int(has_p2p),
                    int(receiver_soft), float(g_const)])
     return (*outs, nd, na)

@@ -10,8 +10,12 @@ a = max(h_i, h_j)); the all-pairs CUDA kernels and their plain twins in
 module to rounding, not bit for bit.
 
 Both passes take a target/source split (`src`, `target_offset`) as the
-reference does for sharded sources. The adiabatic energy equation and the
-Tillotson inputs (`energy`, `u`, `matid`) are not ported and raise by name.
+reference does for sharded sources. With `energy=True` pass 2, the grad-h
+pass 2 and the standalone viscosity sweep also accumulate the conjugate
+energy equation; `u` and `matid` feed the adiabatic or Tillotson sound speed
+of the viscosity. A dense run with an evolved internal energy takes these
+functions on the card too: the all-pairs CUDA kernels have no energy column,
+as the reference's do not.
 """
 
 from __future__ import annotations
@@ -36,14 +40,6 @@ class Pass1Out(NamedTuple):
 
 def _guard(x):
     return torch.where(x > 0, x, 1.0)
-
-
-def _refuse(**given):
-    for name, val in given.items():
-        if val is not None and val is not False:
-            raise NotImplementedError(
-                f"{name}: the adiabatic/Tillotson inputs of the dense passes "
-                "are not ported (polytropic EOS only)")
 
 
 def _blocks(n, cfg: SimConfig):
@@ -135,8 +131,15 @@ def pass2_gradh(pos, h, mass, rho, omega, pressure, cfg: SimConfig,
     """Grad-h symmetric pressure force as an effective gradient:
     gradP_i = rho_i sum_j m_j [P_i/(Omega_i rho_i^2) gradW_i(h_i)
     + P_j/(Omega_j rho_j^2) gradW_i(h_j)]. `src`: optional (pos, h, mass,
-    coef) with coef = P/(Omega rho^2) of the source set."""
-    _refuse(energy=energy)
+    coef) with coef = P/(Omega rho^2) of the source set.
+
+    `energy=True` returns (grad_p, du_dt) with the Springel & Hernquist
+    (2002) conjugate energy equation from the same sweep, du_i/dt =
+    P_i/(Omega_i rho_i^2) sum_j m_j v_ij . gradW(r, h_i) (viscous heating is
+    viscosity_accel's own energy term on this pipeline). Needs `vel`
+    (`vel_src` for a separate source set)."""
+    if energy and vel is None:
+        raise ValueError("the energy equation needs velocities; pass vel=")
     n = pos.shape[0]
     h_t = _guard(h)
     # robustness floor: the discrete Omega can approach 0 at very low
@@ -147,6 +150,7 @@ def pass2_gradh(pos, h, mass, rho, omega, pressure, cfg: SimConfig,
     pos_s, h_s, mass_s, coef_s = src if src is not None \
         else (pos, h, mass, coef)
     h_s = _guard(h_s)
+    vel_s = vel if vel_src is None else vel_src
     sign_bug = cfg.kernel_deriv_sign_bug
     outs = []
     for i0, i1 in _blocks(n, cfg):
@@ -159,8 +163,16 @@ def pass2_gradh(pos, h, mass, rho, omega, pressure, cfg: SimConfig,
         gw_j = kernels.dw_dr_over_r(r, h_s[None, :], sign_bug)
         radial = m_eff * (coef[i0:i1, None] * gw_i + coef_s[None, :] * gw_j)
         accel = -(dx * radial[..., None]).sum(dim=-2)
-        outs.append(-rho_t[i0:i1, None] * accel)
-    return torch.cat(outs, dim=0)
+        du = None
+        if energy:
+            dv = vel[i0:i1, None, :] - vel_s[None, :, :]
+            vdotr = (dv * dx).sum(dim=-1)
+            du = coef[i0:i1] * (m_eff * gw_i * vdotr).sum(dim=-1)
+        outs.append((-rho_t[i0:i1, None] * accel, du))
+    grad_p = torch.cat([o[0] for o in outs], dim=0)
+    if energy:
+        return grad_p, torch.cat([o[1] for o in outs], dim=0)
+    return grad_p
 
 
 def balsara_factor(dc, cs, rho, h):
@@ -190,6 +202,18 @@ def _av_terms(cfg, dx, dv, r2, pair, h_i, h_s, cs_i, cs_s, rho_i, rho_s,
     return pi_ij, vdotr
 
 
+def _returns(outs, energy, balsara):
+    """Per-block (main, du, dc) triples to the reference's return shape:
+    the main field, then du with energy, then dc with balsara; a bare
+    tensor when it is alone."""
+    ret = [torch.cat([o[0] for o in outs], dim=0)]
+    if energy:
+        ret.append(torch.cat([o[1] for o in outs], dim=0))
+    if balsara:
+        ret.append(torch.cat([o[2] for o in outs], dim=0))
+    return tuple(ret) if len(ret) > 1 else ret[0]
+
+
 def _dc_sums(g_dc, vdotr, dv, dx):
     div_sum = (g_dc * vdotr).sum(dim=-1)
     curl_sum = (torch.linalg.cross(dv, dx) * g_dc[..., None]).sum(dim=-2)
@@ -202,20 +226,21 @@ def viscosity_accel(pos, vel, h, mass, rho, cfg: SimConfig, src=None,
                     fbal_src=None):
     """Monaghan (1992) artificial-viscosity acceleration, standalone sweep:
     a_i -= sum m_j Pi_ij grad W_sym, always with the CORRECT kernel
-    derivative. `src`: optional (pos, vel, h, mass, rho). Under
-    cfg.av_balsara returns (accel, dc) with the raw div/curl sums."""
-    _refuse(energy=energy, u=u, u_src=u_src, matid=matid,
-            matid_src=matid_src)
+    derivative. `src`: optional (pos, vel, h, mass, rho). Returns accel,
+    then with `energy=True` the shock-heating rate du_i/dt = 1/2 sum_j m_j
+    Pi_ij v_ij . gradW_sym of the same sweep (`u`/`u_src` and
+    `matid`/`matid_src` then feed the sound speed in Pi_ij), then under
+    cfg.av_balsara the raw div/curl sums dc; a tuple when more than one."""
     n = pos.shape[0]
     balsara = cfg.av_balsara
     if src is None:
         src = (pos, vel, h, mass, rho)
-        fbal_src = fbal
+        u_src, matid_src, fbal_src = u, matid, fbal
     pos_s, vel_s, h_s, mass_s, rho_s = src
     h_s, rho_s = _guard(h_s), _guard(rho_s)
-    cs_s = eos_ops.sound_speed_cfg(rho_s, cfg)
+    cs_s = eos_ops.sound_speed_cfg(rho_s, cfg, u=u_src, matid=matid_src)
     h_t, rho_t = _guard(h), _guard(rho)
-    cs_t = eos_ops.sound_speed_cfg(rho_t, cfg)
+    cs_t = eos_ops.sound_speed_cfg(rho_t, cfg, u=u, matid=matid)
     if balsara:
         fb_t = fbal if fbal is not None else torch.ones_like(rho)
         fb_s = fbal_src if fbal_src is not None else torch.ones_like(rho_s)
@@ -235,12 +260,11 @@ def viscosity_accel(pos, vel, h, mass, rho, cfg: SimConfig, src=None,
                       + kernels.dw_dr_over_r(r, h_s[None, :], False))
         m_eff = torch.where(pair, mass_s[None, :], 0.0)
         acc = -(dx * (m_eff * pi_ij * gsym)[..., None]).sum(dim=-2)
+        du = 0.5 * (m_eff * pi_ij * gsym * vdotr).sum(dim=-1) if energy \
+            else None
         dc = _dc_sums(m_eff * gsym, vdotr, dv, dx) if balsara else None
-        outs.append((acc, dc))
-    accel = torch.cat([o[0] for o in outs], dim=0)
-    if balsara:
-        return accel, torch.cat([o[1] for o in outs], dim=0)
-    return accel
+        outs.append((acc, du, dc))
+    return _returns(outs, energy, balsara)
 
 
 def pass2(pos, h, mass, rho, pressure, cfg: SimConfig, src=None,
@@ -255,22 +279,35 @@ def pass2(pos, h, mass, rho, pressure, cfg: SimConfig, src=None,
     -rho_i a_AV, always the correct kernel derivative); under
     cfg.av_balsara Pi_ij is limited by 0.5 (f_i + f_j) from the lagged
     `fbal`/`fbal_src` (default 1) and the raw div/curl sums dc[N,4] are
-    returned second."""
-    _refuse(energy=energy, u=u, u_src=u_src, matid=matid,
-            matid_src=matid_src)
+    returned last.
+
+    `energy=True` also accumulates the conjugate specific-internal-energy
+    rate in the same sweep, returned second: du_i/dt = 1/2 sum_j m_j
+    (P_i/rho_i^2 + P_j/rho_j^2) v_ij . gradW_sym + 1/2 sum_j m_j Pi_ij
+    v_ij . gradW_sym, the pairwise-antisymmetric partner of the symmetric
+    momentum equation. Needs `vel` (and the source velocities in `src`);
+    `u`/`u_src` and `matid`/`matid_src` feed the viscosity's sound speed."""
     n = pos.shape[0]
     av = cfg.av_alpha > 0.0 and vel is not None
     balsara = cfg.av_balsara and av
+    if energy and vel is None:
+        raise ValueError("the energy equation needs velocities; pass vel=")
+    if energy and cfg.grad_p_mode == "reference_asymmetric":
+        raise ValueError("an evolved internal energy needs a momentum-"
+                         "conserving pressure form (the reference-asymmetric "
+                         "force has no conjugate energy equation)")
+    need_vel = av or energy
     if src is None:
-        src = (pos, h, mass, rho, pressure) + ((vel,) if av else ())
-        fbal_src = fbal
+        src = (pos, h, mass, rho, pressure) + ((vel,) if need_vel else ())
+        u_src, matid_src, fbal_src = u, matid, fbal
     pos_s, h_s, mass_s, rho_s, prs_s = src[:5]
     h_s, rho_s = _guard(h_s), _guard(rho_s)
     h_t, rho_t = _guard(h), _guard(rho)
-    if av:
+    if need_vel:
         vel_s = src[5]
-        cs_s = eos_ops.sound_speed_cfg(rho_s, cfg)
-        cs_t = eos_ops.sound_speed_cfg(rho_t, cfg)
+    if av:
+        cs_s = eos_ops.sound_speed_cfg(rho_s, cfg, u=u_src, matid=matid_src)
+        cs_t = eos_ops.sound_speed_cfg(rho_t, cfg, u=u, matid=matid)
     if balsara:
         fb_t = fbal if fbal is not None else torch.ones_like(rho)
         fb_s = fbal_src if fbal_src is not None else torch.ones_like(rho_s)
@@ -289,14 +326,18 @@ def pass2(pos, h, mass, rho, pressure, cfg: SimConfig, src=None,
         m_eff = torch.where(pair, mass_s[None, :], 0.0)
         if cfg.grad_p_mode == "reference_asymmetric":
             coef = m_eff * (prs_s / rho_s)[None, :] * gsym
+            pcoef = None
         else:
             pcoef = m_eff * ((prs_i / (rho_i * rho_i))[:, None]
                              + (prs_s / (rho_s * rho_s))[None, :]) * gsym
             coef = pcoef * rho_i[:, None]
+        ecoef = pcoef if energy else None
         dc = None
-        if av:
+        if need_vel:
             dv = vel[i0:i1, None, :] - vel_s[None, :, :]
-            pi_ij, vdotr = _av_terms(
+            vdotr = (dv * dx).sum(dim=-1)
+        if av:
+            pi_ij, _ = _av_terms(
                 cfg, dx, dv, r2, pair, h_i, h_s, cs_t[i0:i1], cs_s, rho_i,
                 rho_s, fb_t[i0:i1] if balsara else None,
                 fb_s if balsara else None)
@@ -307,10 +348,10 @@ def pass2(pos, h, mass, rho, pressure, cfg: SimConfig, src=None,
             else:
                 gs_av = gsym
             coef = coef + m_eff * pi_ij * gs_av * rho_i[:, None]
+            if energy:
+                ecoef = ecoef + m_eff * pi_ij * gs_av
             if balsara:
                 dc = _dc_sums(m_eff * gs_av, vdotr, dv, dx)
-        outs.append(((dx * coef[..., None]).sum(dim=-2), dc))
-    grad_p = torch.cat([o[0] for o in outs], dim=0)
-    if balsara:
-        return grad_p, torch.cat([o[1] for o in outs], dim=0)
-    return grad_p
+        du = 0.5 * (ecoef * vdotr).sum(dim=-1) if energy else None
+        outs.append(((dx * coef[..., None]).sum(dim=-2), du, dc))
+    return _returns(outs, energy, balsara)

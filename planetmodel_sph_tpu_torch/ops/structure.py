@@ -10,13 +10,14 @@ kernels of ``ops/cuda/groups2.py``.
 
 Ported here: single-set builds with sub-block SPH windows and the
 true-pair sub-block refine; the density sweep in its grad-h and symmetric
-forms; pass 2 in every pressure form, with viscosity and the Balsara
-limiter, with near gravity fused into it (and the residual-P2P window
-merged) or swept on its own; the three gravity tiers in one launch, near
-only or far only; and the standalone gravity sweep of dense-SPH runs.
-Still out, and refused by name in ``config.check_slice``: the energy
-equation, particle-exact SPH lists, the supergroup far tier and
-data-parallel source sets.
+forms; the polytropic, adiabatic and Tillotson EOS; pass 2 in every
+pressure form, with viscosity and the Balsara limiter, the conjugate energy
+equation, with near gravity fused into it (and the residual-P2P window
+merged) or swept on its own; the gravity tiers in one launch, near only or
+far only, with or without the supergroup far tier; and the standalone
+gravity sweep of dense-SPH runs. Still out, and refused by name in
+``config.check_slice``: particle-exact SPH lists and data-parallel source
+sets.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import SimConfig, check_slice
+from ..config import SimConfig, check_slice, fuse_active  # noqa: F401
 from . import eos as eos_ops
 from . import grouping
 from .cuda import groups2 as gk2
@@ -41,10 +42,17 @@ class BlockStructure(NamedTuple):
     n_p2p: torch.Tensor          # [G]
     m2p_idx: torch.Tensor        # [G, Wm] ring sub-blocks (multipoles)
     n_m2p: torch.Tensor          # [G]
-    accept: torch.Tensor         # [G, NBpad] f32 dense far-scan mask
+    accept: torch.Tensor         # f32 dense far-scan mask: [G, NBpad] over
+                                 # blocks, [G, NSGpad] over supergroups
+                                 # when cfg.sg_blocks > 1
+    blk_idx: torch.Tensor        # [G, Wb] block-multipole tier ids: blocks
+                                 # that pass the MAC while their supergroup
+                                 # does not ([G, 1] of -1 without the tier)
+    n_blk: torch.Tensor          # [G]
     sph_overflow: torch.Tensor   # [] dropped SPH window entries
     p2p_overflow: torch.Tensor   # [] dropped P2P window entries
     m2p_overflow: torch.Tensor   # [] dropped ring window entries
+    blk_overflow: torch.Tensor   # [] dropped block-tier window entries
 
 
 def _nbpad(nb: int, chunk: int) -> int:
@@ -59,27 +67,6 @@ def _sum3(v):
     """Sum over a trailing axis of 3, left to right (the reference's order:
     the comparisons built on it must agree bit for bit)."""
     return v[..., 0] + v[..., 1] + v[..., 2]
-
-
-def fuse_active(cfg: SimConfig) -> bool:
-    """Whether the pass-2 P2P fusion (cfg.fuse_p2p_sph) is in effect.
-
-    The fusion rides the sub-granular SPH window rows of the grid
-    pipeline's pass 2, so it is undefined for dense-SPH configs,
-    particle-exact SPH lists and the supergroup far tier."""
-    if not cfg.fuse_p2p_sph:
-        if cfg.fuse_p2p_residual:
-            raise ValueError("fuse_p2p_residual extends fuse_p2p_sph — "
-                             "enable both")
-        return False
-    if (cfg.neighbor_mode != "grid" or cfg.sph_exact_window > 0
-            or cfg.sg_blocks > 1):
-        raise ValueError(
-            "fuse_p2p_sph needs the grid pipeline with sub-granular SPH "
-            "windows and no supergroup tier (got neighbor_mode=%r "
-            "sph_exact_window=%r sg_blocks=%r)" % (
-                cfg.neighbor_mode, cfg.sph_exact_window, cfg.sg_blocks))
-    return True
 
 
 def packed_permute(arrays, idx):
@@ -258,18 +245,16 @@ def build(pos, h, mass, cfg: SimConfig, skin=0.0, h_margin: float = 0.0,
             sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb, grp.live,
             pos_t, h_t, sk_t, cfg, h_margin, nsub, sub, chunk)
 
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    none_n = torch.zeros(g, dtype=torch.int32, device=dev)
+    no_idx = lambda w: torch.full((g, w), -1, dtype=torch.int32, device=dev)
     if not do_grav:
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
         return BlockStructure(
-            grp, sph_idx, n_sph,
-            torch.full((g, cfg.p2p_window), -1, dtype=torch.int32,
-                       device=dev), torch.zeros(g, dtype=torch.int32,
-                                                device=dev),
-            torch.full((g, cfg.m2p_window), -1, dtype=torch.int32,
-                       device=dev), torch.zeros(g, dtype=torch.int32,
-                                                device=dev),
+            grp, sph_idx, n_sph, no_idx(cfg.p2p_window), none_n,
+            no_idx(cfg.m2p_window), none_n,
             torch.zeros((g, _nbpad(nb, chunk)), dtype=torch.float32,
-                        device=dev), sph_over, zero, zero)
+                        device=dev), no_idx(1), none_n, sph_over, zero, zero,
+            zero)
 
     tlo_p = tlo[:, None, :] - d_t[:, None, None]
     thi_p = thi[:, None, :] + d_t[:, None, None]
@@ -288,6 +273,40 @@ def build(pos, h, mass, cfg: SimConfig, skin=0.0, h_margin: float = 0.0,
     mac_blk = mac(b_cm, b_bmax2, d_b)
     mac_sub = mac(s_cm, s_bmax2, d_s)
     covered = mac_blk & bvalid[None, :]
+    blk_idx, n_blk, blk_over = no_idx(1), none_n, zero
+    accept_sg = None
+    if cfg.sg_blocks > 1:
+        # ---- supergroup far tier: sg_blocks Morton-consecutive blocks ----
+        sgf = cfg.sg_blocks
+        nsg = -(-nb // sgf)
+        padb = nsg * sgf - nb
+        pad1 = lambda v: torch.nn.functional.pad(v, (0, padb)).reshape(
+            nsg, sgf)
+        bm_p = pad1(b_mass)        # padded members have mass 0
+        cm_p = torch.nn.functional.pad(b_cm, (0, 0, 0, padb)).reshape(
+            nsg, sgf, 3)
+        sg_mass = bm_p.sum(dim=1)
+        sg_cm = ((bm_p[..., None] * cm_p).sum(dim=1)
+                 / torch.clamp(sg_mass, min=1e-30)[:, None])
+        # tight bmax: max over members of |cm_b - cm_sg| + bmax_b; members
+        # without mass (the padding too) do not enter
+        dc = cm_p - sg_cm[:, None, :]
+        dcm = torch.sqrt(_sum3(dc * dc))
+        reach = torch.where(
+            bm_p > 0.0,
+            dcm + torch.sqrt(torch.clamp(pad1(b_bmax2), min=0.0)), 0.0)
+        sg_bmax = reach.amax(dim=1)
+        d_sg = pad1(d_b).amax(dim=1)
+        mac_sg = mac(sg_cm, sg_bmax * sg_bmax, d_sg) \
+            & (sg_mass > 0.0)[None, :]
+        sg_cover = mac_sg.repeat_interleave(sgf, dim=1)[:, :nb]
+        # block-multipole tier: the block passes the MAC, its supergroup
+        # does not: windowed entries instead of a dense scan
+        blk_far = covered & ~sg_cover
+        blk_idx, n_blk, blk_over = _compact_rows(blk_far, cfg.blk_window)
+        covered = (sg_cover & bvalid[None, :]) | blk_far
+        accept_sg = torch.nn.functional.pad(
+            mac_sg.to(torch.float32), (0, _nbpad(nsg, chunk) - nsg))
     fused = fuse_active(cfg)
     if fused:
         # pass-2 fusion: SPH-window sub-blocks get their near gravity
@@ -325,11 +344,13 @@ def build(pos, h, mass, cfg: SimConfig, skin=0.0, h_margin: float = 0.0,
     m2p_idx = torch.where(jm < n_m2p[:, None], ring_vals, -1)
     p2p_over = _i32(torch.clamp(n_p2p - wp, min=0).sum())
     m2p_over = _i32(torch.clamp(n_m2p - wm, min=0).sum())
-    accept = torch.nn.functional.pad(covered.to(torch.float32),
-                                     (0, _nbpad(nb, chunk) - nb))
+    accept = accept_sg if accept_sg is not None else \
+        torch.nn.functional.pad(covered.to(torch.float32),
+                                (0, _nbpad(nb, chunk) - nb))
     return BlockStructure(grp, sph_idx, n_sph, _i32(p2p_idx), n_p2p,
                           _i32(m2p_idx), n_m2p, accept.contiguous(),
-                          sph_over, p2p_over, m2p_over)
+                          _i32(blk_idx), n_blk, sph_over, p2p_over,
+                          m2p_over, blk_over)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +382,8 @@ class _Ctx(NamedTuple):
 
 
 def _prep_ctx(pos, h, mass, cfg: SimConfig, st: BlockStructure,
-              vel=None, sorted_io=False, fbal=None) -> _Ctx:
+              vel=None, sorted_io=False, u=None, matid=None,
+              fbal=None) -> _Ctx:
     grp = st.groups
     g = grp.live.shape[0]
     names = ["x", "y", "z", "h", "m"]
@@ -369,9 +391,13 @@ def _prep_ctx(pos, h, mass, cfg: SimConfig, st: BlockStructure,
     if vel is not None:
         names += ["vx", "vy", "vz"]
         fields += [vel[:, 0], vel[:, 1], vel[:, 2]]
-    if fbal is not None:
-        names.append("fb")
-        fields.append(fbal)
+    # optional per-particle target channels, sorted beside the geometry
+    # (matid rides the packed gather as a float and comes back an integer:
+    # ids are < 2^24)
+    for k, v in (("mid", matid), ("u", u), ("fb", fbal)):
+        if v is not None:
+            names.append(k)
+            fields.append(v)
     if sorted_io:
         # inputs are already in the padded sorted [G*B] layout
         t = {k: v.contiguous() for k, v in zip(names, fields)}
@@ -471,12 +497,13 @@ def _gravity_sweeps(ctx: _Ctx, cfg: SimConfig, st: BlockStructure,
                     tiers: str = "all"):
     """Three-tier gravity: windowed sub-granular P2P + windowed ring
     sub-block multipoles + the dense block far scan under the frozen mask
-    (current moments). Returns (phi, grad_phi, n_direct, n_approx),
-    target-sorted.
+    (current moments); with cfg.sg_blocks > 1 the far scan runs over
+    supergroup moments and a fourth, windowed block tier fills the gap.
+    Returns (phi, grad_phi, n_direct, n_approx), target-sorted.
 
     `tiers`: 'all' (one fused launch), 'near' (P2P only, the RESPA inner
-    force: no moment reductions, no ring/far gathers), 'far' (ring + far
-    scan, the RESPA outer force)."""
+    force: no moment reductions, no ring/far gathers), 'far' (ring + blk +
+    far scan, the RESPA outer force)."""
     if tiers not in ("all", "near", "far"):
         raise ValueError(f"tiers={tiers!r}: 'all', 'near' or 'far'")
     bsz = cfg.nbr_group_size
@@ -529,16 +556,50 @@ def _gravity_sweeps(ctx: _Ctx, cfg: SimConfig, st: BlockStructure,
                     q(dy, dy, True), q(dy, dz, False), q(dz, dz, True)]
         return out
 
+    bmom = moments(nb, bsz)
     npad = st.accept.shape[1]
-    far_rows = [torch.nn.functional.pad(v, (0, npad - nb))[None, :]
-                for v in moments(nb, bsz)]
+    blk_kw = {}
+    if cfg.sg_blocks > 1:
+        # supergroup moments aggregated from the current block moments;
+        # blocks whose supergroup failed the MAC while they pass it come in
+        # as windowed blk entries
+        sgf = cfg.sg_blocks
+        nsg = -(-nb // sgf)
+        p1 = lambda v: torch.nn.functional.pad(
+            v, (0, nsg * sgf - nb)).reshape(nsg, sgf)
+        bm_p = p1(bmom[0])
+        sgm = bm_p.sum(dim=1)
+        inv = 1.0 / torch.clamp(sgm, min=1e-30)
+        wsum = lambda v: (bm_p * p1(v)).sum(dim=1) * inv
+        far = [sgm, wsum(bmom[1]), wsum(bmom[2]), wsum(bmom[3])]
+        if quad:
+            # parallel-axis aggregation: Q_sg = sum_b [Q_b
+            #   + m_b (3 y y^T - |y|^2 I)], y = cm_b - cm_sg
+            yx = p1(bmom[1]) - far[1][:, None]
+            yy = p1(bmom[2]) - far[2][:, None]
+            yz = p1(bmom[3]) - far[3][:, None]
+            y2 = yx * yx + yy * yy + yz * yz
+            pq = lambda qb, a, b2, diag: (
+                p1(qb) + bm_p * (3.0 * a * b2 - (y2 if diag else 0.0))
+            ).sum(dim=1)
+            far += [pq(bmom[4], yx, yx, True), pq(bmom[5], yx, yy, False),
+                    pq(bmom[6], yx, yz, False), pq(bmom[7], yy, yy, True),
+                    pq(bmom[8], yy, yz, False), pq(bmom[9], yz, yz, True)]
+        nfar = nsg
+        blk_kw = dict(
+            nv_blk=_i32(torch.clamp(st.n_blk, max=cfg.blk_window)),
+            blk_rows=_entry_gather(bmom, st.blk_idx, chunk))
+    else:
+        far, nfar = bmom, nb
+    far_rows = [torch.nn.functional.pad(v, (0, npad - nfar))[None, :]
+                for v in far]
     ring_rows = _entry_gather(moments(nsub, sub), st.m2p_idx, chunk)
     nv_ring = _i32(torch.clamp(st.n_m2p, max=cfg.m2p_window))
 
     if tiers == "far":
         phi_c, gx, gy, gz, _, na_c = gk2.gravity_fused(
             nv_ring, tgt, ring_rows, far_rows, st.accept, b=bsz,
-            g_const=cfg.g_const)
+            g_const=cfg.g_const, **blk_kw)
         return (phi_c[:, 0], torch.cat([gx, gy, gz], dim=-1),
                 torch.zeros_like(na_c[:, 0]), na_c[:, 0])
 
@@ -546,7 +607,7 @@ def _gravity_sweeps(ctx: _Ctx, cfg: SimConfig, st: BlockStructure,
     phi_c, gx, gy, gz, nd_c, na_c = gk2.gravity_fused(
         nv_ring, tgt, ring_rows, far_rows, st.accept, b=bsz,
         g_const=cfg.g_const, nv_p2p=nv_p2p, p2p_rows=srcp,
-        receiver_soft=receiver)
+        receiver_soft=receiver, **blk_kw)
     return (phi_c[:, 0] + self_phi, torch.cat([gx, gy, gz], dim=-1),
             nd_c[:, 0] - 1, na_c[:, 0])
 
@@ -558,17 +619,24 @@ def _unsort(st: BlockStructure, fields):
 
 
 def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
-           sorted_io=False, fbal=None, grav_tiers: str = "all") -> BlockForces:
+           u=None, sorted_io=False, matid=None, fbal=None,
+           grav_tiers: str = "all") -> BlockForces:
     """Field evaluation against current fields: pass 1 (density, with the
-    grad-h Omega under grad_h), the polytropic EOS, pass 2 (pressure
-    gradient in the configured form, viscosity and the Balsara sums fused
-    in) and tree gravity.
+    grad-h Omega under grad_h), the configured EOS, pass 2 (pressure
+    gradient in the configured form, viscosity, the Balsara sums and the
+    energy equation fused in) and tree gravity.
+
+    `u` (an evolved-u EOS): specific internal energy of the particles; it
+    feeds the pressure and the viscosity's sound speed and turns on pass 2's
+    energy column (du_dt in the result). `matid`: per-particle Tillotson
+    material ids (None = the uniform cfg.material).
 
     Near gravity comes from pass 2 itself over the SPH window when
     cfg.fuse_p2p_sph (with the residual-P2P window merged into the same
     launch under cfg.fuse_p2p_residual), else from the gravity sweeps.
     `grav_tiers`: 'all', or 'near' / 'far' for the RESPA inner and outer
-    forces. `vel` is needed with viscosity; `fbal` is the previous step's
+    forces. `vel` is needed with viscosity or an evolved u; `fbal` is the
+    previous step's
     Balsara factors (ones when absent). `sorted_io`: inputs are in the
     padded sorted [G*B] layout and outputs stay in it (the cached
     runner's chunk format)."""
@@ -578,17 +646,25 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
     gradh = cfg.grad_p_mode == "grad_h"
     av = cfg.av_alpha > 0.0
     balsara = cfg.av_balsara and av
+    energy = cfg.evolves_u
     if av and vel is None:
         raise ValueError("artificial viscosity needs velocities; pass vel=")
+    if energy and (u is None or vel is None):
+        raise ValueError("the energy equation needs u and vel")
+    if energy and cfg.grad_p_mode == "reference_asymmetric":
+        raise ValueError(f"eos_mode={cfg.eos_mode!r} needs a momentum-"
+                         "conserving pressure form (see ops/dense.pass2)")
 
-    ctx = _prep_ctx(pos, h, mass, cfg, st, vel=vel if av else None,
-                    sorted_io=sorted_io, fbal=fbal if balsara else None)
+    ctx = _prep_ctx(pos, h, mass, cfg, st, vel=vel if av or energy else None,
+                    sorted_io=sorted_io, u=u, matid=matid,
+                    fbal=fbal if balsara else None)
     t, s = ctx.t, ctx.s
+    eos_kw = dict(u=t.get("u"), matid=t.get("mid"))
 
     # geometry rows gathered ONCE; pass 1 and pass 2 reuse them
     geom_rows = _sph_rows(_geom(s), st, cfg, ctx.nb)
     rho_t, nn_t, omega = _density_sweep(ctx, cfg, st, src1=geom_rows)
-    prs_t = eos_ops.pressure_cfg(rho_t, cfg)
+    prs_t = eos_ops.pressure_cfg(rho_t, cfg, **eos_kw)
 
     # Per-particle coefficients are precomputed so the kernel sees ONE
     # extra field per side; the target's rho scale is applied after the
@@ -610,7 +686,7 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
         p_scale = rho_t
     s_extra = [cc]
     if av:
-        cs_t = eos_ops.sound_speed_cfg(rho_t, cfg)
+        cs_t = eos_ops.sound_speed_cfg(rho_t, cfg, **eos_kw)
         tgt2 += _cols(t["vx"], t["vy"], t["vz"], t["h"], cs_t, rho_t)
         s_extra += [s["vx"], s["vy"], s["vz"], s["h"], cs_t, rho_t]
         if balsara:
@@ -619,6 +695,11 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
                 fb_t = torch.ones_like(rho_t)
             tgt2 += _cols(fb_t)
             s_extra += [fb_t]
+    elif energy:
+        # the energy equation without viscosity still needs the pairwise
+        # velocities
+        tgt2 += _cols(t["vx"], t["vy"], t["vz"])
+        s_extra += [s["vx"], s["vy"], s["vz"]]
     extra_rows = _sph_rows(s_extra, st, cfg, ctx.nb)
     fused = do_grav and grav_tiers != "far" and fuse_active(cfg)
     receiver = cfg.softening_mode == "receiver_h"
@@ -630,7 +711,7 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
         p2p_kw = dict(zip(("nv_p2p", "p2p_rows"), _near_rows(ctx, cfg, st)))
     outs = gk2.pass2(
         _sph_nv(st, cfg), tgt2, geom_rows + extra_rows, b=bsz,
-        mode=cfg.grad_p_mode, av=av, balsara=balsara,
+        mode=cfg.grad_p_mode, av=av, balsara=balsara, energy=energy,
         sign_bug=cfg.kernel_deriv_sign_bug, av_alpha=cfg.av_alpha,
         av_beta=cfg.av_beta, grav=fused, receiver_soft=receiver,
         g_const=cfg.g_const, **p2p_kw)
@@ -647,7 +728,10 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
         from . import dense as dense_ops
         fb_next_t = dense_ops.balsara_factor(
             torch.cat(outs[6:10], dim=-1), cs_t, rho_t, t["h"])
-    n_base = 3 + (3 if av else 0) + (4 if balsara else 0)
+    n_base = (3 + (3 if av else 0) + (4 if balsara else 0)
+              + (1 if energy else 0))
+    # the energy rate is complete as summed: no rho scale
+    du_t = outs[n_base - 1][:, 0] if energy else torch.zeros_like(rho_t)
 
     # ---- gravity ----
     if do_grav:
@@ -681,7 +765,6 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
         grad_phi_t = torch.zeros_like(grad_p_t)
         nd_t = torch.zeros_like(nn_t)
         na_t = torch.zeros_like(nn_t)
-    du_t = torch.zeros_like(rho_t)
 
     fields = [rho_t, prs_t, grad_p_t, phi_t, grad_phi_t, nn_t, nd_t, na_t,
               du_t]
@@ -758,4 +841,5 @@ def solve_h_newton(pos, h, mass, cfg: SimConfig, eta: float, groups=None,
 def overflow_info(st: BlockStructure) -> dict:
     """Structure overflow counters (the 'dropped AND counted' contract)."""
     return {"nbr_overflow": st.sph_overflow,
-            "tree_overflow": st.p2p_overflow + st.m2p_overflow}
+            "tree_overflow": (st.p2p_overflow + st.m2p_overflow
+                              + st.blk_overflow)}

@@ -1,7 +1,8 @@
 """Conserved-quantity and field diagnostics (PyTorch port).
 
 Same keys and definitions as ``planetmodel_sph_tpu.utils.diagnostics``:
-KE = 1/2 sum m |v|^2, PE = 1/2 sum m phi, E_int = sum m u(rho); momenta
+KE = 1/2 sum m |v|^2, PE = 1/2 sum m phi, E_int = sum m u (the evolved u
+under the adiabatic and Tillotson EOS, u(rho) under the polytropic); momenta
 and angular momentum about the centre of mass. `inertia_com` is the trace
 moment sum m |r - r_com|^2, as in the reference (not I_zz). Values are
 0-dim tensors on the state's device.
@@ -23,14 +24,14 @@ def _safe_norm(x):
 
 
 def measure(state: ParticleState, cfg: SimConfig) -> dict:
-    if cfg.evolves_u:
-        raise NotImplementedError(f"eos_mode={cfg.eos_mode!r}: the port's "
-                                  "diagnostics cover the polytropic EOS")
     m = state.mass
     v2 = (state.vel * state.vel).sum(dim=-1)
     ke = 0.5 * (m * v2).sum()
     pe = 0.5 * (m * state.phi).sum()
-    u = eos_ops.internal_energy(state.rho, cfg.eos_k, cfg.eos_gamma)
+    # an evolved-u EOS: the state's thermal energy; polytropic: the
+    # barotropic u(rho)
+    u = state.u if cfg.evolves_u else \
+        eos_ops.internal_energy(state.rho, cfg.eos_k, cfg.eos_gamma)
     e_int = (m * u).sum()
     mom = (m[:, None] * state.vel).sum(dim=0)
     mtot = m.sum()
@@ -71,7 +72,8 @@ def measure(state: ParticleState, cfg: SimConfig) -> dict:
         "h_avg": state.h.mean(),
         "vel_max": torch.sqrt(v2.max()),
     }
-    cs = eos_ops.sound_speed_cfg(torch.clamp(state.rho, min=1e-30), cfg)
+    cs = eos_ops.sound_speed_cfg(torch.clamp(state.rho, min=1e-30), cfg,
+                                 u=state.u if cfg.evolves_u else None)
     dt_cfl = state.h / (cs + torch.sqrt(v2) + 1e-30)
     out["dt_cfl_min"] = dt_cfl.min()
     out["cfl_number"] = cfg.dt / torch.clamp(dt_cfl.min(), min=1e-30)

@@ -84,11 +84,11 @@ def test_bench_prints_one_json_line(capsys):
 
 
 def test_bench_cold_start_refuses_unknown_preset():
-    with pytest.raises(ValueError, match="basalt_impact"):
-        bench.run_bench(preset="basalt_impact", n=64, steps=1, device="cpu")
+    with pytest.raises(ValueError, match="collision"):
+        bench.run_bench(preset="collision", n=64, steps=1, device="cpu")
     with pytest.raises(ValueError, match="ic="):
         bench.run_bench(preset="parity", n=64, steps=1, device="cpu",
-                        ic="two_planet_collision")
+                        ic="rotating_planet")
 
 
 GRID = ["--neighbor", "grid", "--gravity", "tree", "--n", "512", "--set",
@@ -127,7 +127,7 @@ def test_parity_preset_is_the_reference_quirks():
     cfg = cli._build_cfg(cli.argparse.Namespace(
         n=None, seed=None, dt=None, integrator=None, gravity=None,
         neighbor=None, freeze_velocity=False, av=None, balsara=False,
-        set=[], preset="parity"))
+        eos=None, set=[], preset="parity"))
     assert (cfg.grad_p_mode, cfg.softening_mode, cfg.integrator,
             cfg.gravity_solver, cfg.neighbor_mode, cfg.n) == (
         "reference_asymmetric", "receiver_h", "staggered_euler", "tree",
@@ -155,9 +155,18 @@ def test_bench_set_overrides_preset_and_checkpoint(tmp_path, capsys):
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["operating_point"] == "settled" and res["n"] == 512
     assert res["overflow"] == {"nbr_overflow": 0, "tree_overflow": 0}
-    with pytest.raises(NotImplementedError, match="sg_blocks"):
+    with pytest.raises(ValueError, match="kernel_gb"):
         bench.main(["--device", "cpu", "--checkpoint", ck, "--set",
-                    "sg_blocks=4"])
+                    "kernel_gb=8"])
+    # the supergroup tier on the state file, and the evolved internal
+    # energy: u is filled from the polytropic relation at the stored density
+    assert bench.main(["--device", "cpu", "--checkpoint", ck, "--steps",
+                       "2", "--warmup-steps", "0", "--set", "sg_blocks=4",
+                       "--set", "blk_window=64", "--set",
+                       "eos_mode=adiabatic", "--set", "av_alpha=1.0",
+                       "--set", "av_beta=2.0"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["overflow"] == {"nbr_overflow": 0, "tree_overflow": 0}
 
 
 @pytest.mark.parametrize("extra,word", [
@@ -165,8 +174,10 @@ def test_bench_set_overrides_preset_and_checkpoint(tmp_path, capsys):
     (["--render-every", "5"], "--render-every"),
     (["--serve", "0"], "--serve"),
     (["--devices", "2"], "--devices"),
-    (["--eos", "adiabatic"], "--eos"),
+    (["--animate", "x.gif"], "--animate"),
     (["--materials", "basalt,ice"], "--materials"),
+    (["--materials", "basalt", "--ic", "two_planet_collision"],
+     "--materials"),
     (["--checkpoint", "x.npz"], "npz"),
     (["--restore", "x.npz"], "npz"),
 ])
@@ -177,8 +188,8 @@ def test_unported_flags_exit_nonzero_naming_the_flag(extra, word):
 
 
 @pytest.mark.parametrize("extra,word", [
-    (["--gravity", "tree", "--set", "sg_blocks=4"], "sg_blocks"),
-    (["--set", "eos_mode=tillotson"], "eos_mode"),
+    (["--gravity", "tree", "--set", "kernel_gb=8"], "kernel_gb"),
+    (["--set", "eos_mode=isothermal"], "eos_mode"),
     (["--set", "rebuild_every=8"], "rebuild_every"),
     (["--ic", "differentiated_planet"], "tillotson"),
     (["--neighbor", "grid"], "gravity_solver='direct'"),
@@ -195,7 +206,7 @@ def test_unported_configurations_exit_nonzero_naming_the_option(
     assert word in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("preset", ["basalt_impact", "collision"])
+@pytest.mark.parametrize("preset", ["impact", "collision"])
 def test_unported_presets_are_not_offered(preset):
     with pytest.raises(SystemExit) as e:
         cli.main(["run", "--device", "cpu", "--preset", preset])
@@ -208,3 +219,92 @@ def test_default_device_is_the_card(monkeypatch):
         cli.main(["run", "--n", "64", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["bench", "--n", "64", "--steps", "1"])
+
+
+IMPACT = ["--preset", "basalt_impact", "--ic", "two_planet_collision",
+          "--materials", "basalt,ice", "--separation", "1.1e7",
+          "--approach-speed", "3e5", "--n", "256"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--eos", "adiabatic", "--n", "256"],
+    ["--eos", "adiabatic", "--av", "1.0", "--n", "256", "--set",
+     "grad_p_mode=grad_h"],
+    GRID + ["--eos", "adiabatic", "--av", "1.0", "--set",
+            "grad_p_mode=grad_h", "--set", "h_mode=newton", "--set",
+            "fuse_p2p_sph=true", "--set", "fuse_p2p_residual=true", "--set",
+            "rebuild_every=2"],
+    GRID + ["--eos", "adiabatic", "--set", "sg_blocks=4", "--set",
+            "blk_window=64"],
+    IMPACT,
+    ["--preset", "basalt_impact", "--ic", "differentiated_planet",
+     "--materials", "iron,basalt", "--n", "256"],
+    GRID + ["--eos", "tillotson", "--ic", "two_planet_collision",
+            "--materials", "basalt,ice", "--av", "1.0", "--set",
+            "g_const=6.674e-8", "--set", "total_mass=2.8e21", "--set",
+            "radius=5e6", "--set", "particle_radius=1.45e6", "--set",
+            "u0=1e9", "--set", "h_max=5e6", "--separation", "1.1e7",
+            "--approach-speed", "3e5", "--dt", "0.05", "--set",
+            "nbr_window=192"],
+], ids=["eos_adiabatic_dense", "eos_adiabatic_dense_gradh_av",
+        "eos_adiabatic_grid_merged_cached", "eos_adiabatic_supergroups",
+        "preset_basalt_impact_materials", "differentiated_planet",
+        "eos_tillotson_grid_two_materials"])
+def test_run_energy_options_this_slice_opened(extra, tmp_path, capsys):
+    """--eos, --materials, --ic differentiated_planet and --preset
+    basalt_impact run a few steps; the internal energy is the evolved one."""
+    m = str(tmp_path / "m.jsonl")
+    assert cli.main(["run", "--device", "cpu", "--steps", "4",
+                     "--diag-every", "2", "--metrics-jsonl", m] + extra) == 0
+    last = _rows(m)[-1]
+    assert last["step"] == 4 and last["total_energy"] == last["total_energy"]
+    assert last["nbr_overflow"] == 0 == last["tree_overflow"]
+    assert last["internal_energy"] > 0.0
+    assert "WARNING" not in capsys.readouterr().err
+
+
+def test_eos_flag_and_preset_reach_the_config():
+    ns = dict(n=None, seed=None, dt=None, integrator=None, gravity=None,
+              neighbor=None, freeze_velocity=False, av=None, balsara=False,
+              set=[])
+    cfg = cli._build_cfg(cli.argparse.Namespace(
+        eos="tillotson", preset="jupiter_3k", **ns))
+    assert cfg.eos_mode == "tillotson" and cfg.evolves_u
+    cfg = cli._build_cfg(cli.argparse.Namespace(
+        eos=None, preset="basalt_impact", **ns))
+    assert (cfg.eos_mode, cfg.dt_mode, cfg.n, cfg.u0) == (
+        "tillotson", "cfl", 4096, 1e9)
+
+
+def test_bench_basalt_impact_cold_start(capsys):
+    assert bench.main(["--device", "cpu", "--preset", "basalt_impact",
+                       "--n", "256", "--ic", "two_planet_collision",
+                       "--materials", "basalt,ice", "--separation", "1.1e7",
+                       "--approach-speed", "3e5", "--steps", "2"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["n"] == 256 and res["operating_point"] == "early_transient"
+    assert cli.main(["bench", "--device", "cpu", "--preset",
+                     "basalt_impact", "--n", "128", "--ic",
+                     "differentiated_planet", "--steps", "1"]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "n"] == 128
+
+
+def test_state_from_a_polytropic_run_gets_a_thermal_state():
+    """A polytropic run never updates u, so its state file carries the
+    initial conditions' u: switching the evolved energy on starts u from
+    the polytropic relation at the stored density (same pressure for
+    gamma = 2); a state that already evolves u keeps it."""
+    from planetmodel_sph_tpu_torch import config as tc
+    from planetmodel_sph_tpu_torch import state as tstate
+    from planetmodel_sph_tpu_torch.ops import eos as eos_ops
+    poly = tc.jupiter_3k(n=8)
+    st = tstate.zeros(poly, device="cpu")
+    st = st.replace(rho=torch.linspace(0.5, 2.0, 8), u=torch.full((8,), 9.0))
+    adia = poly.replace(eos_mode="adiabatic")
+    out = bench.with_thermal_state(st, poly, adia)
+    assert torch.equal(out.u, poly.eos_k * st.rho)
+    assert torch.allclose(eos_ops.pressure_cfg(out.rho, adia, u=out.u),
+                          eos_ops.pressure_cfg(st.rho, poly))
+    assert bench.with_thermal_state(st, adia, adia).u is st.u
+    assert bench.with_thermal_state(st, poly, poly).u is st.u

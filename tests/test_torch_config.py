@@ -55,9 +55,10 @@ def test_dense_preset_and_its_options_are_in_slice(kw):
 
 
 @pytest.mark.parametrize("kw,word", [
-    (dict(eos_mode="adiabatic"), "eos_mode"),
-    (dict(eos_mode="tillotson"), "eos_mode"),
-    (dict(gravity_solver="tree", sg_blocks=4), "sg_blocks"),
+    (dict(eos_mode="isothermal"), "eos_mode"),
+    (dict(eos_mode="ideal_gas"), "eos_mode"),
+    (dict(gravity_solver="tree", sg_blocks=4, fuse_p2p_sph=True),
+     "sg_blocks"),
     (dict(gravity_solver="tree", grav_pair_dtype="bfloat16"),
      "grav_pair_dtype"),
     (dict(gravity_solver="tree", kernel_gb=8), "kernel_gb"),
@@ -72,8 +73,11 @@ def test_dense_path_refuses_unported_options_by_name(kw, word):
 
 
 def test_unported_presets_stay_out():
-    for name in ("basalt_impact",):
-        assert not hasattr(tc, name), name
+    """Every preset of the reference is ported and in the slice."""
+    for name in ("default", "auto", "parity", "basalt_impact", "jupiter_3k",
+                 "jupiter_100k"):
+        assert hasattr(jc, name) and hasattr(tc, name), name
+    tc.check_slice(tc.basalt_impact())
     tc.check_slice(tc.parity())
     tc.check_slice(tc.auto())
     tc.check_slice(tc.auto(n=50_000))
@@ -135,8 +139,8 @@ def test_parse_overrides_reads_a_set_list():
 
 
 @pytest.mark.parametrize("kw,word", [
-    (dict(eos_mode="adiabatic"), "eos_mode"),
-    (dict(eos_mode="tillotson"), "eos_mode"),
+    (dict(eos_mode="isothermal"), "eos_mode"),
+    (dict(eos_mode="ideal_gas"), "eos_mode"),
     (dict(sph_exact_window=512), "sph_exact_window"),
     (dict(sg_blocks=4), "sg_blocks"),
     (dict(grav_pair_dtype="bfloat16"), "grav_pair_dtype"),
@@ -150,3 +154,41 @@ def test_parse_overrides_reads_a_set_list():
 def test_out_of_slice_options_refused_by_name(kw, word):
     with pytest.raises((NotImplementedError, ValueError), match=word):
         tc.check_slice(tc.jupiter_100k(**kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(eos_mode="adiabatic"), dict(eos_mode="tillotson"),
+    dict(eos_mode="adiabatic", av_alpha=1.0, av_beta=2.0),
+    dict(eos_mode="tillotson", material="ice", u0=1e9),
+], ids=["adiabatic", "tillotson", "adiabatic_av", "tillotson_ice"])
+def test_evolved_u_eos_is_in_slice_on_both_neighbour_modes(kw):
+    tc.check_slice(tc.jupiter_3k(**kw))
+    tc.check_slice(tc.jupiter_3k(grad_p_mode="grad_h", **kw))
+    tc.check_slice(tc.jupiter_100k(**kw))
+    tc.check_slice(tc.jupiter_100k(grad_p_mode="symmetric", h_mode="relax",
+                                   fuse_p2p_sph=False,
+                                   fuse_p2p_residual=False, **kw))
+    assert tc.SimConfig(**kw).evolves_u
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sg_blocks=4, blk_window=768), dict(sg_blocks=2),
+    dict(sg_blocks=4, multipole_order=1, eos_mode="adiabatic"),
+], ids=["sg4", "sg2", "sg4_monopole_adiabatic"])
+def test_supergroup_tier_is_in_slice_without_the_fusion(kw):
+    unfused = dict(fuse_p2p_sph=False, fuse_p2p_residual=False)
+    tc.check_slice(tc.jupiter_100k(**unfused, **kw))
+    tc.check_slice(tc.parity(**kw))
+    # fused near gravity cannot exclude single sub-blocks from a supergroup
+    with pytest.raises(ValueError, match="no supergroup tier"):
+        tc.check_slice(tc.jupiter_100k(**kw))
+
+
+def test_basalt_impact_preset_equals_jax_field_by_field():
+    for kw in ({}, dict(n=512), dict(neighbor_mode="grid",
+                                     gravity_solver="tree", cfl_number=0.05)):
+        assert dataclasses.asdict(tc.basalt_impact(**kw)) == \
+            dataclasses.asdict(jc.basalt_impact(**kw))
+    cfg = tc.basalt_impact()
+    assert cfg.eos_mode == "tillotson" and cfg.evolves_u
+    assert cfg.dt_mode == "cfl" and cfg.n == 4096

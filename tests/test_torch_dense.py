@@ -198,7 +198,153 @@ def test_balsara_factor_matches_jax():
     (dict(energy=True), "energy"), (dict(u=torch.zeros(4)), "u"),
     (dict(matid=torch.zeros(4)), "matid")])
 def test_unported_inputs_refused_by_name(kw, word):
-    _, tcfg = _cfgs(n=4)
+    """The energy inputs are ported; what the dense passes still refuse,
+    as the reference does: the energy equation without velocities or under
+    the asymmetric form, and an evolved-u EOS whose viscosity is given no
+    u (with or without material ids)."""
     z = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match=word):
-        td.pass2(torch.zeros(4, 3), z + 1, z + 1, z + 1, z, tcfg, **kw)
+    args = (torch.zeros(4, 3), z + 1, z + 1, z + 1, z)
+    if word == "energy":
+        _, tcfg = _cfgs(n=4)
+        with pytest.raises(ValueError, match="needs velocities"):
+            td.pass2(*args, tcfg, **kw)
+        _, asym = _cfgs(n=4, grad_p_mode="reference_asymmetric")
+        with pytest.raises(ValueError, match="momentum-conserving"):
+            td.pass2(*args, asym, vel=torch.zeros(4, 3), **kw)
+        with pytest.raises(ValueError, match="needs velocities"):
+            td.pass2_gradh(*args[:4], z + 1, z, tcfg, **kw)
+        return
+    mode = "adiabatic" if word == "u" else "tillotson"
+    _, tcfg = _cfgs(n=4, eos_mode=mode, av_alpha=1.0, av_beta=2.0)
+    kw = dict(kw, u=None) if word == "matid" else dict(u=None)
+    with pytest.raises(ValueError, match="needs the internal energy u"):
+        td.pass2(*args, tcfg, vel=torch.zeros(4, 3), **kw)
+    with pytest.raises(ValueError, match="needs the internal energy u"):
+        td.viscosity_accel(args[0], torch.zeros(4, 3), *args[1:4], tcfg,
+                           **kw)
+
+
+# ---------------------------------------------------------------------------
+# the energy columns
+# ---------------------------------------------------------------------------
+
+def _thermal(arr, jcfg, seed=3):
+    """u (some exactly 0, one slightly negative) and mixed material ids."""
+    rng = np.random.default_rng(seed)
+    n = len(arr["h"])
+    hi = 3e11 if jcfg.eos_mode == "tillotson" else 5.0
+    u = rng.uniform(0.0, hi, n).astype(np.float32)
+    u[::17] = 0.0
+    u[5] = -1e-3 * hi
+    return u, rng.integers(0, 5, n).astype(np.int32)
+
+
+ENERGY_CASES = {
+    "adiabatic": dict(eos_mode="adiabatic"),
+    "adiabatic+av": dict(eos_mode="adiabatic", av_alpha=1.0, av_beta=2.0),
+    "adiabatic+av+balsara+sign_bug": dict(
+        eos_mode="adiabatic", av_alpha=1.0, av_beta=2.0, av_balsara=True,
+        kernel_deriv_sign_bug=True),
+    "tillotson+av+matid": dict(eos_mode="tillotson", av_alpha=1.0,
+                               av_beta=2.0),
+    "tillotson+av+balsara": dict(eos_mode="tillotson", material="iron",
+                                 av_alpha=1.0, av_beta=2.0,
+                                 av_balsara=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENERGY_CASES))
+def test_pass2_energy_matches_jax(case):
+    """pass2(energy=True): (grad_p, du_dt[, dc]); u and matid feed the
+    viscosity's sound speed."""
+    jcfg, tcfg = _cfgs(**ENERGY_CASES[case])
+    arr, st = _particles(jcfg, rotating=True)
+    u, mid = _thermal(arr, jcfg)
+    with_mid = case.endswith("matid")
+    jkw = dict(u=jnp.asarray(u))
+    tkw = dict(u=torch.from_numpy(u))
+    if with_mid:
+        jkw["matid"], tkw["matid"] = jnp.asarray(mid), torch.from_numpy(mid)
+    if jcfg.av_balsara:
+        fb = np.random.default_rng(4).uniform(0, 1, len(u)).astype(
+            np.float32)
+        jkw["fbal"], tkw["fbal"] = jnp.asarray(fb), torch.from_numpy(fb)
+    prs = jeos.pressure_cfg(st.rho, jcfg, u=jkw["u"], matid=jkw.get("matid"))
+    ref = jd.pass2(st.pos, st.h, st.mass, st.rho, prs, jcfg, vel=st.vel,
+                   energy=True, **jkw)
+    out = td.pass2(*_t(arr, "pos", "h", "mass", "rho"),
+                   torch.from_numpy(np.array(prs)), tcfg,
+                   vel=_t(arr, "vel")[0], energy=True, **tkw)
+    assert len(out) == len(ref) == (3 if jcfg.av_balsara else 2)
+    for o, r in zip(out, ref):
+        _close(o, r, cancelling=True)
+    assert float(out[1].abs().max()) > 0.0 and out[1].shape == (jcfg.n,)
+    # without energy the gradient is the same and du is not returned
+    plain = td.pass2(*_t(arr, "pos", "h", "mass", "rho"),
+                     torch.from_numpy(np.array(prs)), tcfg,
+                     vel=_t(arr, "vel")[0], **tkw)
+    gp = plain[0] if isinstance(plain, tuple) else plain
+    assert torch.equal(gp, out[0])
+
+
+def test_pass2_energy_src_and_target_offset_match_jax():
+    jcfg, tcfg = _cfgs(eos_mode="adiabatic", av_alpha=1.0, av_beta=2.0)
+    arr, st = _particles(jcfg, rotating=True)
+    u, _ = _thermal(arr, jcfg)
+    arr["u"] = u
+    arr["pressure"] = np.asarray(jeos.pressure_cfg(st.rho, jcfg,
+                                                   u=jnp.asarray(u)))
+    sl = slice(64, 136)
+    names = ("pos", "h", "mass", "rho", "pressure", "vel")
+    jsrc = tuple(jnp.asarray(arr[k]) for k in names)
+    ref = jd.pass2(*(a[sl] for a in jsrc[:5]), jcfg, src=jsrc,
+                   target_offset=64, vel=jsrc[5][sl], energy=True,
+                   u=jnp.asarray(u)[sl], u_src=jnp.asarray(u))
+    tsrc = tuple(_t(arr, *names))
+    tu = torch.from_numpy(u)
+    out = td.pass2(*(a[sl] for a in tsrc[:5]), tcfg, src=tsrc,
+                   target_offset=64, vel=tsrc[5][sl], energy=True,
+                   u=tu[sl], u_src=tu)
+    _close(out[0], ref[0], cancelling=True)
+    _close(out[1], ref[1], cancelling=True)
+
+
+@pytest.mark.parametrize("bug", [False, True])
+def test_pass2_gradh_energy_matches_jax(bug):
+    jcfg, tcfg = _cfgs(grad_p_mode="grad_h", eos_mode="adiabatic",
+                       kernel_deriv_sign_bug=bug)
+    arr, st = _particles(jcfg, rotating=True)
+    u, _ = _thermal(arr, jcfg)
+    rho, omega, _ = jd.density_gradh(st.pos, st.h, st.mass, jcfg)
+    prs = jeos.pressure_cfg(rho, jcfg, u=jnp.asarray(u))
+    ref = jd.pass2_gradh(st.pos, st.h, st.mass, rho, omega, prs, jcfg,
+                         energy=True, vel=st.vel)
+    T = lambda a: torch.from_numpy(np.array(a))
+    out = td.pass2_gradh(*_t(arr, "pos", "h", "mass"), T(rho), T(omega),
+                         T(prs), tcfg, energy=True, vel=_t(arr, "vel")[0])
+    assert len(out) == 2
+    _close(out[0], ref[0], cancelling=True)
+    _close(out[1], ref[1], cancelling=True)
+    assert float(out[1].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("case", ["adiabatic+av",
+                                  "adiabatic+av+balsara+sign_bug",
+                                  "tillotson+av+matid"])
+def test_viscosity_accel_energy_matches_jax(case):
+    """(accel, du_dt[, dc]): the shock heating of the standalone sweep."""
+    jcfg, tcfg = _cfgs(**ENERGY_CASES[case])
+    arr, st = _particles(jcfg, rotating=True)
+    u, mid = _thermal(arr, jcfg)
+    jkw, tkw = dict(u=jnp.asarray(u)), dict(u=torch.from_numpy(u))
+    if case.endswith("matid"):
+        jkw["matid"], tkw["matid"] = jnp.asarray(mid), torch.from_numpy(mid)
+    ref = jd.viscosity_accel(st.pos, st.vel, st.h, st.mass, st.rho, jcfg,
+                             energy=True, **jkw)
+    out = td.viscosity_accel(*_t(arr, "pos", "vel", "h", "mass", "rho"),
+                             tcfg, energy=True, **tkw)
+    assert len(out) == len(ref) == (3 if jcfg.av_balsara else 2)
+    for o, r in zip(out, ref):
+        _close(o, r, cancelling=True)
+    # viscous heating only heats
+    assert float(out[1].min()) >= 0.0 and float(out[1].max()) > 0.0

@@ -337,3 +337,216 @@ def test_viscosity_needs_velocities():
     args = (T(pos), T(h), T(mass))
     with pytest.raises(ValueError, match="vel"):
         ts.forces(*args, tcfg, ts.build(*args, tcfg))
+
+
+# ---------------------------------------------------------------------------
+# the supergroup far tier (cfg.sg_blocks > 1)
+# ---------------------------------------------------------------------------
+
+SG_BUILD_FIELDS = BUILD_FIELDS + ("blk_idx", "n_blk", "blk_overflow")
+# (config overrides, cloud seed, cloud size): the second gives a block
+# count that 4 does not divide, the third drops entries of a narrow window
+SG_CASES = {
+    "sg4": (dict(sg_blocks=4, blk_window=64), 0, 1024),
+    "sg4_ragged": (dict(sg_blocks=4, blk_window=64), 6, 960),
+    "sg4_overflow": (dict(sg_blocks=4, blk_window=4), 0, 1024),
+    "sg3_quadrupole": (dict(sg_blocks=3, blk_window=64, multipole_order=2,
+                            theta=0.9), 2, 1024),
+}
+
+
+def _sg_builds(case):
+    kw, seed, n = SG_CASES[case]
+    jcfg, tcfg = _cfgs(**dict(dict(n=n, theta=1.0), **kw))
+    pos, h, mass, sk = _cloud(seed, n)
+    jst = jax.jit(lambda p, hh, m, s: js.build(p, hh, m, jcfg, skin=s))(
+        pos, h, mass, sk)
+    tst = ts.build(T(pos), T(h), T(mass), tcfg, skin=T(sk))
+    return (pos, h, mass), jcfg, tcfg, jst, tst
+
+
+@pytest.mark.parametrize("case", sorted(SG_CASES))
+def test_supergroup_build_identical(case):
+    _, _, tcfg, jst, tst = _sg_builds(case)
+    for name in SG_BUILD_FIELDS:
+        np.testing.assert_array_equal(getattr(tst, name).numpy(),
+                                      np.asarray(getattr(jst, name)),
+                                      err_msg=name)
+    nb = tst.groups.live.shape[0]
+    nsg = -(-nb // tcfg.sg_blocks)
+    assert tst.accept.shape[1] == -(-nsg // tcfg.block_chunk) \
+        * tcfg.block_chunk
+    assert int(tst.n_blk.sum()) > 0 and float(tst.accept.sum()) > 0
+    if case == "sg4_ragged":
+        assert nb % tcfg.sg_blocks != 0
+    assert (int(tst.blk_overflow) > 0) == (case == "sg4_overflow")
+    info = ts.overflow_info(tst)
+    assert int(info["tree_overflow"]) == int(
+        tst.p2p_overflow + tst.m2p_overflow + tst.blk_overflow)
+
+
+def test_supergroup_partition_covers_each_block_once():
+    """With the tier on, a block is covered by its supergroup or by a blk
+    entry, never both; what neither covers is left to the sub-block tiers
+    exactly once."""
+    _, _, tcfg, _, st = _sg_builds("sg4_ragged")
+    g = nb = st.groups.live.shape[0]
+    sgf = tcfg.sg_blocks
+    spb = tcfg.nbr_group_size // tcfg.nbr_sub
+    nsg = -(-nb // sgf)
+    sg_cover = (st.accept[:, :nsg] > 0.5).repeat_interleave(sgf, dim=1)[
+        :, :nb]
+    blk = torch.zeros((g, nb), dtype=torch.int32)
+    blk.scatter_reduce_(1, st.blk_idx.clamp(min=0).long(),
+                        (st.blk_idx >= 0).int(), reduce="amax")
+    assert not bool((sg_cover & (blk > 0)).any())
+    bvalid = st.groups.live.any(dim=1)
+    cover = ((sg_cover & bvalid[None, :]).int() + blk).repeat_interleave(
+        spb, dim=1)
+    live_sub = st.groups.live.reshape(nb * spb, tcfg.nbr_sub).any(dim=1)
+    cover = cover * live_sub[None, :].int()
+    for idx in (st.p2p_idx, st.m2p_idx):
+        hit = torch.zeros_like(cover)
+        hit.scatter_reduce_(1, idx.clamp(min=0).long(), (idx >= 0).int(),
+                            reduce="amax")
+        cover = cover + hit
+    want = live_sub[None, :].int().expand(g, -1)
+    assert torch.equal(cover[bvalid], want[bvalid])
+
+
+@pytest.mark.parametrize("tiers", ["all", "far"])
+@pytest.mark.parametrize("case", ["sg4", "sg4_ragged", "sg3_quadrupole"])
+def test_supergroup_forces_match_jax(case, tiers):
+    (pos, h, mass), jcfg, tcfg, jst, tst = _sg_builds(case)
+    ref = jax.jit(lambda p, hh, m, st: js.forces(
+        p, hh, m, jcfg, st, grav_tiers=tiers))(pos, h, mass, jst)
+    out = ts.forces(T(pos), T(h), T(mass), tcfg, tst, grav_tiers=tiers)
+    _close(out.phi, ref.phi, 3e-5)
+    _close(out.grad_phi, ref.grad_phi, 1e-4, 1e-6)
+    for name in ("n_direct", "n_approx"):
+        np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+    # the supergroups take work off the block scan: fewer multipole
+    # entries than the same cloud without the tier, the blk tier counted
+    base = ts.forces(T(pos), T(h), T(mass), tcfg.replace(sg_blocks=0),
+                     ts.build(T(pos), T(h), T(mass),
+                              tcfg.replace(sg_blocks=0)), grav_tiers=tiers)
+    assert 0 < int(out.n_approx.sum()) < int(base.n_approx.sum())
+
+
+def test_supergroup_standalone_gravity_matches_jax():
+    (pos, h, mass), jcfg, tcfg, jst, tst = _sg_builds("sg4")
+    ref = jax.jit(lambda p, hh, m, st: js.gravity(p, hh, m, jcfg, st))(
+        pos, h, mass, jst)
+    out = ts.gravity(T(pos), T(h), T(mass), tcfg, tst)
+    _close(out[0], ref[0], 3e-5)
+    _close(out[1], ref[1], 1e-4, 1e-6)
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
+    np.testing.assert_array_equal(out[3].numpy(), np.asarray(ref[3]))
+
+
+def test_fusion_refuses_the_supergroup_tier():
+    with pytest.raises(ValueError, match="no supergroup tier"):
+        ts.fuse_active(tc.SimConfig(**dict(BASE, fuse_p2p_sph=True,
+                                           sg_blocks=4)))
+
+
+# ---------------------------------------------------------------------------
+# the energy equation in forces (adiabatic and Tillotson EOS)
+# ---------------------------------------------------------------------------
+
+ENERGY_FORCE_CASES = {
+    "adiabatic+grad_h": dict(eos_mode="adiabatic", grad_p_mode="grad_h"),
+    "adiabatic+grad_h+av": dict(eos_mode="adiabatic", grad_p_mode="grad_h",
+                                av_alpha=1.0, av_beta=2.0),
+    "adiabatic+symmetric": dict(eos_mode="adiabatic",
+                                grad_p_mode="symmetric"),
+    "adiabatic+symmetric+av+balsara+merged": dict(
+        eos_mode="adiabatic", grad_p_mode="symmetric", av_alpha=1.0,
+        av_beta=2.0, av_balsara=True, fuse_p2p_sph=True,
+        fuse_p2p_residual=True),
+    "adiabatic+grad_h+sg4": dict(eos_mode="adiabatic", grad_p_mode="grad_h",
+                                 sg_blocks=4, blk_window=64),
+    "tillotson+symmetric+av": dict(eos_mode="tillotson", material="basalt",
+                                   grad_p_mode="symmetric", av_alpha=1.0,
+                                   av_beta=2.0, g_const=1e-3),
+    "tillotson+grad_h+av+fused": dict(eos_mode="tillotson", material="ice",
+                                      grad_p_mode="grad_h", av_alpha=1.0,
+                                      av_beta=2.0, fuse_p2p_sph=True,
+                                      g_const=1e-3),
+}
+
+
+def _energy_pair(kw, seed=0, sorted_io=False):
+    jcfg, tcfg = _cfgs(**kw)
+    (pos, h, mass), jst, tst = _builds(jcfg, tcfg, seed)
+    rng = np.random.default_rng(seed + 11)
+    vel = rng.normal(size=pos.shape).astype(np.float32)
+    till = jcfg.eos_mode == "tillotson"
+    # Tillotson: the cloud's densities are ~1e-3 of any rho0 (expanded
+    # branches); u spans cold to vaporised, with some exactly 0
+    u = (rng.uniform(0.0, 3e11 if till else 2.0, h.shape)
+         .astype(np.float32))
+    u[::13] = 0.0
+    matid = rng.integers(0, 5, h.shape).astype(np.int32) if till else None
+    ref = jax.jit(lambda p, hh, m, v, uu, st: js.forces(
+        p, hh, m, jcfg, st, vel=v, u=uu, matid=matid))(
+        pos, h, mass, vel, u, jst)
+    out = ts.forces(T(pos), T(h), T(mass), tcfg, tst, vel=T(vel), u=T(u),
+                    matid=T(matid) if till else None)
+    return ref, out, tcfg
+
+
+@pytest.mark.parametrize("case", sorted(ENERGY_FORCE_CASES))
+def test_forces_energy_equation_matches_jax(case):
+    """du_dt within the reference's own tolerance for the energy equation
+    (rtol 1e-4, atol 1e-5 of the field's scale); the pressure now depends
+    on u (and on the material)."""
+    ref, out, tcfg = _energy_pair(ENERGY_FORCE_CASES[case])
+    _close(out.rho, ref.rho, 2e-6)
+    _close(out.pressure, ref.pressure, 1e-5, 1e-7)
+    _close(out.grad_p, ref.grad_p, 1e-4, 1e-6)
+    _close(out.du_dt, ref.du_dt, 1e-4, 1e-5)
+    _close(out.phi, ref.phi, 3e-5)
+    _close(out.grad_phi, ref.grad_phi, 1e-4, 1e-6)
+    for name in ("n_neighbors", "n_direct", "n_approx"):
+        np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+    assert float(out.du_dt.abs().max()) > 0.0
+    assert bool(torch.isfinite(out.du_dt).all())
+    if ref.balsara is not None:
+        _close(out.balsara, ref.balsara, 1e-4, 1e-6)
+
+
+def test_energy_equation_refusals_are_the_references():
+    pos, h, mass, _ = _cloud()
+    args = (T(pos), T(h), T(mass))
+    _, tcfg = _cfgs(eos_mode="adiabatic")
+    st = ts.build(*args, tcfg)
+    with pytest.raises(ValueError, match="needs u and vel"):
+        ts.forces(*args, tcfg, st, vel=T(pos))
+    with pytest.raises(ValueError, match="needs u and vel"):
+        ts.forces(*args, tcfg, st, u=T(h))
+    _, asym = _cfgs(eos_mode="adiabatic",
+                    grad_p_mode="reference_asymmetric")
+    with pytest.raises(ValueError, match="momentum-conserving"):
+        ts.forces(*args, asym, st, vel=T(pos), u=T(h))
+
+
+def test_dead_groups_keep_the_energy_rate_finite():
+    """A target group without live particles sits at the density floor; its
+    pressure coefficient is zeroed, so du_dt is 0 there, not 0/0."""
+    pos, h, mass, _ = _cloud(3)
+    mass = mass.copy()
+    _, tcfg = _cfgs(eos_mode="adiabatic", grad_p_mode="grad_h")
+    st0 = ts.build(T(pos), T(h), T(mass), tcfg)
+    dead = st0.groups.tgt_idx.reshape(-1, tcfg.nbr_group_size)[1].numpy()
+    mass[dead] = 0.0
+    args = (T(pos), T(h), T(mass))
+    st = ts.build(*args, tcfg)
+    out = ts.forces(*args, tcfg, st, vel=T(pos) * 0.1,
+                    u=torch.ones(len(h)))
+    for name in ("du_dt", "grad_p", "rho"):
+        assert bool(torch.isfinite(getattr(out, name)).all()), name

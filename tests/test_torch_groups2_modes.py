@@ -4,9 +4,11 @@ against the JAX package's sweeps, on the same numpy inputs.
 Covers what tests/test_torch_groups2.py does not: ``pass1_sym``, ``p2p`` in
 both softenings, ``pass2`` in its three pressure forms with the sign bug,
 viscosity, the Balsara sums, fused gravity with and without the merged
-residual-P2P window and receiver softening, and ``gravity_fused`` with the
-near tier. The JAX side runs ``ops/pallas/fallback.py``; one tiny case per
-kernel and mode family also runs the Pallas bodies in interpret mode
+residual-P2P window and receiver softening, with the energy column (with
+and without viscosity: the three-velocity layout), and ``gravity_fused``
+with the near tier and with the supergroup block tier. The JAX side runs
+``ops/pallas/fallback.py``; one tiny case per kernel and mode family also
+runs the Pallas bodies in interpret mode
 (PSPH_FORCE_INTERPRET=1). Inputs are those of test_torch_groups2.py (ragged
 nv, m = 0 slots, self pairs, both sides of q = 1, q = 2 and x = 1).
 Tolerances: counts exact; rho rtol 2e-6; phi rtol 3e-5; gradient, viscosity
@@ -36,7 +38,7 @@ def one_torch_thread():
 
 
 def _pass2_inputs(seed, mode, av, balsara, merged, receiver, g=G, b=B, s=S,
-                  s2=S2):
+                  s2=S2, energy=False):
     """(nv, tgt cols, src rows, p2p kw) of one pass-2 call under the flags,
     with approaching and receding pairs when av."""
     nv, (tx, ty, tz, tih), (sx, sy, sz, sih, sm) = _case(seed, g, b, s)
@@ -54,6 +56,10 @@ def _pass2_inputs(seed, mode, av, balsara, merged, receiver, g=G, b=B, s=S,
         if balsara:
             tgt.append(u(0.0, 1.0, tx.shape))
             src.append(u(0.0, 1.0, (g, s)))
+    elif energy:
+        # the energy equation without viscosity: the three velocities only
+        tgt += [u(-1, 1, tx.shape) for _ in range(3)]
+        src += [u(-1, 1, (g, s)) for _ in range(3)]
     kw = {}
     if merged:
         nvp, _, (px, py, pz, pih, pm) = _case(seed + 1, g, b, s2)
@@ -63,9 +69,9 @@ def _pass2_inputs(seed, mode, av, balsara, merged, receiver, g=G, b=B, s=S,
 
 
 def _flags(mode="symmetric", sign_bug=False, av=False, balsara=False,
-           grav=False, merged=False, receiver=False):
+           grav=False, merged=False, receiver=False, energy=False):
     return dict(mode=mode, sign_bug=sign_bug, av=av, balsara=balsara,
-                grav=grav, merged=merged, receiver=receiver)
+                grav=grav, merged=merged, receiver=receiver, energy=energy)
 
 
 PASS2_CASES = {
@@ -85,16 +91,31 @@ PASS2_CASES = {
     "asymmetric+av+fused": _flags("reference_asymmetric", av=True,
                                   grav=True),
 }
+# the energy column: grad_h and symmetric x viscosity off/on x Balsara x
+# gravity none/fused/merged
+ENERGY_CASES = {
+    f"{mode}{'+av' if av else ''}{'+balsara' if bal else ''}+energy"
+    f"{'+' + grav if grav != 'none' else ''}": _flags(
+        mode, av=av, balsara=bal, energy=True, grav=grav != "none",
+        merged=grav == "merged")
+    for mode in ("grad_h", "symmetric")
+    for av, bal in ((False, False), (True, False), (True, True))
+    for grav in ("none", "fused", "merged")
+}
+ENERGY_CASES["symmetric+sign_bug+av+energy"] = _flags(
+    sign_bug=True, av=True, energy=True)
+PASS2_CASES.update(ENERGY_CASES)
 
 
 def _check_pass2(out, ref, f):
-    """gp(3) [av(3)] [dc(4)] [phi g(3) nd]: sums of cancelling terms get an
-    atol of 1e-6 of their group's scale."""
+    """gp(3) [av(3)] [dc(4)] [du] [phi g(3) nd]: sums of cancelling terms
+    get an atol of 1e-6 of their group's scale."""
     ref = _np(ref)
     assert len(out) == len(ref) == 3 + 3 * f["av"] + 4 * f["balsara"] \
-        + 5 * f["grav"]
+        + f["energy"] + 5 * f["grav"]
     k = 0
-    groups = [3] + ([3] if f["av"] else []) + ([4] if f["balsara"] else [])
+    groups = [3] + ([3] if f["av"] else []) + ([4] if f["balsara"] else []) \
+        + ([1] if f["energy"] else [])
     for n in groups:
         scale = max(np.abs(r).max() for r in ref[k:k + n])
         assert scale > 0.0                  # the sums are not vacuous
@@ -113,8 +134,10 @@ def _check_pass2(out, ref, f):
 def _run_pass2(seed, f, jax_fn, **size):
     nv, tgt, src, pkw = _pass2_inputs(seed, f["mode"], f["av"],
                                       f["balsara"], f["merged"],
-                                      f["receiver"], **size)
+                                      f["receiver"], energy=f["energy"],
+                                      **size)
     kw = dict(mode=f["mode"], av=f["av"], balsara=f["balsara"],
+              energy=f["energy"],
               sign_bug=f["sign_bug"], av_alpha=1.0, av_beta=2.0,
               grav=f["grav"], receiver_soft=f["receiver"], g_const=0.7)
     jkw = {k: (jnp.asarray(v) if k == "nv_p2p" else _j(v))
@@ -130,13 +153,13 @@ def _run_pass2(seed, f, jax_fn, **size):
 @pytest.mark.parametrize("case", sorted(PASS2_CASES))
 @pytest.mark.parametrize("seed", [0, 1])
 def test_pass2_modes_plain_match_jax(case, seed):
-    fb = lambda *a, **kw: fallback.pass2(*a, energy=False, **kw)
-    _run_pass2(seed, PASS2_CASES[case], fb)
+    _run_pass2(seed, PASS2_CASES[case], fallback.pass2)
 
 
 @pytest.mark.parametrize("case", [
     "symmetric", "asymmetric+sign_bug", "grad_h+av+balsara",
-    "symmetric+fused+receiver", "symmetric+merged+receiver"])
+    "symmetric+fused+receiver", "symmetric+merged+receiver",
+    "grad_h+energy+merged", "symmetric+av+energy"])
 def test_pass2_modes_match_pallas_interpret(case, monkeypatch):
     monkeypatch.setenv("PSPH_FORCE_INTERPRET", "1")
     size = dict(g=2, b=8, s=256, s2=128)
@@ -227,6 +250,104 @@ def test_gravity_fused_near_tier_plain_matches_jax(nm, receiver):
     assert int(out[4].sum()) > 0 and int(out[5].sum()) > 0
 
 
+def _blk_rows(seed, nm, g=G, sb=S2):
+    """A block-tier window: the ring's fields, ragged nv, some m = 0."""
+    rng = np.random.default_rng(seed + 70)
+    m = rng.uniform(0.5, 2.0, (g, sb)).astype(np.float32)
+    m[:, 2::5] = 0.0
+    c = [(rng.uniform(-1, 1, (g, sb)) * 8.0
+          + 12.0 * np.sign(rng.uniform(-1, 1, (g, sb)))).astype(np.float32)
+         for _ in range(3)]
+    q = [rng.normal(0, 0.3, (g, sb)).astype(np.float32) for _ in range(6)]
+    nv = np.array([sb, 0, sb // 2 + 1][:g], np.int32)
+    return nv, ([m] + c + q)[:nm]
+
+
+@pytest.mark.parametrize("near", [False, True], ids=["far_only", "near"])
+@pytest.mark.parametrize("nm", [10, 4])
+def test_gravity_fused_blk_tier_plain_matches_jax(nm, near):
+    """The supergroup block tier: a third windowed moment sweep whose
+    entries count into n_approx, far-only and with the near tier."""
+    nv_ring, tgt, ring, far, accept = _grav_inputs(4, nm)
+    nvb, brow = _blk_rows(4, nm)
+    nvp, prow = _near_rows(4, False)
+    ref = _np(fallback.gravity_fused(
+        jnp.asarray(nvp) if near else None, jnp.asarray(nv_ring), _j(tgt),
+        _j(prow) if near else None, _j(ring), _j(far), jnp.asarray(accept),
+        receiver_soft=False, g_const=1.3, nv_blk=jnp.asarray(nvb),
+        blk_rows=_j(brow), has_p2p=near))
+    nkw = dict(nv_p2p=torch.from_numpy(nvp), p2p_rows=_t(prow)) if near \
+        else {}
+    args = (torch.from_numpy(nv_ring), _t(tgt), _t(ring), _t(far),
+            torch.from_numpy(accept))
+    out = tk.gravity_fused(*args, b=B, g_const=1.3,
+                           nv_blk=torch.from_numpy(nvb), blk_rows=_t(brow),
+                           **nkw)
+    _close(out[0], ref[0], 3e-5)
+    gscale = max(np.abs(r).max() for r in ref[1:4])
+    for k in range(1, 4):
+        _close(out[k], ref[k], 1e-5, 1e-6 * gscale)
+    _close(out[4], ref[4], 0)
+    _close(out[5], ref[5], 0)
+    # the tier's live entries are counted, and only into n_approx
+    bare = tk.gravity_fused(*args, b=B, g_const=1.3, **nkw)
+    live = (brow[0] > 0) & (np.arange(S2)[None, :] < nvb[:, None])
+    np.testing.assert_array_equal(
+        (out[5] - bare[5]).numpy().reshape(G, B),
+        np.repeat(live.sum(axis=1)[:, None], B, axis=1))
+    np.testing.assert_array_equal(out[4].numpy(), bare[4].numpy())
+    assert int(live.sum()) > 0
+
+
+def test_gravity_fused_blk_tier_matches_pallas_interpret(monkeypatch):
+    """The has_blk branch of the Pallas body itself."""
+    monkeypatch.setenv("PSPH_FORCE_INTERPRET", "1")
+    g, b, chunk = 2, 8, 128
+    gnv, gtgt, ring, far, accept = _grav_inputs(7, 10, g, b, 128, 256)
+    nvb, brow = _blk_rows(7, 10, g, 128)
+    for near in (False, True):
+        nvp, prow = _near_rows(7, False, g, b, 128)
+        nvp = np.minimum(nvp[:g], 128).astype(np.int32)
+        ref = _np(jk.gravity_fused(
+            jnp.asarray(nvp) if near else None, jnp.asarray(gnv), _j(gtgt),
+            _j(prow) if near else None, _j(ring), _j(far),
+            jnp.asarray(accept), b=b, chunk=chunk, receiver_soft=False,
+            g_const=1.0, nv_blk=jnp.asarray(nvb), blk_rows=_j(brow),
+            has_p2p=near))
+        nkw = dict(nv_p2p=torch.from_numpy(nvp), p2p_rows=_t(prow)) \
+            if near else {}
+        out = tk.gravity_fused(
+            torch.from_numpy(gnv), _t(gtgt), _t(ring), _t(far),
+            torch.from_numpy(accept), b=b, nv_blk=torch.from_numpy(nvb),
+            blk_rows=_t(brow), **nkw)
+        _close(out[0], ref[0], 3e-5)
+        gscale = max(np.abs(r).max() for r in ref[1:4])
+        for k in range(1, 4):
+            _close(out[k], ref[k], 1e-4, 1e-6 * gscale)
+        _close(out[4], ref[4], 0)
+        _close(out[5], ref[5], 0)
+
+
+def test_pass2_energy_column_sits_before_gravity():
+    """du is one more output after the Balsara sums and before the gravity
+    outputs, complete as summed; the other outputs do not move."""
+    f = PASS2_CASES["grad_h+av+balsara+energy+merged"]
+    nv, tgt, src, pkw = _pass2_inputs(2, f["mode"], True, True, True, False,
+                                      energy=True)
+    kw = dict(b=B, mode="grad_h", av=True, balsara=True, av_alpha=1.0,
+              av_beta=2.0, grav=True, nv_p2p=torch.from_numpy(pkw["nv_p2p"]),
+              p2p_rows=_t(pkw["p2p_rows"]))
+    with_e = tk.pass2(torch.from_numpy(nv), _t(tgt), _t(src), energy=True,
+                      **kw)
+    without = tk.pass2(torch.from_numpy(nv), _t(tgt), _t(src), **kw)
+    assert len(with_e) == len(without) + 1 == 16
+    for a, c in zip(with_e[:10] + with_e[11:], without):
+        assert torch.equal(a, c)
+    du = with_e[10]
+    assert du.dtype == torch.float32 and float(du.abs().max()) > 0.0
+    assert float(du[:B].abs().max()) == 0.0           # group 0 has nv = 0
+
+
 def test_new_kernels_match_pallas_interpret(monkeypatch):
     """pass1_sym, p2p (both softenings) and gravity_fused with the near
     tier through the Pallas bodies themselves."""
@@ -289,10 +410,19 @@ def test_new_wrappers_refuse_bad_arguments():
     with pytest.raises(ValueError, match="4 target columns"):
         tk.pass2(tnv, cols + [cols[0]], rows + [rows[0]], b=B,
                  mode="reference_asymmetric")
+    # the energy equation has no reference_asymmetric form, and without
+    # viscosity it takes the three velocities and nothing else
+    with pytest.raises(ValueError, match="momentum-conserving"):
+        tk.pass2(tnv, cols, rows + [rows[0]], b=B, energy=True,
+                 mode="reference_asymmetric")
+    with pytest.raises(ValueError, match="8 target columns, 9 SPH rows"):
+        tk.pass2(tnv, cols + [cols[0]], rows + [rows[0]], b=B, energy=True)
+    # the block tier takes as many moment fields as the ring
     ring = [rows[4], rows[0], rows[1], rows[2]]
     far = [r[:1].contiguous() for r in ring]
-    with pytest.raises(NotImplementedError, match="blk_rows"):
-        tk.gravity_fused(tnv, cols, ring, far, rows[4], b=B, blk_rows=ring)
+    with pytest.raises(ValueError, match="moment fields for every tier"):
+        tk.gravity_fused(tnv, cols, ring, far, rows[4], b=B, nv_blk=tnv,
+                         blk_rows=ring[:3])
 
 
 def test_cpu_tensors_launch_nothing():

@@ -17,6 +17,7 @@ from planetmodel_sph_tpu.models import ics as jics
 from planetmodel_sph_tpu_torch import config as tc
 from planetmodel_sph_tpu_torch import state as tstate
 from planetmodel_sph_tpu_torch.models import ics
+from planetmodel_sph_tpu_torch.ops import eos as eos_ops
 
 CFG = tc.jupiter_3k(n=2000, seed=4)
 
@@ -152,12 +153,114 @@ def test_rotating_planet_is_solid_body_rotation():
 
 
 @pytest.mark.parametrize("call,word", [
-    (lambda: ics.differentiated_planet(CFG), "tillotson"),
-    (lambda: ics.two_planet_collision(CFG, materials=("basalt", "ice"),
-                                      device="cpu"), "materials"),
-    (lambda: ics.jupiter(CFG.replace(eos_mode="tillotson"), device="cpu"),
-     "eos_mode"),
+    (lambda: ics.differentiated_planet(CFG, device="cpu"), "tillotson"),
+    (lambda: ics.two_planet_collision(
+        CFG.replace(eos_mode="tillotson"), materials=("basalt", "slate"),
+        device="cpu"), "slate"),
+    (lambda: ics.jupiter(CFG.replace(eos_mode="tillotson",
+                                     material="slate"), device="cpu"),
+     "slate"),
 ])
 def test_unported_initial_conditions_refused_by_name(call, word):
-    with pytest.raises(NotImplementedError, match=word):
+    """Every initial condition is ported; what they refuse is what the
+    reference refuses: a differentiated body without the Tillotson EOS,
+    and a material that is not in the table."""
+    with pytest.raises((ValueError, KeyError), match=word):
         call()
+
+
+TILL = tc.basalt_impact(n=1001, seed=3)
+
+
+def test_init_u_and_matid_follow_the_eos():
+    """_init_u: cfg.u0 under tillotson, the polytropic relation otherwise;
+    _init_matid: cfg.material's id."""
+    rho = torch.tensor([0.5, 2.0])
+    assert torch.equal(ics._init_u(TILL, rho), torch.full_like(rho, 1e9))
+    assert torch.equal(ics._init_u(CFG.replace(eos_mode="adiabatic"), rho),
+                       CFG.eos_k * rho)
+    assert ics._init_matid(TILL.replace(material="ice"), 3).tolist() == [3] * 3
+    assert ics._init_matid(TILL, 3).dtype == torch.int32
+    st = ics.jupiter(TILL.replace(material="iron"), device="cpu")
+    assert set(st.matid.tolist()) == {2} and set(st.u.tolist()) == {1e9}
+
+
+@pytest.mark.parametrize("materials", [("basalt", "ice"), ("iron", "basalt"),
+                                       None])
+def test_two_planet_collision_materials_match_jax(materials):
+    """Per-body materials: each body's radius from its material's rho0,
+    equal particle masses, material ids by body; the same distribution as
+    the reference's (same counts, extents and bulk velocities)."""
+    jcfg = jc.basalt_impact(n=TILL.n, seed=3)
+    kw = dict(separation=2e7, approach_speed=3e5, materials=materials)
+    ref = jics.two_planet_collision(jcfg, **kw)
+    st = ics.two_planet_collision(TILL, device="cpu", **kw)
+    n_a = (TILL.n + 1) // 2
+    names = materials or ("basalt", "basalt")
+    for sl, name, sign in ((slice(0, n_a), names[0], -1.0),
+                           (slice(n_a, None), names[1], 1.0)):
+        mid = eos_ops.material_index(name)
+        assert set(st.matid[sl].tolist()) == {mid}
+        np.testing.assert_array_equal(st.matid[sl].numpy(),
+                                      np.asarray(ref.matid[sl]))
+        centre = torch.tensor([sign * 1e7, 0.0, 0.0])
+        r = torch.linalg.norm(st.pos[sl] - centre, dim=-1)
+        r_ref = np.linalg.norm(np.asarray(ref.pos[sl])
+                               - centre.numpy(), axis=-1)
+        m_body = float(st.mass[sl].sum())
+        want = (3.0 * m_body / (4.0 * np.pi * eos_ops.material_rho0(name))
+                ) ** (1.0 / 3.0) if materials else TILL.radius
+        assert float(r.max()) <= want * (1 + 1e-5)
+        assert float(r.max()) > 0.9 * want
+        np.testing.assert_allclose(float(r.max()), r_ref.max(), rtol=0.05)
+        # pressure-free start: the IC density is the material's rho0
+        if materials:
+            np.testing.assert_allclose(
+                float(st.rho[sl][0]), eos_ops.material_rho0(name), rtol=1e-5)
+        np.testing.assert_allclose(st.rho[sl].numpy(),
+                                   np.asarray(ref.rho[sl]), rtol=1e-5)
+        np.testing.assert_allclose(st.h[sl].mean().item(),
+                                   np.asarray(ref.h[sl]).mean(), rtol=0.02)
+    np.testing.assert_allclose(st.mass.numpy(), np.asarray(ref.mass),
+                               rtol=1e-6)
+    assert float(st.mass.max() / st.mass.min()) < 1.0 + 1e-5
+    np.testing.assert_array_equal(st.vel.numpy(), np.asarray(ref.vel))
+    np.testing.assert_array_equal(st.u.numpy(), np.asarray(ref.u))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(core_material="iron",
+                                         mantle_material="ice",
+                                         core_mass_frac=0.5)],
+                         ids=["iron_basalt", "iron_ice_half"])
+def test_differentiated_planet_matches_jax(kw):
+    """Counts per material, shell radii from the materials' rho0, equal
+    particle masses, a pressure-free start: the reference's, field by
+    field where no random number enters."""
+    jcfg = jc.basalt_impact(n=TILL.n, seed=3)
+    ref = jics.differentiated_planet(jcfg, **kw)
+    st = ics.differentiated_planet(TILL, device="cpu", **kw)
+    for name in ("mass", "rho", "h", "u", "pressure"):
+        np.testing.assert_allclose(getattr(st, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=2e-6, atol=1e-3, err_msg=name)
+    np.testing.assert_array_equal(st.matid.numpy(), np.asarray(ref.matid))
+    core = kw.get("core_material", "iron")
+    n_core = int((st.matid == eos_ops.material_index(core)).sum())
+    assert n_core == round(TILL.n * kw.get("core_mass_frac", 0.3))
+    assert float(st.mass.max() / st.mass.min()) < 1.01
+    r = torch.linalg.norm(st.pos, dim=-1)
+    r_ref = np.linalg.norm(np.asarray(ref.pos), axis=-1)
+    # the core fills its ball, the mantle its shell, as the reference's
+    np.testing.assert_allclose(float(r[:n_core].max()),
+                               r_ref[:n_core].max(), rtol=0.02)
+    np.testing.assert_allclose(float(r[n_core:].min()),
+                               r_ref[n_core:].min(), rtol=0.02)
+    np.testing.assert_allclose(float(r.max()), r_ref.max(), rtol=0.01)
+    assert float(r[:n_core].max()) <= float(r[n_core:].min()) * (1 + 1e-6)
+    # cold material at its reference density: no pressure to speak of
+    a_scale = eos_ops.TILLOTSON_MATERIALS[core][3]
+    assert float(st.pressure.abs().max()) < 0.02 * a_scale
+    assert not st.vel.any()
+    for name in ("pos", "h"):
+        assert getattr(st, name).dtype == torch.float32
+

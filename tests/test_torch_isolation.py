@@ -24,7 +24,9 @@ FORBIDDEN = ("jax", "jaxlib", "planetmodel_sph_tpu")
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, files in os.walk(PKG):
+    for d, dirs, files in os.walk(PKG):
+        if d == PKG:
+            dirs[:] = [x for x in dirs if x != "build"]    # build outputs
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
 

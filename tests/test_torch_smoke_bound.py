@@ -355,3 +355,113 @@ def test_slice_args_cuts_groups_and_keeps_shared_rows():
     assert a[2][0].shape == (2, 3) and a[3][0].shape == (1, 8)
     assert kw["nv_p2p"].tolist() == [1, 2] and "b" not in kw
     assert kw["g_const"] == 2.0 and kw["p2p_rows"][0].shape == (2, 3)
+
+
+@pytest.mark.parametrize("mode", ["grad_h", "symmetric"])
+@pytest.mark.parametrize("av", [False, True])
+def test_pass2_energy_ops_and_bytes(mode, av):
+    """The energy column's charge: the pressure work on the pair inside the
+    support, v.d unless the viscosity has it, half the dissipation on the
+    approaching pair; one more output column, and without viscosity three
+    velocity rows and columns."""
+    b = 2
+    zero, one = _col([0.0] * b), _col([1.0] * b)
+    n = 3
+    # r = 0.5: inside both supports, approaching; r = 3: outside
+    src = [_row([0.5, 3.0, 0.0]), _row([0.0] * n), _row([0.0] * n),
+           _row([1.0] * n), _row([1.0] * n), _row([1.0] * n),
+           _row([-0.1, -0.1, 0.0]), _row([0.0] * n), _row([0.0] * n)]
+    tgt = [zero, zero, zero, one, one, zero, zero, zero]
+    if av:
+        src += [_row([1.0] * n)] * 3
+        tgt += [one, one, one]
+    a = (_nv(2), tgt, src)
+    kw = dict(b=b, mode=mode, av=av, energy=True, av_alpha=1.0, av_beta=2.0)
+    out = gk2.pass2(*a, **kw)
+    assert len(out) == (7 if av else 4)
+    _, _, nbytes, ops = cs.bound("pass2", a, kw, out)
+    plain = dict(kw, energy=False)
+    a0 = a if av else (a[0], tgt[:5], src[:6])
+    out0 = gk2.pass2(*a0, **plain)
+    _, _, nbytes0, ops0 = cs.bound("pass2", a0, plain, out0)
+    extra = cs.OPS_EN[mode] + (cs.OPS_EN_AV if av else cs.OPS_EN_VDOTR)
+    assert ops - ops0 == b * extra
+    # du column; without viscosity also 3 target columns and 3 rows in the
+    # two slots below nv
+    assert nbytes - nbytes0 == b * 4 + (0 if av else 3 * b * 4 + 2 * 3 * 4)
+    assert float(out[-1].abs().max()) > 0.0
+
+
+def test_pass2_tolerances_follow_the_energy_flag():
+    assert len(cs.pass2_tol(dict(av=True, balsara=True, energy=True,
+                                 grav=True))) == 16
+    assert len(cs.pass2_tol(dict(energy=True))) == 4
+    assert cs.pass2_tol(dict(energy=True))[3] == (1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("near", [False, True])
+def test_gravity_ops_with_the_blk_tier(near):
+    """The blk tier's entries are charged as the ring's: one multipole
+    evaluation per target and live entry, the m test per slot below
+    nv_blk, its rows' bytes below nv_blk."""
+    b = 2
+    zero, one = _col([0.0] * b), _col([1.0] * b)
+    tgt = [zero, zero, zero, one]
+    ring = [_row([1.0, 1.0]), _row([5.0, 6.0]), _row([0.0] * 2),
+            _row([0.0] * 2)]
+    far = [_row([1.0, 1.0]), _row([10.0, 11.0]), _row([0.0] * 2),
+           _row([0.0] * 2)]
+    accept = _row([1.0, 0.0])
+    # three slots below nv_blk, one of them with m = 0; a fourth past it
+    blk = [_row([1.0, 0.0, 2.0, 1.0]), _row([20.0, 21.0, 22.0, 23.0]),
+           _row([0.0] * 4), _row([0.0] * 4)]
+    p2p = [_row([0.5, 5.0, 0.0]), _row([0.0] * 3), _row([0.0] * 3),
+           _row([1.0] * 3), _row([1.0] * 3)]
+    a = (_nv(1), tgt, ring, far, accept)
+    nkw = dict(nv_p2p=_nv(2), p2p_rows=p2p, receiver_soft=False) if near \
+        else {}
+    kw = dict(b=b, nv_blk=_nv(3), blk_rows=blk, **nkw)
+    out = gk2.gravity_fused(*a, **kw)
+    bare = gk2.gravity_fused(*a, b=b, **nkw)
+    assert (out[5] - bare[5]).tolist() == [[2]] * b
+    _, _, nbytes, ops = cs.bound("gravity_fused", a, kw, out)
+    _, _, nbytes0, ops0 = cs.bound("gravity_fused", a, dict(b=b, **nkw),
+                                   bare)
+    assert ops - ops0 == b * cs.OPS_MONO * 2 + 3
+    assert nbytes - nbytes0 == 4 + 3 * 4 * 4
+
+
+def test_expected_launches_of_the_energy_and_supergroup_legs():
+    from planetmodel_sph_tpu_torch import config as tc
+    base = tc.jupiter_100k()
+    adia = base.replace(**cs.ADIA_KW)
+    assert adia.evolves_u and adia.av_alpha == 1.0
+    assert cs.expected_launches(adia, cs.ADIA_STEPS) == {
+        "filter_sph": 4, "pass1_gradh": 68, "pass2": 64, "gravity_fused": 4}
+    noav = adia.replace(av_alpha=0.0, rebuild_every=cs.ADIA_NOAV_STEPS,
+                        respa_every=cs.ADIA_NOAV_STEPS)
+    assert cs.expected_launches(noav, cs.ADIA_NOAV_STEPS) == {
+        "filter_sph": 2, "pass1_gradh": 10, "pass2": 8, "gravity_fused": 2}
+    sg = base.replace(**cs.SYM_KW, **cs.SG_KW)
+    tc.check_slice(sg)
+    assert cs.expected_launches(sg, 64) == {
+        "filter_sph": 2, "pass1_sym": 64, "pass2": 64, "p2p": 64,
+        "gravity_fused": 4}
+    bcfg = tc.basalt_impact(**cs.BASALT100K_KW)
+    tc.check_slice(bcfg)
+    assert (bcfg.n, bcfg.eos_mode, bcfg.multipole_order,
+            bcfg.rebuild_every) == (100_000, "tillotson", 1, 1)
+    tc.check_slice(tc.basalt_impact())
+
+
+def test_slice_args_cuts_the_blk_window_too():
+    g, b = 4, 2
+    nv = torch.arange(g, dtype=torch.int32)
+    col = torch.arange(g * b, dtype=torch.float32).reshape(-1, 1)
+    row = torch.arange(g * 3, dtype=torch.float32).reshape(g, 3)
+    far = torch.zeros(1, 8)
+    a, kw = cs.slice_args((nv, [col], [row], [far], row),
+                          dict(b=b, nv_blk=nv, blk_rows=[row, row]), 2, 4)
+    assert kw["nv_blk"].tolist() == [2, 3]
+    assert [r.shape for r in kw["blk_rows"]] == [(2, 3)] * 2
+    assert a[3][0].shape == (1, 8)
