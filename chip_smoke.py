@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 It never imports JAX or the JAX package. Phases, any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the eight CUDA kernels from ``planetmodel_sph_tpu_torch/csrc``;
+2. build: the twelve CUDA kernels from ``planetmodel_sph_tpu_torch/csrc``;
 3. load: the settled 100k state ``docs/results/drift100k_r5ship/state.psph``
    with the config in its header, onto the card;
 4. kernels: each windowed kernel's inputs are recorded at the first rebuild
@@ -60,13 +60,29 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    ``gravity_fused`` with monopoles) and `sg100k` (`sym100k` with the
    supergroup far tier, sg_blocks=4: 64 RESPA steps, then 8 with every tier
    in one launch). Phase 4 holds every kernel these legs launch against its
-   plain version on the leg's own first inputs;
+   plain version on the leg's own first inputs, and the four probes of the
+   tools (``probe_fma``, ``probe_launch``, ``probe_gather``,
+   ``probe_pass1_tile`` at SG 1, 4 and 8) against theirs at the reference
+   tools' shapes. Then (5e) the port's ``tools.roofline`` and
+   ``tools.microbench``, the probes' main path: the card's dispatch
+   latency, memory stream, f32 FMA rate and launch cost beside the
+   published peaks, ``count_work`` at the settled state and the modeled
+   floor against the main path's measured step, the five gather variants
+   and the three tile widths; and (5f) `exact100k` (the settled state
+   under particle-exact SPH lists, ``sph_exact_window=896``, unfused: 64
+   steps of the cached grad-h Newton chunk, the h-solve's own exact lists
+   included), `unsorted100k` (the production step with
+   ``sorted_chunks=False``, 64 steps, held against the sorted main path's
+   state at rtol 2e-5, atol 1e-6, counts equal) and `dense3k_k4`
+   (``jupiter_3k`` at n = 3000 with rebuild_every=4, 200 steps);
 6. small input: the 2048 innermost particles run 8 steps of the cached
    pipeline and 8 of the unfused symmetric one, and 512 particles from
    ``ics.jupiter`` 8 steps of the dense one, on the card and on the CPU
    (plain versions, which the CPU tests hold against the JAX package), and
-   the two results must agree; and 8 adiabatic steps with viscosity of the
-   same 2048 particles, where the evolved u must agree too.
+   the two results must agree; 8 adiabatic steps with viscosity of the
+   same 2048 particles, where the evolved u must agree too; and the 2048
+   particles through ``planet.init_carry`` and 8 ``planet.step_carry``
+   calls.
 
 The second-to-last line of standard output is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. A full
@@ -129,6 +145,26 @@ BASALT100K_KW = dict(
 BASALT100K_STEPS = 16
 # the supergroup far tier on sym100k
 SG_KW = dict(sg_blocks=4, blk_window=768)
+# particle-exact SPH lists on the settled state: tools/ksweep2.py's r4x896
+# with the fusion's companion flag off and sym100k's unfused windows
+EXACT_KW = dict(sph_exact_window=896, fuse_p2p_sph=False,
+                fuse_p2p_residual=False, p2p_window=256, m2p_window=256)
+EXACT_STEPS = 64          # two K=32 RESPA chunks
+UNSORTED_STEPS = STEPS    # the production step with sorted_chunks=False
+DENSE_K4 = (3000, 200, 4)  # (n, steps, rebuild_every) of the cached dense leg
+# the tools' probes at the reference tools' shapes
+FMA_SHAPE, FMA_REPS = (256, 512), 512
+LAUNCH_SHAPE, LAUNCH_CHAIN = (8, 128), 256
+GATHER_NB, GATHER_W, GATHER_C = 2067, 96, 7
+TILE_SUPERS = (1, 4, 8)
+TOOL_K = 8                # data-dependent calls of each microbench variant
+VPU_K, HBM_K, HBM_MB = 16, 32, 512
+# probe_fma: the kernel rounds once per FMA, the plain acc * v + v twice;
+# acc grows to about 4 reps, the differences add up along the chain
+FMA_RTOL = 1e-4
+# probe_pass1_tile: the random-normal terms cancel, so the difference of
+# two summation orders is held against the sum of |m W| of each target
+TILE_TOL = 1e-5
 # elements of one [groups, B, S] intermediate of a sliced plain version
 SLICE_ELEMS = SLICE_GROUPS * 64 * 2560
 
@@ -216,6 +252,20 @@ OPS_PW_PI = 21            # hbar(2) mu(5) cbar(2) rhobar(2) Pi(6)
 OPS_PW_PI_BAL = 3         # (f_i + f_j)/2 * Pi
 OPS_PW_DC = 18            # m g (1); div (2); curl 3 x (2 mul, sub, mul, add)
 
+# The probes. probe_fma: two operations per FMA, four FMAs per rep, per
+# element; probe_launch: one multiply per element; probe_gather: none.
+# probe_pass1_tile, per live (target, slot) pair: the geometry, the branch
+# of the signed q, and the sum; per slot below the extent its live test
+# (once per instance); per target the prefactor ih^3/pi.
+OPS_FMA_REP = 8
+OPS_TILE_GEOM = 10        # dx(3) r2(5) sqrt q
+OPS_TILE_W = dict(inner=7,  # q<1; q2 1.5q2 1-. 0.75q2 *q +
+                  outer=6,  # q<1 q<2; t 0.25t *t *t
+                  none=2)   # q<1 q<2
+OPS_TILE_SUM = 3          # w c, m (w c), +=
+OPS_TILE_SLOT = 1         # live > 0.5
+OPS_TILE_TARGET = 3       # (1/pi ih) ih ih
+
 KERNELS = {
     "filter_sph": ("planetmodel_sph_tpu_torch/csrc/filter_sph.cu",
                    "planetmodel_sph_tpu/ops/pallas/groups2.py:382"),
@@ -233,7 +283,16 @@ KERNELS = {
                        "planetmodel_sph_tpu/ops/pallas/pairwise.py:255"),
     "pairwise_pass2": ("planetmodel_sph_tpu_torch/csrc/pairwise_pass2.cu",
                        "planetmodel_sph_tpu/ops/pallas/pairwise.py:284"),
+    "probe_fma": ("planetmodel_sph_tpu_torch/csrc/probe_fma.cu",
+                  "tools/roofline.py:97"),
+    "probe_launch": ("planetmodel_sph_tpu_torch/csrc/probe_launch.cu",
+                     "tools/roofline.py:118"),
+    "probe_gather": ("planetmodel_sph_tpu_torch/csrc/probe_gather.cu",
+                     "tools/microbench.py:113"),
+    "probe_pass1_tile": ("planetmodel_sph_tpu_torch/csrc/"
+                         "probe_pass1_tile.cu", "tools/microbench.py:206"),
 }
+PROBES = ("probe_fma", "probe_launch", "probe_gather", "probe_pass1_tile")
 
 # Tolerances, kernel against plain version, both f32 on the card. The two
 # sum the same terms in different orders (the kernel sequentially per
@@ -421,17 +480,18 @@ def mode_cases(state, cfg, sym_state, settle_state, settle_cfg):
         *seen["gravity_fused"]
 
 
-def occupancy(label, st):
+def occupancy(label, st, sph_unit="sub-blocks"):
     """Print a structure's largest window occupancies (and the blk tier's
-    when it is on)."""
+    when it is on); `sph_unit` names what the SPH window holds."""
     blk = ""
     if st.blk_idx.shape[1] > 1:
         blk = (f", max n_blk {int(st.n_blk.max())} of "
                f"{st.blk_idx.shape[1]} blocks")
     print(f"{label} first rebuild: max n_sph {int(st.n_sph.max())} of "
-          f"{st.sph_idx.shape[1]}, max n_p2p {int(st.n_p2p.max())} of "
-          f"{st.p2p_idx.shape[1]}, max n_m2p {int(st.n_m2p.max())} of "
-          f"{st.m2p_idx.shape[1]} sub-blocks{blk}", flush=True)
+          f"{st.sph_idx.shape[1]} {sph_unit}, max n_p2p "
+          f"{int(st.n_p2p.max())} of {st.p2p_idx.shape[1]}, max n_m2p "
+          f"{int(st.n_m2p.max())} of {st.m2p_idx.shape[1]} sub-blocks{blk}",
+          flush=True)
 
 
 def basalt_start(grid=False):
@@ -503,6 +563,31 @@ def energy_cases(cfg, adia_state, sg_state, basalt_cfg, basalt_state):
     yield "pass2", "symmetric+av+energy@basalt100k", leg, *seen["pass2"]
     yield "gravity_fused", "near+min_h+monopole@basalt100k", leg, \
         *seen["gravity_fused"]
+
+
+def exact_cases(cfg, exact_state):
+    """The inputs of the cases the particle-exact SPH lists add, as
+    :func:`mode_cases` yields them, recorded on `exact100k`'s own first
+    chunk set-up: the h-solve's own exact lists (its filter at the widened
+    windows, its density sweep at the scaled exact window), then the
+    chunk's build and one force evaluation at the exact window's S."""
+    from planetmodel_sph_tpu_torch.models import planet
+    from planetmodel_sph_tpu_torch.ops import structure
+    ecfg = cfg.replace(**EXACT_KW)
+    leg = ("exact100k",)
+    st0 = exact_state
+    with Spy() as seen:
+        structure.solve_h_newton(st0.pos, st0.h, st0.mass, ecfg,
+                                 planet.h_eta(ecfg), rho0=st0.rho)
+    yield "filter_sph", "exact_h_solve", leg, *seen["filter_sph"]
+    yield "pass1_gradh", "exact_h_solve", leg, *seen["pass1_gradh"]
+    with Spy() as seen:
+        run_state, st = planet.chunk_setup(exact_state, ecfg)
+        _eval(run_state, ecfg, st, "near")
+    occupancy("exact100k", st, "particles")
+    yield "filter_sph", "exact100k", leg, *seen["filter_sph"]
+    yield "pass1_gradh", "exact100k", leg, *seen["pass1_gradh"]
+    yield "pass2", "grad_h@exact100k", leg, *seen["pass2"]
 
 
 def n_groups(a):
@@ -961,7 +1046,9 @@ def bound(name, a, kw, out):
     function must move over the HBM rate, against the f32 operations this
     data needs over the f32 peak."""
     out = list(out) if isinstance(out, tuple) else [out]
-    if name == "filter_sph":
+    if name in PROBES:
+        nbytes, ops = _probe_work(name, a, kw, out)
+    elif name == "filter_sph":
         nv, tgt, src = a
         nbytes = _io_bytes(tgt, [(nv, src)], [], out)
         ops = _filter_ops(a)
@@ -999,6 +1086,52 @@ def bound(name, a, kw, out):
     t_ops = ops / PEAK_F32 * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, ops)
+
+
+def _tile_ops(a, kw):
+    """probe_pass1_tile's operations on this data: each live (target,
+    slot) pair below the extent charged by the branch of its signed q,
+    each such slot's live test once per instance, each target's
+    prefactor."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import probes
+    nv, tgt, rows = a
+    gb, s = rows[0].shape
+    tb = kw["tb"]
+    ext = probes.tile_extent(nv, s, kw.get("chunk", 512))
+    ops = OPS_TILE_SLOT * int(ext.sum()) + OPS_TILE_TARGET * gb * tb
+    width = int(ext.max())
+    slot = torch.arange(width, device=nv.device)
+    step = max(1, SLICE_ELEMS // (tb * max(width, 1)))
+    for g0, g1 in _group_slices(gb, step):
+        tx, ty, tz, tih = (c[g0 * tb:g1 * tb].reshape(g1 - g0, tb, 1)
+                           for c in tgt)
+        sx, sy, sz, _, slv = (r[g0:g1, None, :width] for r in rows)
+        live = (slot[None, None, :] < ext[g0:g1, None, None]) & (slv > 0.5)
+        live = live.expand(g1 - g0, tb, width)
+        dxx, dxy, dxz = tx - sx, ty - sy, tz - sz
+        q = torch.sqrt(dxx * dxx + dxy * dxy + dxz * dxz) * tih
+        ops += ((OPS_TILE_GEOM + OPS_TILE_SUM) * _n(live)
+                + _by_branch(OPS_TILE_W, live, q))
+    return ops
+
+
+def _probe_work(name, a, kw, out):
+    """(bytes, operations) of one probe call: inputs read once, outputs
+    written once (a tile's rows only below each instance's extent)."""
+    from planetmodel_sph_tpu_torch.ops.cuda import probes
+    if name == "probe_pass1_tile":
+        nv, tgt, rows = a
+        ext = probes.tile_extent(nv, rows[0].shape[1], kw.get("chunk", 512))
+        nbytes = (_io_bytes(tgt, [], [nv], out)
+                  + int(ext.sum()) * sum(r.element_size() for r in rows))
+        return nbytes, _tile_ops(a, kw)
+    nbytes = _io_bytes([], [], list(a), out)
+    if name == "probe_fma":
+        return nbytes, OPS_FMA_REP * kw["reps"] * a[0].numel()
+    if name == "probe_launch":
+        return nbytes, a[0].numel()
+    return nbytes, 0
 
 
 def check_one(name, case, a, kw):
@@ -1088,7 +1221,10 @@ def check_modes(cases):
             ("gravity_fused", "near+min_h+blk"),
             ("pass1_sym", "symmetric@basalt100k"),
             ("pass2", "symmetric+av+energy@basalt100k"),
-            ("gravity_fused", "near+min_h+monopole@basalt100k")}
+            ("gravity_fused", "near+min_h+monopole@basalt100k"),
+            ("filter_sph", "exact_h_solve"), ("pass1_gradh", "exact_h_solve"),
+            ("filter_sph", "exact100k"), ("pass1_gradh", "exact100k"),
+            ("pass2", "grad_h@exact100k")}
     missing = want - {(r["name"], r["case"]) for r in reports}
     if missing:
         failures.append(f"kernel cases not checked: {sorted(missing)}")
@@ -1175,13 +1311,239 @@ def check_pairwise(n):
 
 
 # ---------------------------------------------------------------------------
+# the tools' probes
+# ---------------------------------------------------------------------------
+
+def probe_cases():
+    """(name, case, args, kw) of each probe at the reference tools' shapes,
+    inputs drawn from seeded generators and moved to the card. The FMA
+    chain's v lies in (0.5, 1.0000001], so acc stays finite for every
+    element (the reference's own input is 1.0000001 everywhere)."""
+    import torch
+    from planetmodel_sph_tpu_torch.tools import microbench
+    gen = torch.Generator().manual_seed(0)
+    u = torch.rand(FMA_SHAPE, generator=gen)
+    x = (1.0000001 * (1.0 - 0.5 * u)).cuda()
+    yield "probe_fma", f"reps={FMA_REPS}", (x,), {"reps": FMA_REPS}
+    yield "probe_launch", "", (torch.rand(LAUNCH_SHAPE,
+                                          generator=gen).cuda(),), {}
+    packed = torch.randn((GATHER_NB, GATHER_C * 64), generator=gen).cuda()
+    idx = torch.randint(0, GATHER_NB, (GATHER_NB, GATHER_W), generator=gen,
+                        dtype=torch.int32).cuda()
+    yield "probe_gather", "", (packed, idx), {}
+    for sg in TILE_SUPERS:
+        nv, tgt, rows = microbench.tile_inputs(sg=sg, device="cuda")
+        yield ("probe_pass1_tile", f"SG={sg}", (nv, tgt, rows),
+               {"tb": 64 * sg, "chunk": 512})
+
+
+def chain_ms(fn, x, k):
+    """Host ms per call of k chained calls x = fn(x) after one warm-up,
+    from a synchronize to a synchronize: the fixed cost of a launch."""
+    import torch
+    from planetmodel_sph_tpu_torch.tools import roofline
+    return roofline.chained(fn, x, k, torch.device("cuda")) * 1e3
+
+
+def check_probe(name, case, a, kw):
+    """One probe against its plain version (probe_gather and probe_launch
+    exactly, probe_fma to FMA_RTOL, probe_pass1_tile to TILE_TOL of each
+    target's sum of |m W|), timed: the report."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import probes
+    kernel = getattr(probes, name)
+    plain = getattr(probes, name + "_plain")
+    if name == "probe_pass1_tile":
+        call_plain = lambda: plain(*a, chunk=kw["chunk"])  # noqa: E731
+    else:
+        call_plain = lambda: plain(*a, **kw)  # noqa: E731
+    out = kernel(*a, **kw)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out).all())
+    if name == "probe_pass1_tile":
+        ref, mag = call_plain()
+        err = (out.double() - ref.double()).abs()
+        bad = int((err > TILE_TOL * mag.double()).sum())
+    else:
+        ref = call_plain()
+        err = (out.double() - ref.double()).abs()
+        lim = FMA_RTOL * ref.double().abs() if name == "probe_fma" else 0.0
+        bad = int((err > lim).sum())
+    ok = finite and bad == 0 and out.shape == ref.shape
+    max_err = float(err.max())
+    library_ms = None
+    if name == "probe_launch":
+        # the fixed cost of one launch: a chain of launches, each on the
+        # previous output, as the reference's measure_launch
+        ms = chain_ms(kernel, a[0], LAUNCH_CHAIN)
+        plain_ms = chain_ms(plain, a[0], LAUNCH_CHAIN)
+        library_ms = chain_ms(lambda v: torch.mul(v, probes.LAUNCH_SCALE),
+                              a[0], LAUNCH_CHAIN)
+    else:
+        ms = cuda_ms(lambda: kernel(*a, **kw), KERNEL_REPS)
+        plain_ms = cuda_ms(call_plain, PLAIN_REPS)
+        if name == "probe_gather":
+            rows = a[1].long()
+            library_ms = cuda_ms(lambda: a[0][rows], KERNEL_REPS)
+    b_ms, b_by, nbytes, ops = bound(name, a, kw, out)
+    shapes = {"inputs": [list(t.shape) for t in a
+                         if isinstance(t, torch.Tensor)],
+              "out": list(out.shape)}
+    if name == "probe_pass1_tile":
+        shapes = {"instances": a[2][0].shape[0], "tb": kw["tb"],
+                  "rows": list(a[2][0].shape), "nv": int(a[0][0])}
+    label = name + (f" [{case}]" if case else "")
+    print(f"kernel {label}: {'ok' if ok else 'MISMATCH'} "
+          f"max_abs_err={max_err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms} bound_ms={b_ms:.5f} ({b_by}) "
+          f"shapes={shapes}", flush=True)
+    msgs = [] if ok else [f"{bad} entries outside tolerance, finite "
+                          f"{finite}"]
+    del out, ref
+    torch.cuda.empty_cache()
+    return dict(name=name, case=case, ok=ok, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, ops=ops, shapes=shapes,
+                messages=msgs)
+
+
+def check_probes():
+    """Phase 4 for the tools' four probes. Returns ([report],
+    failures)."""
+    reports, failures = [], []
+    for name, case, a, kw in probe_cases():
+        rep = check_probe(name, case, a, kw)
+        reports.append(rep)
+        if not rep["ok"]:
+            failures.append(f"{name} [{case}]: disagrees with its plain "
+                            f"version: {rep['messages']}")
+    return reports, failures
+
+
+def tools_phase(state, cfg, main_wall, card):
+    """Phase 5e: the port's roofline and microbench tools, the probes'
+    main path: the launch counts reset just before and read just after.
+    The card's ceilings beside the published peaks, the work one force
+    evaluation issues at the settled state, the modeled floor against the
+    main path's measured step, the gather variants and tile widths.
+    Fails on a launch count or a rate that is not finite and positive,
+    never on a rate's value. Returns (report, failures)."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops import structure
+    from planetmodel_sph_tpu_torch.ops.cuda import launch
+    from planetmodel_sph_tpu_torch.tools import microbench, roofline
+    st = structure.build(state.pos, state.h, state.mass, cfg)
+    work = roofline.count_work(cfg, st)
+    del st
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    disp = roofline.measure_dispatch()
+    hbm = roofline.measure_hbm(k=HBM_K, mb=HBM_MB)
+    vpu = roofline.measure_vpu(k=VPU_K, reps=roofline.VPU_RATE_REPS)
+    lat = roofline.measure_launch(k=LAUNCH_CHAIN)
+    gathers = microbench.bench_gathers(k=TOOL_K)
+    tiles = microbench.bench_kernel_tiles(k=TOOL_K, supers=TILE_SUPERS)
+    torch.cuda.synchronize()
+    launches = dict(launch.LAUNCHES)
+    want = dict.fromkeys(launches, 0)
+    want.update(probe_fma=VPU_K + 1, probe_launch=LAUNCH_CHAIN + 1,
+                probe_gather=TOOL_K + 1,
+                probe_pass1_tile=len(TILE_SUPERS) * (TOOL_K + 1))
+    floor = roofline.modeled_floor(cfg, work, vpu, hbm, lat)
+    step_s = main_wall / STEPS
+    print(f"roofline on {card} (published peaks: {PEAK_F32 / 1e12:.0f} "
+          f"TFLOP/s f32, {PEAK_BYTES / 1e12:.2f} TB/s):", flush=True)
+    print(f"  dispatch {disp * 1e6:.3f} us; memory stream r+w "
+          f"{hbm / 1e9:.1f} GB/s ({hbm / PEAK_BYTES * 100:.1f} % of peak); "
+          f"f32 FMA {vpu / 1e12:.3f} TFLOP/s at reps="
+          f"{roofline.VPU_RATE_REPS} ({vpu / PEAK_F32 * 100:.1f} % of "
+          f"peak); launch {lat * 1e6:.3f} us", flush=True)
+    print(f"  count_work {work}", flush=True)
+    print(f"  modeled floor {floor['total'] * 1e3:.4f} ms/step (f32 "
+          f"{floor['vpu'] * 1e3:.4f}, gathers {floor['hbm'] * 1e3:.4f}, "
+          f"launches {floor['launch'] * 1e3:.4f}, h-solve "
+          f"{floor['amort'] * 1e3:.4f}) against the main path's measured "
+          f"{step_s * 1e3:.4f} ms/step ({floor['total'] / step_s * 100:.1f} "
+          "%)", flush=True)
+    print(f"  probe launches {({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    rates = dict(dispatch_s=disp, hbm_Bps=hbm, vpu_ops=vpu, launch_s=lat)
+    failures = []
+    for k, v in rates.items():
+        if not (math.isfinite(v) and v > 0.0):
+            failures.append(f"roofline: {k} = {v}")
+    if launches != want:
+        failures.append(f"tools: launch counts {launches} != {want}")
+    rep = dict(card=card, **rates, vpu_reps=roofline.VPU_RATE_REPS,
+               work=work, floor=floor, measured_step_s=step_s,
+               gathers_s=gathers,
+               tiles={str(k): dict(s=v[0], gpair_per_s=v[1])
+                      for k, v in tiles.items()},
+               launches=launches, expected=want)
+    return rep, failures
+
+
+def state_agreement(a, b, rtol=2e-5, atol=1e-6):
+    """Field by field: floats within rtol/atol, integers equal. Returns
+    (ok, {field: max abs difference})."""
+    from planetmodel_sph_tpu_torch.state import FIELDS
+    ok, errs = True, {}
+    for k in FIELDS:
+        x, y = getattr(a, k), getattr(b, k)
+        d = (x.double() - y.double()).abs()
+        errs[k] = float(d.max())
+        if x.is_floating_point():
+            ok &= bool((d <= atol + rtol * y.double().abs()).all())
+        else:
+            ok &= bool((d == 0).all())
+    return ok, errs
+
+
+def slice5_legs(cfg, state, main_out, exact_state):
+    """Phase 5f: `exact100k` (particle-exact SPH lists), `unsorted100k`
+    (the production step with sorted_chunks=False, held against the main
+    path's sorted run of the same start at the reference's tolerance) and
+    `dense3k_k4` (the cached dense step). Returns ([report], failures)."""
+    reports, failures = [], []
+    ecfg = cfg.replace(**EXACT_KW)
+    _, rep, fails = run_leg("exact100k", exact_state, ecfg, EXACT_STEPS,
+                            expected_launches(ecfg, EXACT_STEPS),
+                            "conserved")
+    reports.append(rep)
+    failures += fails
+    ucfg = cfg.replace(sorted_chunks=False)
+    uout, rep, fails = run_leg("unsorted100k", state, ucfg, UNSORTED_STEPS,
+                               expected_launches(ucfg, UNSORTED_STEPS),
+                               "conserved")
+    ok, errs = state_agreement(uout, main_out)
+    rep.update(agrees_with_sorted=ok, max_abs_diff_to_sorted=errs)
+    print(f"  unsorted100k against the sorted main path (rtol 2e-5, atol "
+          f"1e-6, counts equal): {'ok' if ok else 'MISMATCH'}; max |diff| "
+          f"pos {errs['pos']:.3e} vel {errs['vel']:.3e} rho "
+          f"{errs['rho']:.3e} n_neighbors {errs['n_neighbors']:.0f}",
+          flush=True)
+    if not ok:
+        failures.append(f"unsorted100k: state differs from the sorted run: "
+                        f"{errs}")
+    reports.append(rep)
+    failures += fails
+    del uout
+    n, steps, k = DENSE_K4
+    rep, fails = dense_main(n, steps, label="dense3k_k4", rebuild_every=k)
+    reports.append(rep)
+    failures += fails
+    return reports, failures
+
+
+# ---------------------------------------------------------------------------
 # main path and the small-input agreement
 # ---------------------------------------------------------------------------
 
 def expected_launches(cfg, steps):
     """Launches per kernel of `steps` cached steps on grid neighbours
     (`steps` a multiple of rebuild_every). Per chunk: one filter per build
-    (two builds under the Newton solve, which also takes h_newton_iters-1
+    that refines its window (sub-block refine or exact lists; two builds
+    under the Newton solve, which also takes h_newton_iters-1
     warm-started density sweeps); one density sweep and one pass 2 per
     step; under RESPA one far launch per period plus the seed, and one P2P
     sweep per step unless pass 2 holds the whole near field; else one
@@ -1192,8 +1554,8 @@ def expected_launches(cfg, steps):
     newton = cfg.adaptive_h and cfg.h_mode == "newton" and gradh
     merged = cfg.fuse_p2p_sph and cfg.fuse_p2p_residual
     respa = cfg.respa_every > 1 and k % cfg.respa_every == 0
-    out = {"filter_sph": chunks * (2 if newton else 1)
-           * int(cfg.sph_refine_subblock),
+    refine = cfg.sph_refine_subblock or cfg.sph_exact_window > 0
+    out = {"filter_sph": chunks * (2 if newton else 1) * int(refine),
            "pass1_gradh" if gradh else "pass1_sym": chunks * (
                k + (max(1, cfg.h_newton_iters - 1) if newton else 0)),
            "pass2": chunks * k,
@@ -1229,13 +1591,27 @@ def inner_ball(state, n_keep):
                             for k in FIELDS})
 
 
-def small_agreement(state, cfg, prime=False, fields=("pos", "rho")):
+def _run_carry(state, cfg, steps):
+    """``planet.init_carry`` and `steps` ``planet.step_carry`` calls:
+    (state, the last structure's overflow counters)."""
+    from planetmodel_sph_tpu_torch.models import planet
+    from planetmodel_sph_tpu_torch.ops import structure
+    c = planet.init_carry(state, cfg)
+    for _ in range(steps):
+        c = planet.step_carry(c, cfg)
+    assert c.tick == steps
+    return c.state, structure.overflow_info(c.st)
+
+
+def small_agreement(state, cfg, prime=False, fields=("pos", "rho"),
+                    carry=False):
     """Phase 6: the same pipeline on the card and on the CPU from one small
     input. `fields` (pos and rho) must agree within rtol 1e-4, atol 1e-4
     (the bound tests/test_structure.py holds the fused cached run to),
     overflow counters exactly. `prime`: evaluate the forces under `cfg`
     first, on each device (the state was made under another
-    configuration)."""
+    configuration). `carry`: drive the steps through the cached-step API
+    (a rebuild every SMALL_STEPS // 2 steps) instead of ``run_info``."""
     import torch
     from planetmodel_sph_tpu_torch.models import planet
     from planetmodel_sph_tpu_torch.state import FIELDS, ParticleState
@@ -1246,8 +1622,9 @@ def small_agreement(state, cfg, prime=False, fields=("pos", "rho")):
     if prime:
         pcfg = scfg.replace(rebuild_every=1, respa_every=1)
         small, cpu = planet.prime(small, pcfg), planet.prime(cpu, pcfg)
-    out_g, info_g = planet.run_info(small, scfg, SMALL_STEPS)
-    out_c, info_c = planet.run_info(cpu, scfg, SMALL_STEPS)
+    run = _run_carry if carry else planet.run_info
+    out_g, info_g = run(small, scfg, SMALL_STEPS)
+    out_c, info_c = run(cpu, scfg, SMALL_STEPS)
     res = {}
     ok = True
     for k in fields:
@@ -1430,17 +1807,19 @@ def energy_legs(cfg, adia_state, sg_state, basalt_cfg, basalt_state,
     return reports, failures
 
 
-def dense_main(n, steps):
+def dense_main(n, steps, label=None, **kw):
     """Phase 5 for the dense path: the cold-start bench's sequence through
     the entry points (initial conditions, priming pass, a warm-up run of
     the same length, the timed run), the launch counts reset just before
-    the timed run and read just after. Returns (report, failures)."""
+    the timed run and read just after. `kw` changes the ``jupiter_3k``
+    preset (`dense3k_k4`: rebuild_every=4). Returns (report, failures)."""
     import torch
     from planetmodel_sph_tpu_torch import config as config_mod
     from planetmodel_sph_tpu_torch.models import ics, planet
     from planetmodel_sph_tpu_torch.ops.cuda import launch
     from planetmodel_sph_tpu_torch.utils import diagnostics
-    cfg = config_mod.jupiter_3k(n=n)
+    cfg = config_mod.jupiter_3k(n=n, **kw)
+    label = label or f"dense n={n}"
     torch.cuda.reset_peak_memory_stats()
     state = planet.prime(ics.jupiter(cfg), cfg)
     state = planet.run(state, cfg, steps)
@@ -1461,12 +1840,13 @@ def dense_main(n, steps):
     nbrs = float(e1["neighbors_avg"])
     mom = float(e1["momentum_mag"])
     bad_fields = all_finite(out)
-    rep = dict(n=n, steps=steps, wall_s=wall, steps_per_s=steps / wall,
+    rep = dict(leg=label, n=n, steps=steps, wall_s=wall,
+               steps_per_s=steps / wall,
                particle_steps_per_s=n * steps / wall, overflow=overflow,
                launches=launches, expected=expect, non_finite=bad_fields,
                neighbors_avg=nbrs, momentum_mag=mom, rel_energy_change=de,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"dense main path n={n}: {steps} steps in {wall:.3f} s = "
+    print(f"{label}: {steps} steps in {wall:.3f} s = "
           f"{steps / wall:.2f} steps/s = {n * steps / wall:.4g} "
           f"particle-steps/s, peak memory {rep['peak_mem_gb']:.3f} GB",
           flush=True)
@@ -1476,18 +1856,18 @@ def dense_main(n, steps):
           flush=True)
     failures = []
     if any(overflow.values()):
-        failures.append(f"dense n={n}: overflow counters not 0: {overflow}")
+        failures.append(f"{label}: overflow counters not 0: {overflow}")
     if launches != expect:
-        failures.append(f"dense n={n}: launch counts {launches} != {expect}")
+        failures.append(f"{label}: launch counts {launches} != {expect}")
     if bad_fields:
-        failures.append(f"dense n={n}: non-finite fields: {bad_fields}")
+        failures.append(f"{label}: non-finite fields: {bad_fields}")
     if not 30.0 <= nbrs <= 80.0:
-        failures.append(f"dense n={n}: neighbors_avg {nbrs:.2f} outside "
+        failures.append(f"{label}: neighbors_avg {nbrs:.2f} outside "
                         "30-80")
     if not mom < 1e-4:
-        failures.append(f"dense n={n}: momentum_mag {mom:.3e} >= 1e-4")
+        failures.append(f"{label}: momentum_mag {mom:.3e} >= 1e-4")
     if not abs(de) < 1e-2 * max(1.0, steps / 100.0):
-        failures.append(f"dense n={n}: total energy moved by {de:.3e} in "
+        failures.append(f"{label}: total energy moved by {de:.3e} in "
                         f"{steps} steps")
     return rep, failures
 
@@ -1521,6 +1901,22 @@ def dense_small_agreement():
     res.update(ok=ok, n=cfg.n, steps=SMALL_STEPS,
                neighbors_avg=float(out_g.n_neighbors.float().mean()))
     return res
+
+
+def probe_entry(name, source, replaces, probe_reports, launches):
+    """The kernels line's entry of one probe: its first case, the others
+    (probe_pass1_tile's wider tiles) under "case_<case>"; launches from
+    the tools phase."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    own = [r for r in probe_reports if r["name"] == name]
+    entry = dict(name=name, route="cuda", source=source, replaces=replaces,
+                 launches=launches[name], **{k: own[0][k] for k in keys})
+    if own[0]["case"]:
+        entry["case"] = own[0]["case"]
+    for c in own[1:]:
+        entry["case_" + c["case"]] = {k: c[k] for k in keys}
+    return entry
 
 
 def main() -> int:
@@ -1621,9 +2017,14 @@ def main() -> int:
     sg_state = planet.prime(state, sg_cfg.replace(rebuild_every=1,
                                                   respa_every=1))
     basalt_cfg, basalt_state = basalt_start(grid=True)
+    # exact100k's start: the settled state primed under the exact lists
+    exact_cfg = cfg.replace(**EXACT_KW)
+    exact_state = planet.prime(state, exact_cfg.replace(rebuild_every=1,
+                                                        respa_every=1))
     mode_reports, fails = check_modes(itertools.chain(
         mode_cases(state, cfg, sym_state, settle_state, settle_cfg),
-        energy_cases(cfg, adia_state, sg_state, basalt_cfg, basalt_state)))
+        energy_cases(cfg, adia_state, sg_state, basalt_cfg, basalt_state),
+        exact_cases(cfg, exact_state)))
     failures += fails
     report["kernel_modes"] = mode_reports
     torch.cuda.empty_cache()
@@ -1639,6 +2040,9 @@ def main() -> int:
     report["kernels"] = kreports
     report["pairwise_cases"] = [c for r in pw_reports.values()
                                 for c in r["cases"]]
+    probe_reports, fails = check_probes()
+    failures += fails
+    report["probes"] = probe_reports
 
     # 5. main path
     e0 = diagnostics.measure(state, cfg)
@@ -1681,6 +2085,7 @@ def main() -> int:
         failures.append(f"non-finite fields: {bad_fields}")
     if not abs(de) < 1e-2:
         failures.append(f"total energy moved by {de:.3e} in {STEPS} steps")
+    main_out, main_wall = out, wall
     del out
     torch.cuda.empty_cache()
 
@@ -1707,6 +2112,19 @@ def main() -> int:
     report["energy_legs"] = e_reports
     leg_reports = leg_reports + e_reports
     del sg_state, basalt_state
+    torch.cuda.empty_cache()
+
+    # 5e. the roofline and microbench tools: the probes' main path
+    tools, fails = tools_phase(state, cfg, main_wall, card)
+    failures += fails
+    report["tools"] = tools
+
+    # 5f. particle-exact lists, the unsorted chunk, the cached dense step
+    s5_reports, fails = slice5_legs(cfg, state, main_out, exact_state)
+    failures += fails
+    report["slice5_legs"] = s5_reports
+    leg_reports = leg_reports + s5_reports
+    del main_out, exact_state
     torch.cuda.empty_cache()
 
     # 6. small-input agreement, card against CPU
@@ -1743,6 +2161,17 @@ def main() -> int:
         failures.append("card and CPU disagree on the adiabatic small "
                         "input")
     del adia_state
+    csmall = small_agreement(state, cfg, carry=True)
+    report["carry_small_input"] = csmall
+    print(f"cached-step API small input (n={csmall['n']}, init_carry + "
+          f"{csmall['steps']} step_carry, card vs CPU): pos err "
+          f"{csmall['pos_max_abs_err']:.3e} rho err "
+          f"{csmall['rho_max_abs_err']:.3e} overflow "
+          f"{csmall['overflow_gpu']}/{csmall['overflow_cpu']} "
+          f"{'ok' if csmall['ok'] else 'MISMATCH'}", flush=True)
+    if not csmall["ok"]:
+        failures.append("card and CPU disagree on the step_carry small "
+                        "input")
     dsmall = dense_small_agreement()
     report["dense_small_input"] = dsmall
     print(f"dense small input (n={dsmall['n']}, {dsmall['steps']} steps, "
@@ -1776,6 +2205,10 @@ def main() -> int:
         return sum(legs[leg][name] for leg in case_report["legs"])
 
     for name, (source, replaces) in KERNELS.items():
+        if name in PROBES:
+            kernels.append(probe_entry(name, source, replaces,
+                                       probe_reports, tools["launches"]))
+            continue
         own = [r for r in mode_reports if r["name"] == name]
         if name in kreports:
             # the production path's (or the dense n = 3000 path's) case

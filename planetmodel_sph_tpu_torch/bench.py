@@ -37,7 +37,7 @@ import torch
 from . import config as config_mod
 from .models import ics, planet
 from .ops import eos as eos_ops
-from .runtime import snapshot
+from .utils import checkpoint
 
 REFERENCE_PARTICLE_STEPS_PER_SEC = 3000 * 50.0
 SETTLED = "docs/results/drift100k_r5ship/state.psph"
@@ -160,7 +160,7 @@ def run_bench(checkpoint_path: str | None = SETTLED, steps: int = 64,
             getattr(ics, ic)(cfg, device=device, **(ic_kw or {})), cfg)
         operating_point = "early_transient"
     else:
-        state, cfg, _ = snapshot.load(checkpoint_path, device=device)
+        state, cfg, _ = checkpoint.load(checkpoint_path, device=device)
         if overrides:
             stored, cfg = cfg, cfg.replace(**overrides)
             config_mod.check_slice(cfg)

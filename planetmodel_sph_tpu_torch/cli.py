@@ -1,16 +1,18 @@
 """Command-line harness of the port: `run` and `bench`.
 
 Counterpart of ``planetmodel_sph_tpu/cli.py`` for the paths the port runs:
-deterministic runs from a preset's initial conditions or a PSPH1
-checkpoint, diagnostics every N steps, metrics as JSON lines,
-checkpoint/resume. Runs on the card unless ``--device cpu`` is given.
+deterministic runs from a preset's initial conditions or a checkpoint,
+diagnostics every N steps, metrics as JSON lines, checkpoint/resume. Runs
+on the card unless ``--device cpu`` is given.
 
     python -m planetmodel_sph_tpu_torch.cli run --preset jupiter_3k \\
         --steps 300 --diag-every 100
     python -m planetmodel_sph_tpu_torch.cli bench --n 3000 --steps 200
 
 What the reference's CLI has and this one refuses by name: rendering and
-the live viewer, ``--devices`` (data parallelism) and npz checkpoints.
+the live viewer, and ``--devices`` (data parallelism). Checkpoints are
+PSPH1 for a ``.psph`` path and npz otherwise, read and written as the
+reference does (``utils/checkpoint.py``).
 
     python -m planetmodel_sph_tpu_torch.cli run --preset parity --steps 100
     python -m planetmodel_sph_tpu_torch.cli run --preset auto --n 50000 \\
@@ -38,9 +40,8 @@ import torch
 from . import bench as bench_mod
 from . import config as config_mod
 from .models import ics, planet
-from .runtime import snapshot
 from .state import resolve_device
-from .utils import diagnostics
+from .utils import checkpoint, diagnostics
 
 _PRESETS = {name: getattr(config_mod, name) for name in bench_mod.PRESETS}
 _ICS = ("jupiter", "two_planet_collision", "rotating_planet",
@@ -112,17 +113,14 @@ def _refuse_unported(args):
         if v is not None and v is not False:
             raise SystemExit(f"--{name.replace('_', '-')}: {what} is not "
                              "ported")
-    for path in (args.checkpoint, args.restore):
-        if path and not path.endswith(".psph"):
-            raise SystemExit(f"{path}: the port reads and writes PSPH1 "
-                             "checkpoints (.psph) only; npz is not ported")
 
 
 def cmd_run(args) -> int:
     _refuse_unported(args)
     device = resolve_device(args.device)
     if args.restore:
-        state, cfg, start_step = snapshot.load(args.restore, device=device)
+        state, cfg, start_step = checkpoint.load(args.restore,
+                                                 device=device)
         _log(f"restored {args.restore} at step {start_step} (n={cfg.n})")
     else:
         try:
@@ -181,7 +179,7 @@ def cmd_run(args) -> int:
                 f.write(json.dumps({"step": step_no, **row}) + "\n")
 
     if args.checkpoint:
-        snapshot.save(args.checkpoint, state, cfg, start_step + total)
+        checkpoint.save(args.checkpoint, state, cfg, start_step + total)
         _log(f"checkpoint -> {args.checkpoint}")
     for key in ("nbr_overflow", "tree_overflow"):
         if key in diags and int(diags[key].sum()) > 0:
@@ -222,9 +220,11 @@ def main(argv=None) -> int:
     pr.add_argument("--device", default="cuda",
                     help="'cuda' (default; fails without a card) or 'cpu'")
     pr.add_argument("--checkpoint", default=None,
-                    help="save the final state as a PSPH1 file (.psph)")
+                    help="save the final state: PSPH1 for a .psph path, "
+                         "else npz")
     pr.add_argument("--restore", default=None,
-                    help="resume from a PSPH1 checkpoint (its own config)")
+                    help="resume from a checkpoint, PSPH1 or npz (its own "
+                         "config)")
     pr.add_argument("--metrics-jsonl", default=None)
     pr.add_argument("--omega", type=float, default=0.05,
                     help="solid-body angular velocity for rotating_planet")

@@ -9,8 +9,9 @@ say what the port does with each group.
 
 The port runs the grid + tree block pipeline (every pressure form,
 viscosity, the three EOS with the energy equation, fused or separate near
-gravity, the supergroup far tier, cached chunks or a rebuild per step) and
-the uncached dense all-pairs step with direct, tree or no gravity;
+gravity, the supergroup far tier, sub-block windows or particle-exact SPH
+lists, cached chunks sorted or not, or a rebuild per step) and the dense
+all-pairs step with direct, tree or no gravity, cached or not;
 :func:`check_slice` names every option outside them and refuses it loudly
 instead of ignoring it.
 """
@@ -89,7 +90,8 @@ class SimConfig:
     grav_com_correction: bool = False
     fuse_p2p_sph: bool = False
     fuse_p2p_residual: bool = False
-    # TPU gather-row padding: changes no value, so the port ignores it
+    # TPU gather-row width of the exact lists' entry gathers: changes no
+    # value (ops/structure._entry_gather pads as the reference does)
     gather_pad_rows: int = 0
     # TPU grid batching: the port has one launch layout and refuses != 1
     kernel_gb: int = 1
@@ -225,13 +227,10 @@ def _check_tree(cfg: SimConfig) -> None:
 
 
 def _check_dense(cfg: SimConfig) -> None:
-    """The dense path: all-pairs SPH rebuilt every step, with direct, tree
-    (the ``parity`` preset: the block tree's standalone gravity sweep) or no
-    gravity."""
-    if cfg.rebuild_every > 1:
-        raise NotImplementedError(
-            f"rebuild_every={cfg.rebuild_every} with neighbor_mode='dense': "
-            "the cached dense step is not ported; use rebuild_every=1")
+    """The dense path: all-pairs SPH with direct, tree (the ``parity``
+    preset: the block tree's standalone gravity sweep) or no gravity, a
+    rebuild per step or cached (the tree's structure then rebuilt every
+    `rebuild_every` steps)."""
     if cfg.gravity_solver == "tree":
         _check_tree(cfg)
 
@@ -239,17 +238,13 @@ def _check_dense(cfg: SimConfig) -> None:
 def _check_grid(cfg: SimConfig) -> None:
     """The grid path: the block pipeline in every pressure form, with or
     without viscosity, near gravity fused into pass 2 or swept on its own,
-    tree gravity or none."""
+    sub-block windows or particle-exact SPH lists, cached chunks sorted or
+    not, tree gravity or none."""
     if cfg.gravity_solver == "direct":
         raise NotImplementedError(
             "gravity_solver='direct' with neighbor_mode='grid': the block "
             "pipeline evaluates tree gravity only (the reference computes "
             "no gravity at all for this pair); use 'tree' or 'none'")
-    if cfg.sph_exact_window > 0:
-        raise NotImplementedError("sph_exact_window>0: particle-exact SPH "
-                                  "lists are not ported")
-    if not cfg.sorted_chunks:
-        raise NotImplementedError("sorted_chunks=False is not ported")
     _check_tree(cfg)
 
 

@@ -15,16 +15,21 @@ port runs:
   with tree gravity from a fresh block structure when asked for (the
   ``parity`` preset); on grid neighbours it is a fresh block structure and the
   sweeps of ``ops/structure.py``;
-- cached chunks on grid neighbours (``rebuild_every > 1``, the
-  ``jupiter_100k`` preset and its variants): the smoothing-length update
+- cached chunks (``rebuild_every > 1``): on grid neighbours (the
+  ``jupiter_100k`` preset and its variants) the smoothing-length update
   (Newton solve or relaxation) and the rebuild at each chunk boundary, the
-  state kept in the Morton-sorted padded layout for the chunk, per-step h
-  tracking, viscosity with the Balsara factors carried in the state,
-  impulse-RESPA far-field kicks and the centre-of-mass correction.
+  state kept in the Morton-sorted padded layout for the chunk or, with
+  ``sorted_chunks=False``, in its own order, per-step h tracking, viscosity
+  with the Balsara factors carried in the state, impulse-RESPA far-field
+  kicks and the centre-of-mass correction; on dense neighbours the
+  relaxation of h at each chunk boundary and, under tree gravity, the block
+  structure rebuilt with it;
+- the cached-step API: :func:`init_carry` and :func:`step_carry`, one
+  cached step at a time from Python.
 
-The reference's ``lax.scan`` loops are Python loops here; the eager
-operations run on whatever device holds the state's tensors, and nothing in
-a step reads a value back to the host.
+The reference's ``lax.scan`` loops are Python loops here and its
+``lax.cond`` an ``if``; the eager operations run on whatever device holds
+the state's tensors, and nothing in a step reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -143,9 +148,23 @@ def compute_forces(pos, h, mass, cfg: SimConfig, vel=None, u=None,
         st = structure.build(pos, h, mass, cfg)
         return _forces_block(pos, h, mass, cfg, st, vel=vel, u=u,
                              matid=matid, fbal=fbal)
+    return _forces_dense(pos, h, mass, cfg, vel=vel, u=u, matid=matid,
+                         fbal=fbal)
+
+
+def _forces_dense(pos, h, mass, cfg: SimConfig, vel=None, u=None,
+                  matid=None, fbal=None, st=None,
+                  cached=False) -> Forces:
+    """The dense pipeline's force evaluation. Tree gravity comes from `st`
+    when given (a cached structure, whose overflow the caller accounts
+    for), else from a fresh structure. `cached`: the cached step's form
+    (no Newton h-solve under grad-h, whose tree gravity also takes the
+    centre-of-mass correction), as the reference's ``_forces_cached``."""
+    energy = cfg.evolves_u
     if cfg.grad_p_mode == "grad_h":
         return _compute_forces_gradh(pos, h, mass, cfg, vel=vel, u=u,
-                                     matid=matid, fbal=fbal)
+                                     matid=matid, fbal=fbal, st=st,
+                                     cached=cached)
 
     balsara = cfg.av_balsara and cfg.av_alpha > 0.0 and vel is not None
     # cfg.use_pallas is the reference's switch for its fused all-pairs
@@ -159,7 +178,7 @@ def compute_forces(pos, h, mass, cfg: SimConfig, vel=None, u=None,
     ov = None
     if cfg.gravity_solver == "tree":
         phi, grad_phi, n_direct, n_approx, ov = _block_gravity(pos, h, mass,
-                                                               cfg)
+                                                               cfg, st)
     prs = eos_ops.pressure_cfg(rho, cfg, u=u, matid=matid)
     # only the Tillotson sound speed reads matid, and that EOS evolves u
     kw = {"matid": matid} if matid is not None and energy else {}
@@ -185,12 +204,16 @@ def compute_forces(pos, h, mass, cfg: SimConfig, vel=None, u=None,
                   accel, h, du_dt, f_next, ov)
 
 
-def _block_gravity(pos, h, mass, cfg: SimConfig):
-    """Block-tree gravity from a fresh structure: (phi, grad_phi, n_direct,
-    n_approx, the structure's overflow counters)."""
-    st = structure.build(pos, h, mass, cfg)
-    return structure.gravity(pos, h, mass, cfg, st) \
-        + (structure.overflow_info(st),)
+def _block_gravity(pos, h, mass, cfg: SimConfig, st=None):
+    """Block-tree gravity: (phi, grad_phi, n_direct, n_approx, overflow).
+    From a fresh structure unless `st` is given; overflow is the fresh
+    structure's counters, None for a supplied one (its caller accounts for
+    it)."""
+    ov = None
+    if st is None:
+        st = structure.build(pos, h, mass, cfg)
+        ov = structure.overflow_info(st)
+    return structure.gravity(pos, h, mass, cfg, st) + (ov,)
 
 
 def _viscosity(pos, vel, h, mass, rho, cfg: SimConfig):
@@ -205,11 +228,15 @@ def _viscosity(pos, vel, h, mass, rho, cfg: SimConfig):
 
 
 def _compute_forces_gradh(pos, h, mass, cfg: SimConfig, vel=None, u=None,
-                          matid=None, fbal=None) -> Forces:
+                          matid=None, fbal=None, st=None,
+                          cached=False) -> Forces:
     """Grad-h SPH (Springel & Hernquist 2002) on the dense pipeline:
     gather-form density with Omega correction factors and, under
-    h_mode='newton', the fixed-point solve of h = eta (m/rho)^(1/3)."""
-    if cfg.adaptive_h and cfg.h_mode == "newton":
+    h_mode='newton', the fixed-point solve of h = eta (m/rho)^(1/3) (not in
+    a `cached` step, which keeps its h and applies the centre-of-mass
+    correction, as the reference's ``_forces_cached``). Tree gravity from
+    `st` when given."""
+    if cfg.adaptive_h and cfg.h_mode == "newton" and not cached:
         eta = h_eta(cfg)
         for _ in range(cfg.h_newton_iters):
             rho, _, _ = dense.density_gradh(pos, h, mass, cfg)
@@ -233,12 +260,14 @@ def _compute_forces_gradh(pos, h, mass, cfg: SimConfig, vel=None, u=None,
         n_approx = torch.zeros_like(n_direct)
     elif cfg.gravity_solver == "tree":
         phi, grad_phi, n_direct, n_approx, ov = _block_gravity(pos, h, mass,
-                                                               cfg)
+                                                               cfg, st)
     else:
         phi = torch.zeros_like(rho)
         grad_phi = torch.zeros_like(pos)
         n_direct = torch.zeros_like(nn)
         n_approx = torch.zeros_like(n_direct)
+    if cached:
+        grad_phi = com_correct(grad_phi, mass, cfg)
     accel = -grad_p / rho[:, None] - grad_phi
     f_next = None
     if cfg.av_alpha > 0.0:
@@ -277,8 +306,18 @@ def _h_tracking(cfg: SimConfig) -> bool:
             and cfg.neighbor_mode == "grid")
 
 
+def _uses_block_cache(cfg: SimConfig) -> bool:
+    """Whether cached steps keep a block structure: grid neighbours, or
+    dense SPH with tree gravity."""
+    return cfg.neighbor_mode == "grid" or cfg.gravity_solver == "tree"
+
+
 def _build_caches(pos, h, mass, vel, cfg: SimConfig, accel=None,
                   groups=None):
+    """The cached block structure (None when the configuration keeps
+    none)."""
+    if not _uses_block_cache(cfg):
+        return None
     if accel is None:
         accel = torch.zeros_like(vel)
     return structure.build(pos, h, mass, cfg, skin=_skin(cfg, vel, accel),
@@ -306,6 +345,80 @@ def _forces_block(pos, h, mass, cfg: SimConfig, st, vel=None, u=None,
     return Forces(bf.rho, bf.pressure, bf.grad_p, bf.phi, grad_phi,
                   bf.n_neighbors, bf.n_direct, bf.n_approx, accel, h,
                   bf.du_dt, bf.balsara, structure.overflow_info(st))
+
+
+class Carry(NamedTuple):
+    """The cached-step API's carry: the state, the steps taken (a Python
+    int: the rebuild decision is made on the host) and the cached block
+    structure (None when the configuration keeps none)."""
+    state: ParticleState
+    tick: int
+    st: Optional[structure.BlockStructure]
+
+
+def _forces_cached(pos, h, mass, cfg: SimConfig, st, vel=None, u=None,
+                   matid=None, fbal=None) -> Forces:
+    """One force evaluation against the cached structure, in the state's
+    own order: the block pipeline on grid neighbours (no h-solve), else
+    the dense pipeline with tree gravity from `st`."""
+    if cfg.neighbor_mode == "grid":
+        return _forces_block(pos, h, mass, cfg, st, vel=vel, u=u,
+                             matid=matid, fbal=fbal, solve_h=False)
+    return _forces_dense(pos, h, mass, cfg, vel=vel, u=u, matid=matid,
+                         fbal=fbal, st=st, cached=True)
+
+
+def init_carry(state: ParticleState, cfg: SimConfig) -> Carry:
+    """Prime forces and build the initial caches (the cached-step analog
+    of :func:`prime`)."""
+    check_slice(cfg)
+    st = _build_caches(state.pos, state.h, state.mass, state.vel, cfg,
+                       accel=state.accel)
+    f = _forces_cached(state.pos, state.h, state.mass, cfg, st,
+                       vel=state.vel, u=state.u, matid=state.matid,
+                       fbal=state.balsara)
+    return Carry(_apply_forces(state, f), 0, st)
+
+
+def step_carry(carry: Carry, cfg: SimConfig) -> Carry:
+    """One cached step (either integrator): every `rebuild_every`-th step
+    (tick 0 included) relaxes h and rebuilds the structure at the step's
+    evaluation positions, the others reuse it. The incremental API for
+    driving single steps from Python; :func:`run_info` runs whole chunks."""
+    state, tick = carry.state, carry.tick
+    rebuild = tick % max(1, cfg.rebuild_every) == 0
+    dt = current_dt(state, cfg)
+    if cfg.integrator == "staggered_euler":
+        eval_pos, v_half = state.pos, None
+    else:
+        v_half = state.vel if cfg.freeze_velocity \
+            else state.vel + 0.5 * dt * state.accel
+        eval_pos = state.pos + dt * v_half
+    # adaptive h only at rebuild steps (support must not outgrow the lists)
+    h = update_h(state.h, state.n_neighbors, cfg) \
+        if cfg.adaptive_h and rebuild else state.h
+    st = _build_caches(eval_pos, h, state.mass, state.vel, cfg,
+                       accel=state.accel) if rebuild else carry.st
+    energy = cfg.evolves_u
+    u_half = state.u
+    if energy and cfg.integrator != "staggered_euler":
+        u_half = state.u + 0.5 * dt * state.du_dt
+    # KDK evaluates forces at the post-drift position with the half-step
+    # velocity (as step_kdk); staggered Euler with the pre-step velocity
+    f = _forces_cached(eval_pos, h, state.mass, cfg, st,
+                       vel=state.vel if v_half is None else v_half,
+                       u=u_half, matid=state.matid, fbal=state.balsara)
+    if cfg.integrator == "staggered_euler":
+        pos = state.pos + state.vel * dt
+        vel = state.vel if cfg.freeze_velocity else state.vel + f.accel * dt
+        u_new = state.u + dt * f.du_dt if energy else state.u
+    else:
+        pos = eval_pos
+        vel = v_half if cfg.freeze_velocity else v_half + 0.5 * dt * f.accel
+        u_new = u_half + 0.5 * dt * f.du_dt if energy else state.u
+    out = _apply_forces(state, f).replace(pos=pos, vel=_damp(vel, dt, cfg),
+                                          h=h, u=u_new)
+    return Carry(out, tick + 1, st)
 
 
 def _damp(vel, dt, cfg: SimConfig):
@@ -453,23 +566,31 @@ def _respa(cfg: SimConfig) -> bool:
     return respa
 
 
-def chunk_setup(state: ParticleState, cfg: SimConfig, groups=None):
+def _chunk_rebuild(state: ParticleState, cfg: SimConfig, groups=None):
     """The rebuild at a chunk boundary: the smoothing-length update (the
     bounded Newton solve, warm-started from the state's density, under
-    grad-h with h_mode='newton'; else the relaxation step from the state's
-    neighbour counts), the cached structure, and the state permuted into
-    its padded sorted layout. Returns (sorted state, structure)."""
+    grad-h with h_mode='newton' on grid neighbours; else the relaxation
+    step from the state's neighbour counts) and the cached structure (None
+    when none is kept). Returns (state with the new h, structure)."""
     check_slice(cfg)
     if cfg.adaptive_h:
-        if cfg.h_mode == "newton" and cfg.grad_p_mode == "grad_h":
+        if (cfg.h_mode == "newton" and cfg.grad_p_mode == "grad_h"
+                and cfg.neighbor_mode == "grid"):
             state = state.replace(h=structure.solve_h_newton(
                 state.pos, state.h, state.mass, cfg, h_eta(cfg),
                 groups=groups, rho0=state.rho))
         else:
             state = state.replace(h=update_h(state.h, state.n_neighbors,
                                              cfg))
-    st = _build_caches(state.pos, state.h, state.mass, state.vel, cfg,
-                       accel=state.accel, groups=groups)
+    return state, _build_caches(state.pos, state.h, state.mass, state.vel,
+                                cfg, accel=state.accel, groups=groups)
+
+
+def chunk_setup(state: ParticleState, cfg: SimConfig, groups=None):
+    """:func:`_chunk_rebuild`, then the state permuted into the
+    structure's padded sorted layout (a sorted chunk's set-up). Returns
+    (sorted state, structure)."""
+    state, st = _chunk_rebuild(state, cfg, groups)
     return _permute_state(state, st.groups.tgt_idx), st
 
 
@@ -480,12 +601,21 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
     Returns (state, info) — or (state, info, groups) with
     `return_groups=True` — where info carries the rebuild's overflow
     counters and groups is the Morton grouping used (for sort_every
-    reuse). With respa_every dividing k the far tiers are impulse-RESPA
-    kicks around respa_every inner near-field steps; otherwise every step
-    evaluates every tier."""
-    run_state, st = chunk_setup(state, cfg, groups)
-    info = structure.overflow_info(st)
-    live_w = st.groups.live.reshape(-1).to(run_state.pos.dtype)
+    reuse; None without a block structure). On grid neighbours with
+    cfg.sorted_chunks the chunk runs in the padded sorted layout (one
+    permutation at each end); otherwise in the state's own order, each
+    evaluation permuting its inputs and outputs. With respa_every dividing
+    k the far tiers are impulse-RESPA kicks around respa_every inner
+    near-field steps; otherwise every step evaluates every tier."""
+    sorted_chunk = cfg.neighbor_mode == "grid" and cfg.sorted_chunks
+    if sorted_chunk:
+        run_state, st = chunk_setup(state, cfg, groups)
+        live_w = st.groups.live.reshape(-1).to(run_state.pos.dtype)
+    else:
+        run_state, st = _chunk_rebuild(state, cfg, groups)
+        live_w = 1.0
+    info = structure.overflow_info(st) if st is not None \
+        else overflow_zero(run_state.pos.device)
 
     if _h_tracking(cfg):
         eta = h_eta(cfg)
@@ -504,9 +634,13 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
         _tracked = lambda s: s
 
     def forces_fn(tiers):
+        if not sorted_chunk and tiers == "all":
+            return lambda p, hh, m, vel=None, u=None, matid=None, \
+                fbal=None: _forces_cached(p, hh, m, cfg, st, vel=vel, u=u,
+                                          matid=matid, fbal=fbal)
         return lambda p, hh, m, vel=None, u=None, matid=None, fbal=None: \
             _forces_block(p, hh, m, cfg, st, vel=vel, u=u, matid=matid,
-                          fbal=fbal, solve_h=False, sorted_io=True,
+                          fbal=fbal, solve_h=False, sorted_io=sorted_chunk,
                           grav_tiers=tiers)
 
     one_step = step_staggered if cfg.integrator == "staggered_euler" \
@@ -521,7 +655,7 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
 
         def far_eval(s):
             phi_f, gphi_f, na_f = structure.gravity_far(
-                s.pos, s.h, mass_r, cfg, st, sorted_io=True)
+                s.pos, s.h, mass_r, cfg, st, sorted_io=sorted_chunk)
             return phi_f, com_correct(gphi_f, mass_r * live_w, cfg), na_f
 
         near_fn = forces_fn("near")
@@ -545,9 +679,10 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
         for _ in range(k):
             out = one_step(_tracked(out), cfg, full_fn,
                            update_smoothing=False)
-    out = _permute_state(out, st.groups.unsort_idx)
+    if sorted_chunk:
+        out = _permute_state(out, st.groups.unsort_idx)
     if return_groups:
-        return out, info, st.groups
+        return out, info, st.groups if st is not None else None
     return out, info
 
 
@@ -557,7 +692,8 @@ def _run_cached_span(state: ParticleState, cfg: SimConfig, n_steps: int):
     overflow info)."""
     k = cfg.rebuild_every
     n_outer, rem = divmod(n_steps, k)
-    s_chunks = max(1, cfg.sort_every // k) if cfg.sort_every else 1
+    s_chunks = max(1, cfg.sort_every // k) \
+        if cfg.sort_every and _uses_block_cache(cfg) else 1
     info = overflow_zero(state.pos.device)
     add = _add_info
     n_per, rem_chunks = divmod(n_outer, s_chunks)

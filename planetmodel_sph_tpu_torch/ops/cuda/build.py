@@ -37,6 +37,12 @@ SIGNATURES = {
     "gravity_fused": "p" * 49 + "i" * 9 + "f" + "p",
     "pairwise_pass1": "p" * 10 + "iiii" + "f" + "p",
     "pairwise_pass2": "p" * 12 + "iiiiii" + "ff" + "p",
+    # the tools' probes: x, o, n, reps; x, o, n; packed, idx, out, nb,
+    # width, rows; nv, 4 target columns, 5 rows, rho, gb, tb, s, chunk
+    "probe_fma": "pp" + "ii" + "p",
+    "probe_launch": "pp" + "i" + "p",
+    "probe_gather": "ppp" + "iii" + "p",
+    "probe_pass1_tile": "p" * 11 + "iiii" + "p",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,10 +51,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernels whose output holds an exact decision on r2 (the filter mask, the
 # q < 2 counts of the pass 1s) build without multiply-add contraction, so
 # r2 and cut*cut round as the plain PyTorch versions' separate ops do and
-# knife-edge compares agree. The pass 2s, p2p and gravity_fused count
-# nothing that rounding moves, and their sums are held to a tolerance: they
-# keep FMA.
-NO_FMAD = ("filter_sph", "pass1_gradh", "pass1_sym", "pairwise_pass1")
+# knife-edge compares agree; so does the pass-1 tile probe, whose signed
+# random-normal terms reach |q|^3 ~ 1e4 and cancel, so that only the order
+# of the sum may differ from its plain version's. The pass 2s, p2p and
+# gravity_fused count nothing that rounding moves, and their sums are held
+# to a tolerance: they keep FMA, as do the other probes (probe_fma measures
+# the FMA rate itself).
+NO_FMAD = ("filter_sph", "pass1_gradh", "pass1_sym", "pairwise_pass1",
+           "probe_pass1_tile")
 
 _LIBS: dict = {}
 

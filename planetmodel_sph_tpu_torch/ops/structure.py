@@ -8,16 +8,15 @@ pass the three-tier gravity partition; adjacency rows are compacted into
 fixed windows (overflow dropped AND counted); the sweeps run in the
 kernels of ``ops/cuda/groups2.py``.
 
-Ported here: single-set builds with sub-block SPH windows and the
-true-pair sub-block refine; the density sweep in its grad-h and symmetric
-forms; the polytropic, adiabatic and Tillotson EOS; pass 2 in every
-pressure form, with viscosity and the Balsara limiter, the conjugate energy
-equation, with near gravity fused into it (and the residual-P2P window
-merged) or swept on its own; the gravity tiers in one launch, near only or
-far only, with or without the supergroup far tier; and the standalone
-gravity sweep of dense-SPH runs. Still out, and refused by name in
-``config.check_slice``: particle-exact SPH lists and data-parallel source
-sets.
+Ported here: single-set builds with sub-block SPH windows, the true-pair
+sub-block refine or particle-exact SPH lists (``cfg.sph_exact_window``);
+the density sweep in its grad-h and symmetric forms; the polytropic,
+adiabatic and Tillotson EOS; pass 2 in every pressure form, with viscosity
+and the Balsara limiter, the conjugate energy equation, with near gravity
+fused into it (and the residual-P2P window merged) or swept on its own; the
+gravity tiers in one launch, near only or far only, with or without the
+supergroup far tier; and the standalone gravity sweep of dense-SPH runs.
+Still out: data-parallel source sets.
 """
 
 from __future__ import annotations
@@ -36,7 +35,9 @@ from .gravity import accept_bmax
 class BlockStructure(NamedTuple):
     """Frozen interaction structure (sub-block granularity windows)."""
     groups: grouping.Groups
-    sph_idx: torch.Tensor        # [G, Ws] SPH-window sub-block ids (-1 pad)
+    sph_idx: torch.Tensor        # [G, Ws] SPH-window sub-block ids, or
+                                 # sorted-layout particle ids under exact
+                                 # lists (-1 pad)
     n_sph: torch.Tensor          # [G]
     p2p_idx: torch.Tensor        # [G, Wp] residual near-field sub-blocks
     n_p2p: torch.Tensor          # [G]
@@ -69,20 +70,26 @@ def _sum3(v):
     return v[..., 0] + v[..., 1] + v[..., 2]
 
 
-def packed_permute(arrays, idx):
+def packed_permute(arrays, idx, pad_to=0):
     """Gather a list of [N] / [N, k] tensors by `idx` through ONE packed
     row gather (one gather kernel instead of one per field).
 
     Integer fields round-trip through the float dtype: the shared contract
-    is values < 2^24. Returns tensors of shape idx.shape (+ (k,)) with the
-    original dtypes."""
+    is values < 2^24. `pad_to` zero-pads the packed rows to that many
+    values before the gather (the reference's gather-row width; no value
+    changes). Returns tensors of shape idx.shape (+ (k,)) with the original
+    dtypes."""
     fdt = next((a.dtype for a in arrays if a.is_floating_point()),
                torch.float32)
     cols, spans = [], []
     for a in arrays:
         cols.append(a.to(fdt)[:, None] if a.ndim == 1 else a.to(fdt))
         spans.append(0 if a.ndim == 1 else a.shape[1])
-    gat = torch.cat(cols, dim=1)[idx.long()]
+    packed = torch.cat(cols, dim=1)
+    if pad_to > packed.shape[1]:
+        packed = torch.nn.functional.pad(packed,
+                                         (0, pad_to - packed.shape[1]))
+    gat = packed[idx.long()]
     out, off = [], 0
     for s, a in zip(spans, arrays):
         w = max(s, 1)
@@ -109,16 +116,14 @@ def _compact_rows(adj, w):
     return idx, n, overflow
 
 
-def _refine_subblock(sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb,
-                     live_sb, pos_t, h_t, sk_t, cfg, h_margin, nsub, sub,
-                     chunk):
-    """Refine the sub-block SPH window with the TRUE pair predicate at
-    sub-block granularity: one filter_sph sweep marks every candidate that
-    interacts with some target of the group under the skin- and margin-
-    inflated cutoff; sub-blocks with no survivor leave the window, which is
-    recompacted and optionally truncated to cfg.sph_refined_window
-    (truncation is counted as overflow)."""
-    g, w = sph_idx.shape
+def _filter_candidates(sph_idx, n_sph, pos_sb, h_sb, m_sb, sk_sb, live_sb,
+                       pos_t, h_t, sk_t, cfg, h_margin, nsub, sub, chunk):
+    """The rebuild-time true-pair mask over a sub-block window's candidate
+    slots: one filter_sph sweep marks every candidate that interacts with
+    some target of the group under the skin- and margin-inflated cutoff
+    r < kappa (1 + margin) max(h_i, h_j) + skin_i + skin_j. Returns the
+    [G, W*sub] keep mask (padded to `chunk`)."""
+    w = sph_idx.shape[1]
     keff = cfg.kappa * (1.0 + h_margin)
     xs = pos_sb[..., 0].reshape(-1)
     ys = pos_sb[..., 1].reshape(-1)
@@ -132,7 +137,53 @@ def _refine_subblock(sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb,
                 pos_t[..., 2].reshape(-1), keff * h_t.reshape(-1),
                 sk_t.reshape(-1))
     nv = _i32(torch.clamp(n_sph, max=w) * sub)
-    keep = gk2.filter_sph(nv, tgt, cand, b=cfg.nbr_group_size)
+    return gk2.filter_sph(nv, tgt, cand, b=cfg.nbr_group_size)
+
+
+def _refine_exact(sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb,
+                  live_sb, pos_t, h_t, sk_t, cfg, h_margin, nsub, sub,
+                  chunk):
+    """Refine the sub-block SPH window to PARTICLE-granularity candidate
+    lists (cfg.sph_exact_window): the surviving candidates of the true-pair
+    mask are compacted by the sort trick of :func:`_compact_rows` into a
+    [G, Wx] window of sorted-layout particle ids (more than Wx survivors
+    are dropped and counted as overflow)."""
+    g, w = sph_idx.shape
+    wx = cfg.sph_exact_window
+    keep = _filter_candidates(sph_idx, n_sph, pos_sb, h_sb, m_sb, sk_sb,
+                              live_sb, pos_t, h_t, sk_t, cfg, h_margin,
+                              nsub, sub, chunk)
+    wc = w * sub
+    mask = keep[:, :wc] > 0.0
+    cid = (torch.clamp(sph_idx, 0, nsub - 1)[:, :, None] * sub
+           + torch.arange(sub, dtype=torch.int32,
+                          device=mask.device)[None, None, :]).reshape(g, wc)
+    big = nsub * sub
+    keys = torch.where(mask, cid, big)
+    if wc < wx:
+        keys = torch.nn.functional.pad(keys, (0, wx - wc), value=big)
+    # surviving slots carry distinct particle ids, the rest one sentinel:
+    # the sorted values are the reference's rows (stable, as its sort)
+    srt = torch.sort(keys, dim=1, stable=True).values[:, :wx]
+    n_x = _i32(mask.sum(dim=1))
+    jx = torch.arange(wx, dtype=torch.int32, device=mask.device)
+    idx = torch.where(jx[None, :] < n_x[:, None], srt, -1)
+    over = sph_over + _i32(torch.clamp(n_x - wx, min=0).sum())
+    return _i32(idx), n_x, over
+
+
+def _refine_subblock(sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb,
+                     live_sb, pos_t, h_t, sk_t, cfg, h_margin, nsub, sub,
+                     chunk):
+    """Refine the sub-block SPH window with the TRUE pair predicate at
+    sub-block granularity (:func:`_filter_candidates`): sub-blocks with no
+    survivor leave the window, which is recompacted and optionally
+    truncated to cfg.sph_refined_window (truncation is counted as
+    overflow)."""
+    g, w = sph_idx.shape
+    keep = _filter_candidates(sph_idx, n_sph, pos_sb, h_sb, m_sb, sk_sb,
+                              live_sb, pos_t, h_t, sk_t, cfg, h_margin,
+                              nsub, sub, chunk)
     hit = keep[:, :w * sub].reshape(g, w, sub).amax(dim=2) > 0.0
     jw = torch.arange(w, dtype=torch.int32, device=hit.device)
     hit &= jw[None, :] < torch.clamp(n_sph, max=w)[:, None]
@@ -240,7 +291,11 @@ def build(pos, h, mass, cfg: SimConfig, skin=0.0, h_margin: float = 0.0,
     del gap2, cut
     sph_idx, n_sph, sph_over = _compact_rows(sph_adj, cfg.nbr_window)
     del sph_adj
-    if cfg.sph_refine_subblock:
+    if cfg.sph_exact_window > 0:
+        sph_idx, n_sph, sph_over = _refine_exact(
+            sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb, grp.live,
+            pos_t, h_t, sk_t, cfg, h_margin, nsub, sub, chunk)
+    elif cfg.sph_refine_subblock:
         sph_idx, n_sph, sph_over = _refine_subblock(
             sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb, grp.live,
             pos_t, h_t, sk_t, cfg, h_margin, nsub, sub, chunk)
@@ -426,13 +481,19 @@ def _window_gather(sorted_cols, idx, nb, bsz, chunk):
         for k in range(c)]
 
 
-def _entry_gather(cols, idx, chunk):
-    """Per-entry gathers (one value per window slot), padded to chunk."""
+def _entry_gather(cols, idx, chunk, pad_rows=0):
+    """Per-entry gathers (one value per window slot), padded to chunk.
+
+    `pad_rows` (cfg.gather_pad_rows) is the width, in values, of the packed
+    table's rows for the gather: on the TPU rows of 16 bytes or less gather
+    at a pathological row rate, and padding them to 128 bytes trades bytes
+    for rows. It changes no value; the port pads as the reference does
+    where the reference passes it (the exact SPH lists' rows)."""
     w = idx.shape[1]
     safe = torch.clamp(idx, 0, cols[0].shape[0] - 1)
     pad = _nbpad(w, chunk) - w
     return [torch.nn.functional.pad(v, (0, pad))
-            for v in packed_permute(cols, safe)]
+            for v in packed_permute(cols, safe, pad_to=pad_rows)]
 
 
 def _cols(*xs):
@@ -440,13 +501,21 @@ def _cols(*xs):
 
 
 def _sph_nv(st: BlockStructure, cfg: SimConfig):
-    """Valid pair-slot count per target group for the SPH window (the
-    capacity is the window's actual, possibly truncated, width)."""
+    """Valid pair-slot count per target group for the SPH window: the
+    particle count of an exact list, else the sub-block count (capped at
+    the window's actual, possibly truncated, width) times their size."""
+    if cfg.sph_exact_window > 0:
+        return _i32(torch.clamp(st.n_sph, max=cfg.sph_exact_window))
     return _i32(torch.clamp(st.n_sph, max=st.sph_idx.shape[1])
                 * cfg.nbr_sub)
 
 
 def _sph_rows(cols, st: BlockStructure, cfg: SimConfig, nb):
+    """SPH source rows through the window: contiguous sub-block rows, or
+    one packed per-particle gather for exact lists."""
+    if cfg.sph_exact_window > 0:
+        return _entry_gather(cols, st.sph_idx, cfg.block_chunk,
+                             pad_rows=cfg.gather_pad_rows)
     sub = cfg.nbr_sub
     return _window_gather(cols, st.sph_idx, nb * (cfg.nbr_group_size // sub),
                           sub, cfg.block_chunk)
@@ -805,7 +874,9 @@ def solve_h_newton(pos, h, mass, cfg: SimConfig, eta: float, groups=None,
     margin c (capacities scaled by (1+c)^3), then iterates the gather-form
     density with h clamped to [h/(1+c), h*(1+c)]. `rho0` warm-starts with
     one fixed-point step from the state's density before the build (and
-    one fewer sweep). Returns the new h in original order."""
+    one fewer sweep). Under exact lists the solve builds its own, at
+    cfg.h_solve_window or the exact window scaled by (1+c)^3. Returns the
+    new h in original order."""
     c = cfg.h_newton_clamp
     if cfg.h_max > 0.0:
         h = torch.clamp(h, max=cfg.h_max)
@@ -816,7 +887,13 @@ def solve_h_newton(pos, h, mass, cfg: SimConfig, eta: float, groups=None,
             h = torch.clamp(h, max=cfg.h_max)
     factor = (1.0 + c) ** 3
     scale = lambda w, q: int(-(-int(w * factor) // q) * q)
-    cfg = cfg.replace(nbr_window=scale(cfg.nbr_window, 16),
+    # exact lists: the solve refines its own margin-valid lists
+    wx = 0
+    if cfg.sph_exact_window > 0:
+        wx = cfg.h_solve_window or scale(cfg.sph_exact_window,
+                                         cfg.block_chunk)
+    cfg = cfg.replace(sph_exact_window=wx,
+                      nbr_window=scale(cfg.nbr_window, 16),
                       sph_refined_window=(scale(cfg.sph_refined_window, 16)
                                           if cfg.sph_refined_window else 0))
     st = build(pos, h, mass, cfg, h_margin=c, groups=groups, sph_only=True)

@@ -178,8 +178,8 @@ def test_bench_set_overrides_preset_and_checkpoint(tmp_path, capsys):
     (["--materials", "basalt,ice"], "--materials"),
     (["--materials", "basalt", "--ic", "two_planet_collision"],
      "--materials"),
-    (["--checkpoint", "x.npz"], "npz"),
-    (["--restore", "x.npz"], "npz"),
+    (["--debug-nans"], "--debug-nans"),
+    (["--serve", "8080", "--devices", "1"], "--serve"),
 ])
 def test_unported_flags_exit_nonzero_naming_the_flag(extra, word):
     with pytest.raises(SystemExit) as e:
@@ -190,15 +190,17 @@ def test_unported_flags_exit_nonzero_naming_the_flag(extra, word):
 @pytest.mark.parametrize("extra,word", [
     (["--gravity", "tree", "--set", "kernel_gb=8"], "kernel_gb"),
     (["--set", "eos_mode=isothermal"], "eos_mode"),
-    (["--set", "rebuild_every=8"], "rebuild_every"),
+    (["--gravity", "tree", "--set", "multipole_order=3"],
+     "multipole_order"),
     (["--ic", "differentiated_planet"], "tillotson"),
     (["--neighbor", "grid"], "gravity_solver='direct'"),
     (["--neighbor", "grid", "--gravity", "tree", "--set",
-      "sph_exact_window=512"], "sph_exact_window"),
+      "sph_exact_window=512", "--set", "fuse_p2p_sph=true"],
+     "sph_exact_window"),
     (["--neighbor", "grid", "--gravity", "tree", "--set",
       "grav_pair_dtype=bfloat16"], "grav_pair_dtype"),
     (["--neighbor", "grid", "--gravity", "tree", "--set",
-      "sorted_chunks=false"], "sorted_chunks"),
+      "sorted_chunks=false", "--set", "dtype=float64"], "dtype"),
 ])
 def test_unported_configurations_exit_nonzero_naming_the_option(
         extra, word, capsys):

@@ -62,7 +62,7 @@ def test_dense_preset_and_its_options_are_in_slice(kw):
     (dict(gravity_solver="tree", grav_pair_dtype="bfloat16"),
      "grav_pair_dtype"),
     (dict(gravity_solver="tree", kernel_gb=8), "kernel_gb"),
-    (dict(rebuild_every=8), "rebuild_every"),
+    (dict(gravity_solver="tree", multipole_order=3), "multipole_order"),
     (dict(dtype="bfloat16"), "dtype"),
     (dict(neighbor_mode="octree"), "neighbor_mode"),
     (dict(neighbor_mode="grid"), "neighbor_mode='grid'"),
@@ -145,9 +145,9 @@ def test_parse_overrides_reads_a_set_list():
     (dict(sg_blocks=4), "sg_blocks"),
     (dict(grav_pair_dtype="bfloat16"), "grav_pair_dtype"),
     (dict(kernel_gb=8), "kernel_gb"),
-    (dict(neighbor_mode="dense"), "rebuild_every"),
+    (dict(neighbor_mode="dense"), "fuse_p2p_sph"),
     (dict(gravity_solver="direct"), "gravity_solver='direct'"),
-    (dict(sorted_chunks=False), "sorted_chunks"),
+    (dict(sorted_chunks=False, sg_blocks=4), "sg_blocks"),
     (dict(dtype="float64"), "dtype"),
     (dict(multipole_order=3), "multipole_order"),
 ])

@@ -185,12 +185,11 @@ def test_forces_fix_fbal_and_com_correct():
 
 
 def test_runner_refusals():
-    """What the cached runner still refuses, by name."""
-    with pytest.raises(NotImplementedError, match="rebuild_every"):
-        tp.run_info(None, tc.jupiter_3k(n=64, rebuild_every=4), 4)
-    with pytest.raises(NotImplementedError, match="sorted_chunks"):
-        tp.run_info(None, tc.SimConfig(**dict(SYM, sorted_chunks=False)),
-                    4)
+    """What the cached runner still refuses, by name (the cached dense
+    step and unsorted chunks are ported: tests/test_torch_cached_carry.py)."""
+    with pytest.raises(ValueError, match="kernel_gb"):
+        tp.run_info(None, tc.SimConfig(**dict(SYM, sorted_chunks=False,
+                                              kernel_gb=2)), 4)
     with pytest.raises(NotImplementedError, match="direct"):
         tp.run_info(None, tc.SimConfig(**dict(SYM,
                                               gravity_solver="direct")), 4)

@@ -16,6 +16,8 @@ import torch
 from planetmodel_sph_tpu_torch import bench, cli, state
 from planetmodel_sph_tpu_torch.models import ics
 from planetmodel_sph_tpu_torch.runtime import snapshot
+from planetmodel_sph_tpu_torch.tools import microbench, roofline
+from planetmodel_sph_tpu_torch.utils import checkpoint
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "planetmodel_sph_tpu_torch")
@@ -59,7 +61,9 @@ def test_scan_sees_the_package():
             "runtime/snapshot.py", "ops/cuda/pairwise.py", "ops/dense.py",
             "ops/kernels.py", "models/ics.py", "cli.py", "bench.py",
             "config.py", "ops/cuda/build.py", "ops/cuda/launch.py",
-            "ops/gravity.py", "ops/grouping.py", "ops/eos.py"} <= names
+            "ops/gravity.py", "ops/grouping.py", "ops/eos.py",
+            "ops/cuda/probes.py", "tools/roofline.py",
+            "tools/microbench.py", "utils/checkpoint.py"} <= names
 
 
 def test_every_kernel_has_its_source_signature_and_counter():
@@ -67,20 +71,29 @@ def test_every_kernel_has_its_source_signature_and_counter():
     signature and a launch counter, and the sources include nothing but the
     CUDA runtime and the package's own header."""
     from planetmodel_sph_tpu_torch.ops.cuda import build, groups2, launch
-    from planetmodel_sph_tpu_torch.ops.cuda import pairwise
-    names = set(groups2.KERNELS) | set(pairwise.KERNELS)
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise, probes
+    names = set(groups2.KERNELS) | set(pairwise.KERNELS) | set(
+        probes.KERNELS)
     assert names == set(build.SIGNATURES) == set(launch.LAUNCHES)
-    assert {"pass1_sym", "p2p"} <= names and len(names) == 8
+    assert {"pass1_sym", "p2p", "probe_gather"} <= names
+    assert len(names) == 12
     for n in names:
         src = open(os.path.join(PKG, "csrc", n + ".cu")).read()
         assert f'extern "C" int psph_{n}(' in src
         inc = [ln.split()[1] for ln in src.splitlines()
                if ln.startswith("#include")]
-        assert set(inc) <= {'"common.cuh"', "<cuda_runtime.h>"}, (n, inc)
+        assert set(inc) <= {'"common.cuh"', "<cuda_runtime.h>",
+                            "<cstdint>"}, (n, inc)
 
 
 @pytest.mark.parametrize("fn", [state.from_numpy, state.zeros,
-                                snapshot.load, bench.run_bench,
+                                snapshot.load, checkpoint.load,
+                                roofline.measure_dispatch,
+                                roofline.measure_hbm, roofline.measure_vpu,
+                                roofline.measure_launch,
+                                microbench.bench_gathers,
+                                microbench.bench_kernel_tiles,
+                                bench.run_bench,
                                 ics.jupiter, ics.polytrope,
                                 ics.two_planet_collision,
                                 ics.rotating_planet])
@@ -96,8 +109,12 @@ def test_entry_points_default_to_cuda(fn):
     lambda: bench.run_bench(preset="jupiter_3k", n=8, steps=1),
     lambda: cli.main(["run", "--n", "8", "--steps", "1"]),
     lambda: cli.main(["bench", "--n", "8", "--steps", "1"]),
+    lambda: roofline.main(["--smoke"]),
+    lambda: microbench.main(["--g", "8"]),
+    lambda: checkpoint.load(snapshot.__file__),
 ], ids=["jupiter", "polytrope", "rotating_planet", "two_planet_collision",
-        "bench_cold_start", "cli_run", "cli_bench"])
+        "bench_cold_start", "cli_run", "cli_bench", "tools_roofline",
+        "tools_microbench", "checkpoint_load"])
 def test_new_entry_points_raise_without_a_card(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

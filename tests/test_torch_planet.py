@@ -94,10 +94,14 @@ def test_cpu_run_launches_no_kernel(runs):
 
 def test_runner_refuses_uncached_step():
     """The uncached step itself is ported (tests/test_torch_step.py), and
-    so are cached chunks with relax-mode h (tests/test_torch_grid_step.py);
-    what the runner still refuses around rebuild_every is the cached step
-    on dense neighbours, and a chunk that keeps the state unsorted."""
-    with pytest.raises(NotImplementedError, match="rebuild_every"):
-        tp.run_info(None, tc.jupiter_3k(n=64, rebuild_every=4), 4)
-    with pytest.raises(NotImplementedError, match="sorted_chunks"):
-        tp.run_info(None, TCFG.replace(sorted_chunks=False), 4)
+    so are cached chunks with relax-mode h (tests/test_torch_grid_step.py),
+    the cached dense step and unsorted chunks
+    (tests/test_torch_cached_carry.py); what the runner still refuses, by
+    name and before any work, are the TPU's tuning knobs."""
+    with pytest.raises(ValueError, match="kernel_gb"):
+        tp.run_info(None, tc.jupiter_3k(n=64, rebuild_every=4,
+                                        gravity_solver="tree",
+                                        kernel_gb=2), 4)
+    with pytest.raises(NotImplementedError, match="grav_pair_dtype"):
+        tp.run_info(None, TCFG.replace(sorted_chunks=False,
+                                       grav_pair_dtype="bfloat16"), 4)

@@ -465,3 +465,56 @@ def test_slice_args_cuts_the_blk_window_too():
     assert kw["nv_blk"].tolist() == [2, 3]
     assert [r.shape for r in kw["blk_rows"]] == [(2, 3)] * 2
     assert a[3][0].shape == (1, 8)
+
+
+def test_probe_fma_and_launch_bound_counts():
+    from planetmodel_sph_tpu_torch.ops.cuda import probes
+    x = torch.full((8, 128), 0.9)
+    for reps, bound_by in ((3, "bytes"), (512, "operations")):
+        out = probes.probe_fma(x, reps)
+        _, by, nbytes, ops = cs.bound("probe_fma", (x,), {"reps": reps},
+                                      out)
+        assert nbytes == 2 * 1024 * 4 and by == bound_by
+        assert ops == cs.OPS_FMA_REP * reps * 1024
+    assert cs.OPS_FMA_REP == 8
+    out = probes.probe_launch(x)
+    _, _, nbytes, ops = cs.bound("probe_launch", (x,), {}, out)
+    assert nbytes == 2 * 1024 * 4 and ops == 1024
+
+
+def test_probe_gather_bound_is_the_bytes_moved():
+    from planetmodel_sph_tpu_torch.ops.cuda import probes
+    packed = torch.ones((5, 12))
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    out = probes.probe_gather(packed, idx)
+    b_ms, by, nbytes, ops = cs.bound("probe_gather", (packed, idx), {}, out)
+    assert nbytes == (5 * 12 + 6 + 2 * 3 * 12) * 4 and ops == 0
+    assert by == "bytes" and b_ms == nbytes / cs.PEAK_BYTES * 1e3
+
+
+def test_probe_pass1_tile_ops_and_bytes_by_branch():
+    """Two targets at the origin, ih = 1 and ih = -1 (a negative q takes
+    the inner branch); slots at r = 0.5 (inner), 1.5 (outer), 3 (none), a
+    dead one, r = 0.2 (inner), then one past nv. chunk 4 over 8 slots:
+    the extent is min(nv, trips * chunk) = 5."""
+    from planetmodel_sph_tpu_torch.ops.cuda import probes
+    tgt = [_col([0.0, 0.0])] * 3 + [_col([1.0, -1.0])]
+    xs = [0.5, 1.5, 3.0, 0.4, 0.2, 0.1, 0.0, 0.0]
+    live = [1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 1.0]
+    rows = [_row(xs), _row([0.0] * 8), _row([0.0] * 8), _row([1.0] * 8),
+            _row(live)]
+    a = (_nv(5), tgt, rows)
+    kw = {"tb": 2, "chunk": 4}
+    out = probes.probe_pass1_tile(*a, **kw)
+    _, _, nbytes, ops = cs.bound("probe_pass1_tile", a, kw, out)
+    w = cs.OPS_TILE_W
+    assert ops == ((cs.OPS_TILE_GEOM + cs.OPS_TILE_SUM) * 8
+                   + 6 * w["inner"] + w["outer"] + w["none"]
+                   + cs.OPS_TILE_SLOT * 5 + cs.OPS_TILE_TARGET * 2)
+    assert nbytes == 4 * 2 * 4 + 4 + 2 * 4 + 5 * 5 * 4
+    # the second target: every q negative, the inner polynomial, and the
+    # prefactor ih^3 / pi negative
+    poly = sum(1.0 - 1.5 * q * q + 0.75 * q * q * q
+               for q in (-0.5, -1.5, -3.0, -0.2))
+    assert float(out[1, 0]) == pytest.approx(-poly / 3.141592653589793,
+                                             rel=1e-5)

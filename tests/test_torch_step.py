@@ -187,10 +187,12 @@ def test_uncached_grid_prime_matches_jax():
 
 
 @pytest.mark.parametrize("kw,word", [
-    # dense SPH + tree gravity runs, with the supergroup far tier too; the
-    # TPU's grid batching and bf16 pair path do not
+    # dense SPH + tree gravity runs, with the supergroup far tier too, and
+    # cached (tests/test_torch_cached_carry.py); the TPU's grid batching
+    # and bf16 pair path do not, nor a multipole order past 2
     (dict(gravity_solver="tree", kernel_gb=8), "kernel_gb"),
-    (dict(rebuild_every=4), "rebuild_every"),
+    (dict(gravity_solver="tree", rebuild_every=4, multipole_order=3),
+     "multipole_order"),
     (dict(gravity_solver="tree", grav_pair_dtype="bfloat16"),
      "grav_pair_dtype"),
 ])

@@ -148,14 +148,13 @@ def test_solve_h_newton_matches(built):
 
 def test_out_of_slice_config_refused():
     pos, h, mass, _ = _cloud()
-    # the unfused partition and the supergroup tier are ported
-    # (tests/test_torch_gravity_tiers.py); particle-exact lists and the
-    # TPU's grid batching are still refused, and the fusion still refuses
-    # the supergroup tier
-    with pytest.raises(NotImplementedError, match="sph_exact_window"):
-        ts.build(T(pos), T(h), T(mass),
-                 TCFG.replace(sph_exact_window=512, fuse_p2p_sph=False,
-                              fuse_p2p_residual=False))
+    # the unfused partition, the supergroup tier and particle-exact lists
+    # are ported (tests/test_torch_gravity_tiers.py,
+    # tests/test_torch_exact.py); the TPU's grid batching is still
+    # refused, and the fusion still refuses exact lists and the
+    # supergroup tier
+    with pytest.raises(ValueError, match="sph_exact_window"):
+        ts.build(T(pos), T(h), T(mass), TCFG.replace(sph_exact_window=512))
     with pytest.raises(ValueError, match="kernel_gb"):
         ts.build(T(pos), T(h), T(mass), TCFG.replace(kernel_gb=8))
     with pytest.raises(ValueError, match="sg_blocks"):
