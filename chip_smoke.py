@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 It never imports JAX or the JAX package. Phases, any failure exits non-zero:
 
@@ -26,12 +26,20 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    (``gravity_fused`` with monopoles, the near tier and receiver softening
    at n = 3000, and the two all-pairs kernels in its modes); and on extras
    no leg runs: ``p2p`` and ``gravity_fused`` under receiver softening at
-   the 100k shapes, ``pass2`` asymmetric with the sign bug and symmetric
-   with fused gravity under receiver softening. The two all-pairs kernels
+   the 100k shapes, ``pass2`` asymmetric with the sign bug, symmetric
+   with fused gravity under receiver softening, and `settle100k`'s
+   Balsara inputs with the energy column. The two all-pairs kernels
    are held against theirs on primed ``ics.jupiter`` particles at n = 3000
    and n = 32768: pass 1 with both softenings, pass 2 symmetric, asymmetric
    with the sign bug, and symmetric with viscosity and the Balsara limiter
-   on a rotating, contracting velocity field;
+   on a rotating, contracting velocity field. For every case of the two
+   compacted sweeps (``pass1_gradh``, ``pass2``) it also prints the share
+   of slots below nv that are live and of live pairs inside the support,
+   the instance's registers, shared memory and spills from the build's
+   ``-Xptxas -v`` log (phase 2 prints every instance), holds a second
+   launch on the same inputs to the same bits, and plants NaNs where the
+   sweep leaves out work (a NaN there must reach the same outputs as in
+   the plain version);
 5. main paths, each with the launch counts reset just before and read just
    after: ``planet.run_info`` for 64 steps of the 100k state (two K=32
    chunks, one sort_every=64 period), then the dense ``jupiter_3k`` path
@@ -82,7 +90,15 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    the two results must agree; 8 adiabatic steps with viscosity of the
    same 2048 particles, where the evolved u must agree too; and the 2048
    particles through ``planet.init_carry`` and 8 ``planet.step_carry``
-   calls.
+   calls;
+7. only with ``--parent DIR``, DIR a checkout of another commit (unpacked
+   with ``git archive`` into a git-ignored directory): phase 2 also builds
+   DIR's ``pass1_gradh`` and ``pass2`` into DIR's own build directory,
+   phase 4 times them and this checkout's in turns (parent, this, this,
+   parent) on each case's inputs, and this phase runs the production step
+   from both checkouts, each in its own processes (``bench --repeat 3``:
+   parent, this, this, parent), and each checkout's sorted and unsorted
+   chunks against each other.
 
 The second-to-last line of standard output is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. A full
@@ -91,6 +107,7 @@ report goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -293,6 +310,10 @@ KERNELS = {
                          "probe_pass1_tile.cu", "tools/microbench.py:206"),
 }
 PROBES = ("probe_fma", "probe_launch", "probe_gather", "probe_pass1_tile")
+# the sweeps that visit only the live slots of their windows: phase 4
+# prints the share of slots they visit and of pairs inside the support,
+# and holds two launches on the same inputs to the same bits
+COMPACTED = ("pass1_gradh", "pass2")
 
 # Tolerances, kernel against plain version, both f32 on the card. The two
 # sum the same terms in different orders (the kernel sequentially per
@@ -469,6 +490,12 @@ def mode_cases(state, cfg, sym_state, settle_state, settle_cfg):
         _eval(run_state, bal, st, "all")
     yield "pass2", "grad_h+av+balsara+merged", ("settle100k_balsara",), \
         *seen["pass2"]
+    # an extra: the same inputs with the energy column, one of the forms
+    # whose build spills a few bytes (the viscosity's columns carry the
+    # velocities the energy equation reads)
+    a, kw = seen["pass2"]
+    yield "pass2", "grad_h+av+balsara+energy+merged", (), a, \
+        dict(kw, energy=True)
     del st, seen, run_state
 
     # parity3k: a fresh structure and every gravity tier in one launch
@@ -1134,8 +1161,147 @@ def _probe_work(name, a, kw, out):
     return nbytes, 0
 
 
-def check_one(name, case, a, kw):
-    """One kernel call against its plain version, timed: the report."""
+def ptxas_instances(log):
+    """Each entry point of one source's `-Xptxas -v` log: its template
+    arguments (a tuple of ints, empty for a plain function), registers,
+    shared memory, stack frame and spills in bytes."""
+    import re
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = dict(entry=m.group(1), args=tuple(
+                int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1))),
+                regs=0, smem=0, stack=0, spill_stores=0, spill_loads=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def instance_key(name, kw):
+    """The template arguments of the instance a call launches (pass2: mode,
+    sign bug, viscosity, Balsara, gravity 0/1/2, receiver softening,
+    energy, as pass2.cu orders them; pass1_gradh has none)."""
+    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    if name != "pass2":
+        return (name, ())
+    grav = (2 if kw.get("p2p_rows") is not None else 1) if kw.get("grav") \
+        else 0
+    return (name, (gk2.MODES.index(kw.get("mode", "grad_h")),
+                   int(kw.get("sign_bug", False)), int(kw.get("av", False)),
+                   int(kw.get("balsara", False)), grav,
+                   int(bool(kw.get("receiver_soft")) and grav > 0),
+                   int(kw.get("energy", False))))
+
+
+def window_shares(name, a, kw):
+    """What the compacted sweeps visit: the share of window slots below nv
+    that are live (m != 0), and of the live (target, slot) pairs the share
+    inside the support (q < 2 for pass 1; r min(ih_i, ih_j) < 2, where
+    pass 2 adds its SPH terms); with a merged P2P window its live share."""
+    import torch
+    nv, tgt, src = a
+    g, s = src[0].shape
+    b = tgt[0].shape[0] // g
+    m_row = src[3] if name == "pass1_gradh" else src[4]
+    slot = torch.arange(s, device=nv.device)[None, :] < nv[:, None]
+    below, live = _n(slot), _n(slot & (m_row != 0.0))
+    inside = 0
+    for g0, g1 in _group_slices(g, slice_groups(a, kw)):
+        tx, ty, tz, tih = (c[g0 * b:g1 * b].reshape(g1 - g0, b, 1)
+                           for c in tgt[:4])
+        sx, sy, sz = (r[g0:g1, None, :] for r in src[:3])
+        lv = slot[g0:g1, None, :] & (m_row[g0:g1, None, :] != 0.0)
+        dxx, dxy, dxz = tx - sx, ty - sy, tz - sz
+        r2 = dxx * dxx + dxy * dxy + dxz * dxz
+        if name == "pass1_gradh":
+            sup = torch.sqrt(r2) * tih < 2.0
+        else:
+            r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
+            sup = r * torch.minimum(tih, src[3][g0:g1, None, :]) < 2.0
+        inside += _n(lv & sup)
+        del lv, dxx, dxy, dxz, r2, sup
+    out = dict(slots_below_nv=below, live_slots=live,
+               live_share=live / max(below, 1), live_pairs=b * live,
+               pairs_inside=inside, inside_share=inside / max(b * live, 1))
+    if kw.get("p2p_rows") is not None:
+        nvp, pm = kw["nv_p2p"], kw["p2p_rows"][-1]
+        ps = torch.arange(pm.shape[1], device=nv.device)[None, :] \
+            < nvp[:, None]
+        out["p2p_live_share"] = _n(ps & (pm != 0.0)) / max(_n(ps), 1)
+    return out
+
+
+def same_bits(out, again) -> bool:
+    """Two launches' outputs are bit for bit the same."""
+    import torch
+    out = out if isinstance(out, tuple) else (out,)
+    again = again if isinstance(again, tuple) else (again,)
+    return all(torch.equal(o.view(torch.int32), r.view(torch.int32))
+               for o, r in zip(out, again))
+
+
+def nan_agreement(name, a, kw):
+    """NaNs planted where a compacted sweep leaves out work, in one group:
+    a NaN target ih, and at its last live slot a NaN x (pass 1) or source
+    ih (pass 2). The kernel's outputs for that group must be NaN exactly
+    where the plain version's are, counts equal (pass 2: its SPH outputs;
+    its gravity softens with fminf(ih_i, ih_j), which drops a NaN ih, as
+    the kernels' gravity did before). Returns a message or None."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    nv, tgt, src = a
+    g, s = src[0].shape
+    b = kw["b"]
+    m_row = src[3] if name == "pass1_gradh" else src[4]
+    live = (torch.arange(s, device=nv.device)[None, :]
+            < nv[:, None]) & (m_row != 0.0)
+    gi = int(torch.nonzero(live.sum(dim=1) > 1)[0])
+    j = int(torch.nonzero(live[gi])[-1])
+    tgt, src = list(tgt), list(src)
+    row = 0 if name == "pass1_gradh" else 3
+    tgt[3], src[row] = tgt[3].clone(), src[row].clone()
+    tgt[3][gi * b + min(1, b - 1)] = float("nan")
+    src[row][gi, j] = float("nan")
+    a = (nv, type(a[1])(tgt), type(a[2])(src))
+    out = getattr(gk2, name)(*a, **kw)
+    out = out if isinstance(out, tuple) else (out,)
+    sa, skw = slice_args(a, kw, gi, gi + 1)
+    ref = getattr(gk2, name + "_plain")(*sa, **skw)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    n_sph = len(ref) if name == "pass1_gradh" else len(
+        pass2_tol(dict(kw, grav=False)))
+    for k, (o, r) in enumerate(zip(out[:n_sph], ref[:n_sph])):
+        o = o[gi * b:(gi + 1) * b]
+        if not r.is_floating_point():
+            if not torch.equal(o, r):
+                return f"output {k}: counts differ with NaN inputs"
+        elif not torch.equal(torch.isnan(o), torch.isnan(r)):
+            return (f"output {k}: NaN at {int(torch.isnan(o).sum())} "
+                    f"targets, the plain version at "
+                    f"{int(torch.isnan(r).sum())}")
+    if not bool(torch.isnan(ref[0]).any()):
+        return "the planted NaN reached no output of the plain version"
+    return None
+
+
+def check_one(name, case, a, kw, ptxas=None, parent_libs=None):
+    """One kernel call against its plain version, timed: the report.
+    `ptxas`: the build's instances by (kernel, template arguments);
+    `parent_libs`: {kernel: library} of another checkout's build, timed in
+    turns with this one's."""
     import torch
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
     wrapper = getattr(gk2, name)
@@ -1144,7 +1310,35 @@ def check_one(name, case, a, kw):
     ref = plain_sliced(name, a, kw)
     torch.cuda.synchronize()
     ok, err, msgs = compare(name, out, ref, kw)
+    extra = {}
+    if name in COMPACTED:
+        again = wrapper(*a, **kw)
+        torch.cuda.synchronize()
+        extra["same_bits"] = same_bits(out, again)
+        if not extra["same_bits"]:
+            ok = False
+            msgs.append("two launches on the same inputs differ")
+        del again
+        nan_msg = nan_agreement(name, a, kw)
+        extra["nan_agrees"] = nan_msg is None
+        if nan_msg:
+            ok = False
+            msgs.append(f"planted NaNs: {nan_msg}")
+        extra["shares"] = window_shares(name, a, kw)
+        extra["ptxas"] = (ptxas or {}).get(instance_key(name, kw))
     ms = cuda_ms(lambda: wrapper(*a, **kw), KERNEL_REPS)
+    if parent_libs and name in parent_libs:
+        # the parent's kernel and this one in turns: parent, this, this,
+        # parent, on the same inputs through the same wrapper
+        from planetmodel_sph_tpu_torch.ops.cuda import build
+        turns = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            with (build.library(name, parent_libs[name]) if who == "parent"
+                  else contextlib.nullcontext()):
+                turns[who].append(cuda_ms(lambda: wrapper(*a, **kw),
+                                          KERNEL_REPS))
+        extra["parent_ms"], extra["ms_in_turns"] = turns["parent"], \
+            turns["this"]
     plain_ms = cuda_ms(lambda: plain_sliced(name, a, kw), PLAIN_REPS)
     b_ms, b_by, nbytes, ops = bound(name, a, kw, out)
     shapes = {"groups": n_groups(a), "b": kw["b"],
@@ -1160,20 +1354,39 @@ def check_one(name, case, a, kw):
     print(f"kernel {label}: {'ok' if ok else 'MISMATCH'} "
           f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={b_ms:.4f} ({b_by}) shapes={shapes}", flush=True)
+    if extra:
+        sh, px = extra["shares"], extra["ptxas"] or {}
+        p2p = (f", P2P window live {sh['p2p_live_share']:.4f}"
+               if "p2p_live_share" in sh else "")
+        print(f"  {label}: live {sh['live_share']:.4f} of "
+              f"{sh['slots_below_nv']} slots below nv{p2p}, inside the "
+              f"support {sh['inside_share']:.4f} of {sh['live_pairs']} live "
+              f"pairs; {px.get('regs')} registers, {px.get('smem')} B "
+              f"shared, spills {px.get('spill_stores')}/"
+              f"{px.get('spill_loads')} B; two launches "
+              f"{'bit-identical' if extra['same_bits'] else 'DIFFER'}"
+              f"; planted NaNs {'agree' if extra['nan_agrees'] else 'DIFFER'}",
+              flush=True)
+    if "parent_ms" in extra:
+        p, t = extra["parent_ms"], extra["ms_in_turns"]
+        print(f"  {label}: in turns, parent {p[0]:.4f}, this {t[0]:.4f}, "
+              f"this {t[1]:.4f}, parent {p[1]:.4f} ms "
+              f"({sum(p) / sum(t):.2f}x)", flush=True)
     for m in msgs:
         print(f"  {label}: {m}", flush=True)
     del out, ref
     torch.cuda.empty_cache()
     return dict(name=name, case=case, ok=ok, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, ops=ops, shapes=shapes, messages=msgs)
+                bytes=nbytes, ops=ops, shapes=shapes, messages=msgs,
+                **extra)
 
 
 # the production path's case of the kernels that have several
 MAIN_CASE = {"pass2": "grad_h+merged", "gravity_fused": "far_only"}
 
 
-def check_kernels(seen):
+def check_kernels(seen, ptxas=None, parent_libs=None):
     """Phase 4 on the production path's inputs: each kernel against its
     plain version, timed. Returns ({name: report}, failures)."""
     reports, failures = {}, []
@@ -1182,18 +1395,19 @@ def check_kernels(seen):
             failures.append(f"{name}: not called while recording inputs")
             continue
         a, kw = seen[name]
-        reports[name] = check_one(name, MAIN_CASE.get(name, ""), a, kw)
+        reports[name] = check_one(name, MAIN_CASE.get(name, ""), a, kw,
+                                  ptxas, parent_libs)
         if not reports[name]["ok"]:
             failures.append(f"{name}: disagrees with its plain version")
     return reports, failures
 
 
-def check_modes(cases):
+def check_modes(cases, ptxas=None, parent_libs=None):
     """Phase 4 for every other mode of the windowed kernels. Returns
     ([report], failures)."""
     reports, failures = [], []
     for name, case, legs, a, kw in cases:
-        rep = check_one(name, case, a, kw)
+        rep = check_one(name, case, a, kw, ptxas, parent_libs)
         rep["legs"] = list(legs)
         reports.append(rep)
         if not rep["ok"]:
@@ -1208,6 +1422,7 @@ def check_modes(cases):
             ("pass2", "symmetric+fused+receiver_h"),
             ("pass2", "grad_h+av+merged"),
             ("pass2", "grad_h+av+balsara+merged"),
+            ("pass2", "grad_h+av+balsara+energy+merged"),
             ("gravity_fused", "far_only@sym100k"),
             ("gravity_fused", "far_only@settle100k"),
             ("gravity_fused", "near+min_h"),
@@ -1499,6 +1714,93 @@ def state_agreement(a, b, rtol=2e-5, atol=1e-6):
     return ok, errs
 
 
+def agreement_ratios(a, b, rtol=2e-5, atol=1e-6):
+    """Field by field, the largest |a - b| over state_agreement's limit
+    for b (1 is the limit; integers: the largest |a - b|)."""
+    from planetmodel_sph_tpu_torch.state import FIELDS
+    out = {}
+    for k in FIELDS:
+        x, y = getattr(a, k).double(), getattr(b, k).double()
+        d = (x - y).abs()
+        if getattr(b, k).is_floating_point():
+            d = d / (atol + rtol * y.abs())
+        out[k] = float(d.max())
+    return out
+
+
+def _tree_run(tree, args, timeout=900):
+    """`python -m planetmodel_sph_tpu_torch.<args>` in `tree`'s checkout
+    (its own package and state file), in a process of its own: stdout."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-m", *args], cwd=tree, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise RuntimeError(f"{' '.join(args)} in {tree} exited "
+                           f"{r.returncode}: {r.stderr[-2000:]}")
+    return r.stdout
+
+
+def parent_phase(parent, state, cfg):
+    """Phase 7, with --parent DIR: the production step from DIR's
+    checkout and from this one in turns, each whole (its kernels, its
+    Python): `bench --repeat 3` in the order parent, this, this, parent,
+    the first of each with --profile (busy time, idle share); then each
+    checkout's sorted and unsorted chunks (the CLI's 64 steps of the
+    settled state, restored from npz checkpoints that differ only in
+    sorted_chunks) against each other, as phase 5f holds them. Returns
+    (report, failures)."""
+    from planetmodel_sph_tpu_torch.utils import checkpoint
+    trees = {"parent": os.path.abspath(parent), "this": ROOT}
+    rep, failures = {"steps": [], "unsorted": {}}, []
+    for k, who in enumerate(("parent", "this", "this", "parent")):
+        out = _tree_run(trees[who], ["planetmodel_sph_tpu_torch.bench",
+                                     "--repeat", "3"]
+                        + (["--profile"] if k < 2 else []))
+        for ln in out.splitlines():
+            if ln.startswith("{"):
+                r = json.loads(ln)
+                row = dict(tree=who, steps_per_s=r["steps_per_sec"],
+                           overflow=r["overflow"],
+                           device_busy_s=r.get("device_busy_s"),
+                           device_idle_share=r.get("device_idle_share"),
+                           device_s_by_kernel=r.get("device_s_by_kernel"))
+                rep["steps"].append(row)
+                busy = (f" (profiled: busy {row['device_busy_s']:.5f} s, "
+                        f"idle {row['device_idle_share']:.4f})"
+                        if r.get("profiled") else "")
+                print(f"  production step, {who}: {r['steps_per_sec']:.3f} "
+                      f"steps/s{busy}", flush=True)
+    work = os.path.join(OUT_DIR, "parent_phase")
+    os.makedirs(work, exist_ok=True)
+    starts = {}
+    for sorted_ in (True, False):
+        starts[sorted_] = os.path.join(work, f"start_sorted{int(sorted_)}"
+                                       ".npz")
+        checkpoint.save(starts[sorted_], state,
+                        cfg.replace(sorted_chunks=sorted_), 0)
+    for who, tree in trees.items():
+        ends = {}
+        for sorted_, start in starts.items():
+            ends[sorted_] = os.path.join(work, f"end_{who}_sorted"
+                                         f"{int(sorted_)}.npz")
+            _tree_run(tree, ["planetmodel_sph_tpu_torch.cli", "run",
+                             "--device", "cuda", "--restore", start,
+                             "--steps", str(STEPS), "--diag-every",
+                             str(STEPS), "--checkpoint", ends[sorted_]])
+        a, _, _ = checkpoint.load(ends[False], device="cpu")
+        b, _, _ = checkpoint.load(ends[True], device="cpu")
+        ratios = agreement_ratios(a, b)
+        rep["unsorted"][who] = ratios
+        worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:3]
+        print(f"  unsorted against sorted, {who}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in worst) + " of the limit", flush=True)
+    if max(rep["unsorted"]["this"].values()) > 1.0:
+        failures.append("parent phase: this checkout's unsorted chunks "
+                        "leave the sorted run's tolerance")
+    return rep, failures
+
+
 def slice5_legs(cfg, state, main_out, exact_state):
     """Phase 5f: `exact100k` (particle-exact SPH lists), `unsorted100k`
     (the production step with sorted_chunks=False, held against the main
@@ -1516,12 +1818,15 @@ def slice5_legs(cfg, state, main_out, exact_state):
                                expected_launches(ucfg, UNSORTED_STEPS),
                                "conserved")
     ok, errs = state_agreement(uout, main_out)
-    rep.update(agrees_with_sorted=ok, max_abs_diff_to_sorted=errs)
+    ratios = agreement_ratios(uout, main_out)
+    rep.update(agrees_with_sorted=ok, max_abs_diff_to_sorted=errs,
+               ratio_to_limit=ratios)
+    worst = max(ratios, key=ratios.get)
     print(f"  unsorted100k against the sorted main path (rtol 2e-5, atol "
           f"1e-6, counts equal): {'ok' if ok else 'MISMATCH'}; max |diff| "
           f"pos {errs['pos']:.3e} vel {errs['vel']:.3e} rho "
-          f"{errs['rho']:.3e} n_neighbors {errs['n_neighbors']:.0f}",
-          flush=True)
+          f"{errs['rho']:.3e} n_neighbors {errs['n_neighbors']:.0f}; "
+          f"worst {worst} at {ratios[worst]:.4f} of the limit", flush=True)
     if not ok:
         failures.append(f"unsorted100k: state differs from the sorted run: "
                         f"{errs}")
@@ -1919,7 +2224,16 @@ def probe_entry(name, source, replaces, probe_reports, launches):
     return entry
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="a checkout of another commit (e.g. unpacked with "
+                    "git archive into a git-ignored directory): its "
+                    "pass1_gradh and pass2 are timed in turns with this "
+                    "one's in phase 4, and phase 7 compares the two "
+                    "checkouts' production steps")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1978,6 +2292,31 @@ def main() -> int:
               "spills", flush=True)
         for ln in spills:
             print(f"    {ln}", flush=True)
+    parent_libs = None
+    if args.parent:
+        # the other checkout's two sweeps, built into its own directory
+        pkg = os.path.join(os.path.abspath(args.parent),
+                           "planetmodel_sph_tpu_torch")
+        pout = os.path.join(pkg, "build")
+        t0 = time.perf_counter()
+        try:
+            build.build_all(COMPACTED, force=True,
+                            src=os.path.join(pkg, "csrc"), out=pout)
+        except RuntimeError as e:
+            return fail(f"the parent's kernels: {e}")
+        parent_libs = {n: build.lib_path(n, pout) for n in COMPACTED}
+        print(f"build of the parent's {', '.join(COMPACTED)}: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas = {}
+    for n in COMPACTED:
+        # every instance of the compacted sweeps, by template arguments
+        for inst in ptxas_instances(logs[n][1]):
+            ptxas[(n, inst["args"])] = inst
+            print(f"  ptxas {n}{list(inst['args']) if inst['args'] else ''}"
+                  f": {inst['regs']} registers, {inst['smem']} B shared, "
+                  f"{inst['stack']} B stack, spills {inst['spill_stores']}/"
+                  f"{inst['spill_loads']} B", flush=True)
+    report["ptxas"] = [dict(name=k[0], **v) for k, v in ptxas.items()]
 
     # 3. load
     t0 = time.perf_counter()
@@ -1989,7 +2328,7 @@ def main() -> int:
     # 4. kernels against their plain versions
     seen = capture_inputs(state, cfg)
     torch.cuda.synchronize()
-    kreports, failures = check_kernels(seen)
+    kreports, failures = check_kernels(seen, ptxas, parent_libs)
     del seen
     torch.cuda.empty_cache()
     # the settle phase's start: a raw polytrope at the same n, primed
@@ -2024,7 +2363,7 @@ def main() -> int:
     mode_reports, fails = check_modes(itertools.chain(
         mode_cases(state, cfg, sym_state, settle_state, settle_cfg),
         energy_cases(cfg, adia_state, sg_state, basalt_cfg, basalt_state),
-        exact_cases(cfg, exact_state)))
+        exact_cases(cfg, exact_state)), ptxas, parent_libs)
     failures += fails
     report["kernel_modes"] = mode_reports
     torch.cuda.empty_cache()
@@ -2182,6 +2521,11 @@ def main() -> int:
           f"{'ok' if dsmall['ok'] else 'MISMATCH'}", flush=True)
     if not dsmall["ok"]:
         failures.append("card and CPU disagree on the dense small input")
+
+    # 7. with --parent: the two checkouts' production steps
+    if args.parent:
+        report["parent"], fails = parent_phase(args.parent, state, cfg)
+        failures += fails
 
     report["total_s"] = time.perf_counter() - t_all
     report["failures"] = failures

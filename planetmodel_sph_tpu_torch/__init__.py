@@ -10,7 +10,7 @@ versions run instead.
 
 from . import config, state  # noqa: F401
 from .config import (  # noqa: F401
-    SimConfig, default, jupiter_3k, jupiter_100k,
+    SimConfig, auto, basalt_impact, default, jupiter_3k, jupiter_100k, parity,
 )
 from .state import ParticleState  # noqa: F401
 

@@ -8,6 +8,7 @@
 // pair is included; callers correct it.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 // source slots staged in shared memory per sweep step
@@ -79,4 +80,148 @@ __device__ __forceinline__ void psph_p2p_window(
     }
     __syncthreads();
   }
+}
+
+// Staging of the source windows of the two grad-h sweeps (pass1_gradh.cu,
+// pass2.cu): double-buffered asynchronous copies of window tiles into
+// shared memory, and the block-wide compaction of the live slots.
+//
+// A block of these sweeps runs b targets times ns slot slices
+// (b * ns <= PSPH_WIN_THREADS threads): thread t serves target t % b and
+// slice t / b, and slice k visits the compacted slots k, k + ns, ... of
+// every tile. Each thread keeps its slice's sums in registers; the
+// slices are added in a fixed order at the end (psph_combine), so the
+// same inputs give the same bits on every run.
+#define PSPH_WIN_THREADS 256
+
+// Start the asynchronous copy of slots [off, off + cnt) of NR rows into
+// dst[r][0, cnt): 16 bytes a copy where `vec` (every row pointer 16-byte
+// aligned and the row length a multiple of 4, so every tile start is
+// aligned), 4 bytes for the rest. Every thread commits once per call, so
+// that a wait counts tiles.
+template <int NR>
+__device__ __forceinline__ void psph_stage(float (*dst)[PSPH_TILE],
+                                           const float* const (&rows)[NR],
+                                           size_t off, int cnt, bool vec) {
+  const int nt = blockDim.x;
+  const int quads = vec ? cnt >> 2 : 0;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    for (int q = threadIdx.x; q < quads; q += nt)
+      __pipeline_memcpy_async(&dst[r][q << 2], rows[r] + off + (q << 2),
+                              16);
+    for (int j = (quads << 2) + threadIdx.x; j < cnt; j += nt)
+      __pipeline_memcpy_async(&dst[r][j], rows[r] + off + j, 4);
+  }
+  __pipeline_commit();
+}
+
+// Stable compaction of the staged slots [0, cnt) whose mass mrow[j] is
+// not 0 (padding and duplicates carry m = 0 and add exactly 0 to every
+// sum): put(j, k) stores slot j at compacted position k, k counting the
+// kept slots before j. Returns the number kept and adds the number with
+// m > 0 to npos, the same in every thread. Every thread of the block
+// calls it; it ends with a barrier, after which the compacted slots are
+// visible to the whole block. wtab: 64 ints of shared memory.
+template <typename Put>
+__device__ __forceinline__ int psph_compact(const float* mrow, int cnt,
+                                            int* wtab, int& npos, Put put) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  const int here = blockDim.x - (warp << 5);        // threads of this warp
+  const unsigned mask = here >= 32 ? 0xffffffffu : (1u << here) - 1u;
+  const unsigned below = (1u << lane) - 1u;
+  int kept = 0;
+  for (int base = 0; base < cnt; base += blockDim.x) {
+    const int j = base + tid;
+    const float m = j < cnt ? mrow[j] : 0.0f;
+    const unsigned live = __ballot_sync(mask, m != 0.0f);
+    const unsigned pos = __ballot_sync(mask, m > 0.0f);
+    if (lane == 0) {
+      wtab[warp] = __popc(live);
+      wtab[32 + warp] = __popc(pos);
+    }
+    __syncthreads();
+    int at = kept + __popc(live & below), all = 0, all_pos = 0;
+    for (int w = 0; w < nw; ++w) {
+      const int c = wtab[w];
+      at += w < warp ? c : 0;
+      all += c;
+      all_pos += wtab[32 + w];
+    }
+    if (m != 0.0f) put(j, at);
+    kept += all;
+    npos += all_pos;
+    __syncthreads();
+  }
+  return kept;
+}
+
+// Sweep the first n slots of NR window rows starting at `row`, one tile of
+// PSPH_TILE slots at a time: the copy of tile t + 1 is in flight while
+// tile(staged, cnt) compacts and sweeps tile t from raw[t & 1]. Every
+// thread of the block calls it.
+template <int NR, typename Tile>
+__device__ __forceinline__ void psph_window(const float* const (&rows)[NR],
+                                            size_t row, int n, bool vec,
+                                            float (*raw)[NR][PSPH_TILE],
+                                            Tile tile) {
+  const int tiles = (n + PSPH_TILE - 1) / PSPH_TILE;
+  if (tiles > 0) psph_stage<NR>(raw[0], rows, row, min(PSPH_TILE, n), vec);
+  for (int t = 0; t < tiles; ++t) {
+    const int next = (t + 1) * PSPH_TILE;
+    if (t + 1 < tiles) {
+      psph_stage<NR>(raw[(t + 1) & 1], rows, row + next,
+                     min(PSPH_TILE, n - next), vec);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    tile(raw[t & 1], min(PSPH_TILE, n - t * PSPH_TILE));
+    __syncthreads();
+  }
+}
+
+// Add the ns slices' sums of each target in slice order into slice 0's
+// registers, through `red` (at least N * blockDim.x values of shared
+// memory that no thread still reads). Every thread calls it; afterwards
+// the threads of slice 0 hold the totals.
+template <typename T, int N>
+__device__ __forceinline__ void psph_combine(T (&acc)[N], T* red, int b,
+                                             int ns) {
+  if (ns == 1) return;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < N; ++q) red[q * nt + tid] = acc[q];
+  __syncthreads();
+  if (tid < b) {
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      for (int k = 1; k < ns; ++k) acc[q] += red[q * nt + k * b + tid];
+  }
+}
+
+// Slot slices a group's window is split into (a power of 2): with 4 both
+// windowed sweeps ran faster than with 2 on the H100 (PERF.md).
+#define PSPH_SLICES 4
+
+// Slot slices for a group of b targets: PSPH_SLICES, halved until the
+// block fits PSPH_WIN_THREADS; 0 when b does not fit at all.
+static inline int psph_slices(int b) {
+  if (b < 1 || b > PSPH_WIN_THREADS) return 0;
+  int ns = PSPH_SLICES;
+  while (ns > 1 && b * ns > PSPH_WIN_THREADS) ns >>= 1;
+  return ns;
+}
+
+// True when every row pointer is 16-byte aligned and rows of length s
+// keep every tile start aligned (s a multiple of 4): psph_stage may copy
+// 16 bytes at a time.
+static inline bool psph_vec_rows(const float* const* rows, int nr, int s) {
+  if (s % 4 != 0) return false;
+  for (int r = 0; r < nr; ++r)
+    if (rows[r] != nullptr && ((size_t)rows[r] & 15) != 0) return false;
+  return true;
 }

@@ -8,74 +8,96 @@
 //   xi_i  = -(1/pi h_i^4) sum_j m_j (3 Wpoly + q dWpoly/dq)
 //   nn_i  = #{j : q < 2, m_j > 0}                (self pair included)
 //
-// Bound on the H100: about 30 f32 operations per pair against 16 bytes of
-// source row per slot shared by the group's 64 targets, so pair arithmetic
-// bounds it, not memory. Design: one thread block per target group, one
-// thread per target; the group's source slots are staged PSPH_TILE at a
-// time in shared memory (each slot read from device memory once per
-// group) and every thread sweeps them from shared memory with its sums in
-// registers. The loop stops at nv, so padding slots cost nothing. q comes
-// from sqrtf(r2) * ih, as in the reference's pass 1. The library is built
-// with -fmad=false so r2 rounds as the plain version's separate ops do and
-// the q < 2 count matches it exactly.
+// Bound on the H100: f32 operations. Every live pair costs its geometry
+// (11 operations) and only the few per cent inside the support the spline
+// (about 30); the window's 16 bytes a slot are read once per group and
+// shared by its targets. What held the first design back: every slot below
+// nv took the square root and the spline, dead slots (m = 0) and pairs far
+// outside the support alike; one block of 64 threads per group left the
+// card half occupied in one ragged wave, each thread walking the whole
+// window alone; and each tile was loaded synchronously before its sweep.
+// This design (common.cuh, psph_window):
+// - tiles of PSPH_TILE slots are copied asynchronously (cp.async, 16 bytes
+//   a copy), the copy of tile t + 1 in flight while tile t is swept;
+// - each staged tile is compacted to its live slots (m != 0) with a
+//   ballot per warp, and only those are visited;
+// - a pair with (r2 ih) ih > PSPH_Q2_SKIP is skipped before the square
+//   root: PSPH_Q2_SKIP = 4 (1 + 2^-12) lies far above the rounding of
+//   either product, so a skipped pair has sqrtf(r2) ih >= 2 and adds
+//   nothing to rho, xi or the count; the test is false for NaN and for
+//   ih <= 0, so those pairs are evaluated as before;
+// - every other pair takes q = sqrtf(r2) ih exactly as the plain version
+//   does (the library is built with -fmad=false, so r2 rounds as its
+//   separate operations do and the q < 2 count matches it exactly) and
+//   the spline by select, not branch;
+// - 64 targets x 4 slot slices = 256 threads a group; the slices' sums are
+//   added in slice order at the end, with no atomics, so the result is
+//   the same on every run.
 #include "common.cuh"
 
-__global__ void pass1_gradh_kernel(
+// 4 (1 + 2^-12): r2 ih^2 above this means sqrtf(r2) ih >= 2 in f32
+#define PSPH_Q2_SKIP 4.0009765625f
+
+__global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_gradh_kernel(
     const float* __restrict__ tx, const float* __restrict__ ty,
     const float* __restrict__ tz, const float* __restrict__ tih,
     const float* __restrict__ sx, const float* __restrict__ sy,
     const float* __restrict__ sz, const float* __restrict__ sm,
     const int* __restrict__ nv, float* __restrict__ rho,
-    int* __restrict__ nn, float* __restrict__ xi, int b, int s) {
-  __shared__ float cx[PSPH_TILE], cy[PSPH_TILE], cz[PSPH_TILE],
-      cm[PSPH_TILE];
+    int* __restrict__ nn, float* __restrict__ xi, int b, int s, int ns,
+    int vec) {
+  __shared__ __align__(16) float raw[2][4][PSPH_TILE];
+  __shared__ __align__(16) float4 comp[PSPH_TILE];
+  __shared__ int wtab[64];
   const int g = blockIdx.x;
-  const int i = threadIdx.x;
+  const int i = threadIdx.x % b, k = threadIdx.x / b;
   const size_t t = (size_t)g * b + i;
-  const size_t row = (size_t)g * s;
   const float x = tx[t], y = ty[t], z = tz[t], ih = tih[t];
+  const float ih_skip = ih > 0.0f ? ih : 0.0f;
   const int n = min(nv[g], s);
-  float s_rho = 0.0f, s_xi = 0.0f;
-  int s_nn = 0;
-  for (int base = 0; base < n; base += PSPH_TILE) {
-    const int cnt = min(PSPH_TILE, n - base);
-    for (int j = i; j < cnt; j += blockDim.x) {
-      cx[j] = sx[row + base + j];
-      cy[j] = sy[row + base + j];
-      cz[j] = sz[row + base + j];
-      cm[j] = sm[row + base + j];
-    }
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      const float dxx = x - cx[j];
-      const float dxy = y - cy[j];
-      const float dxz = z - cz[j];
+  const float* const rows[4] = {sx, sy, sz, sm};
+  float acc[2] = {0.0f, 0.0f};     // sum m Wpoly, sum m (3 Wpoly + q Wpoly')
+  int cnt[1] = {0};
+  int npos = 0;
+  psph_window<4>(rows, (size_t)g * s, n, vec != 0, raw,
+                 [&](float (*st)[PSPH_TILE], int c) {
+    const int live = psph_compact(st[3], c, wtab, npos, [&](int j, int at) {
+      comp[at] = make_float4(st[0][j], st[1][j], st[2][j], st[3][j]);
+    });
+#pragma unroll 4
+    for (int j = k; j < live; j += ns) {
+      const float4 p = comp[j];
+      const float dxx = x - p.x;
+      const float dxy = y - p.y;
+      const float dxz = z - p.z;
       const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
-      const float m = cm[j];
-      const float q = sqrtf(r2) * ih;
-      const float q2 = q * q;
-      const float q3 = q2 * q;
-      const float inner = 1.0f - 1.5f * q2 + 0.75f * q3;
-      const float tt = 2.0f - q;
-      const float tsq = tt * tt;
-      float wpoly = 0.0f, dhpoly = 0.0f;
-      if (q < 1.0f) {
-        wpoly = inner;
-        dhpoly = 3.0f * inner - 3.0f * q2 + 2.25f * q3;
-      } else if (q < 2.0f) {
-        wpoly = 0.25f * tsq * tt;
-        dhpoly = 0.75f * tsq * (tt - q);
+      if (!((r2 * ih_skip) * ih_skip > PSPH_Q2_SKIP)) {
+        const float q = sqrtf(r2) * ih;
+        const float q2 = q * q;
+        const float q3 = q2 * q;
+        const float inner = 1.0f - 1.5f * q2 + 0.75f * q3;
+        const float tt = 2.0f - q;
+        const float tsq = tt * tt;
+        const bool in1 = q < 1.0f, in2 = q < 2.0f;
+        const float wpoly =
+            in1 ? inner : (in2 ? 0.25f * tsq * tt : 0.0f);
+        const float dhpoly =
+            in1 ? 3.0f * inner - 3.0f * q2 + 2.25f * q3
+                : (in2 ? 0.75f * tsq * (tt - q) : 0.0f);
+        acc[0] += p.w * wpoly;
+        acc[1] += p.w * dhpoly;
+        cnt[0] += (in2 && p.w > 0.0f) ? 1 : 0;
       }
-      s_rho += m * wpoly;
-      s_xi += m * dhpoly;
-      s_nn += (q < 2.0f && m > 0.0f) ? 1 : 0;
     }
-    __syncthreads();
+  });
+  psph_combine(acc, &raw[0][0][0], b, ns);
+  psph_combine(cnt, reinterpret_cast<int*>(&raw[1][0][0]), b, ns);
+  if (k == 0) {
+    const float ci3 = PSPH_INV_PI * (ih * ih * ih);
+    rho[t] = ci3 * acc[0];
+    xi[t] = -(ci3 * ih) * acc[1];
+    nn[t] = cnt[0];
   }
-  const float ci3 = PSPH_INV_PI * (ih * ih * ih);
-  rho[t] = ci3 * s_rho;
-  xi[t] = -(ci3 * ih) * s_xi;
-  nn[t] = s_nn;
 }
 
 extern "C" int psph_pass1_gradh(
@@ -83,8 +105,12 @@ extern "C" int psph_pass1_gradh(
     const float* sx, const float* sy, const float* sz, const float* sm,
     const int* nv, float* rho, int* nn, float* xi, int g, int b, int s,
     void* stream) {
+  const int ns = psph_slices(b);
+  if (g > 0 && ns == 0) return (int)cudaErrorInvalidValue;
+  const float* rows[4] = {sx, sy, sz, sm};
+  const int vec = psph_vec_rows(rows, 4, s) ? 1 : 0;
   if (g > 0)
-    pass1_gradh_kernel<<<g, b, 0, (cudaStream_t)stream>>>(
-        tx, ty, tz, tih, sx, sy, sz, sm, nv, rho, nn, xi, b, s);
+    pass1_gradh_kernel<<<g, b * ns, 0, (cudaStream_t)stream>>>(
+        tx, ty, tz, tih, sx, sy, sz, sm, nv, rho, nn, xi, b, s, ns, vec);
   return (int)cudaGetLastError();
 }

@@ -39,15 +39,38 @@
 // The kernel visits only the slots below nv, so a slot past the window
 // never reaches the divisions of the viscosity term.
 //
-// Bound on the H100: 60 to 160 f32 operations per SPH slot, by the flags,
-// and 30 per P2P slot for each of the group's 64 targets, against 24 to 52
-// bytes of source row per slot read once per group: pair arithmetic bounds
-// it. Design: one thread block per target group, one thread per target,
-// source slots staged PSPH_TILE at a time in shared memory, sums in
-// registers, loops that stop at nv and nv2. The flags are template
-// parameters: each combination is its own kernel with only its rows staged
-// and only its sums kept in registers. r and 1/r come from one
-// rsqrtf(max(r2, 1e-30)) per pair.
+// Bound on the H100: f32 operations. Every live pair of both windows
+// costs its geometry and, with gravity, its Dyer-Ip term (about 40
+// operations); only the few per cent of SPH pairs inside either support
+// add the pressure, viscosity and energy terms (60 to 120 more). The rows
+// (24 to 52 bytes a slot) are read once per group and shared by its 64
+// targets. What held the first design back: every slot below nv took both
+// kernel gradients, the coefficient and the viscosity's division, dead
+// slots (m = 0) and pairs outside both supports alike; one block of 64
+// threads per group left the card half occupied in one ragged wave, each
+// thread walking up to 2,560 SPH and 3,584 P2P slots alone; and each tile
+// was loaded synchronously before its sweep. This design (common.cuh,
+// psph_window):
+// - tiles of PSPH_TILE slots are copied asynchronously (cp.async, 16 bytes
+//   a copy), the copy of tile t + 1 in flight while tile t is swept;
+// - each staged tile is compacted to its live slots (m != 0) with a
+//   ballot per warp, into a slot-major layout of float4s (x, y, z, m),
+//   (ih, cc, vx, vy), (vz, h, cs, rho), (f): two 16-byte shared loads a
+//   pair outside the support, all of them inside;
+// - per live pair the geometry and one rsqrtf(fmaxf(r2, 1e-30f)) as
+//   before, the Dyer-Ip term with gravity, and the SPH block only when
+//   r ih_i < 2 or r ih_j < 2, or either product is NaN: outside it both
+//   gw are 0, and with them every pressure, viscosity, Balsara and energy
+//   term; a NaN reaches the outputs as in the plain version;
+// - the count of m > 0 slots (n_direct) comes from the compaction, once
+//   per group;
+// - the merged residual-P2P window goes through the same staging,
+//   compaction and slices, in its own loop;
+// - 64 targets x 4 slot slices = 256 threads a group; the slices' sums are
+//   added in slice order at the end, with no atomics, so the result is
+//   the same on every run.
+// The flags are template parameters: each combination is its own kernel
+// with only its rows staged and only its sums kept in registers.
 #include "common.cuh"
 
 enum { MODE_GRADH = 0, MODE_ASYM = 1, MODE_SYM = 2 };
@@ -88,16 +111,40 @@ struct Pass2Args {
   int* nd;
   int b, s_w, s2;
   float av_alpha, av_beta, g_const;
+  int ns;        // slot slices (psph_slices)
+  int vec, vec2;  // the SPH and P2P rows take 16-byte copies
 };
+
+// The compacted slots are float4s: (x, y, z, m), (ih, cc, vx, vy),
+// (vz, h, cs, rho), (f). row_of(c): the staged row of position c, the
+// staging order with m and ih swapped.
+__device__ __forceinline__ constexpr int row_of(int c) {
+  return c == R_IH ? R_M : c == R_M ? R_IH : c;
+}
 
 template <int MODE, bool SIGN_BUG, bool AV, bool BALSARA, int GRAV,
           bool RECV, bool ENERGY>
-__global__ void pass2_kernel(const Pass2Args a) {
+__global__ void __launch_bounds__(PSPH_WIN_THREADS)
+    pass2_kernel(const Pass2Args a) {
   constexpr bool VEL = AV || ENERGY;
   constexpr int NROWS = 6 + (AV ? 6 : (ENERGY ? 3 : 0)) + (BALSARA ? 1 : 0);
-  __shared__ float c[NROWS][PSPH_TILE];
+  constexpr int NQ = (NROWS + 3) / 4;
+  // the sums: grad P, then the viscosity, div/curl, du and gravity blocks
+  constexpr int I_AV = 3;
+  constexpr int I_DC = I_AV + (AV ? 3 : 0);
+  constexpr int I_DU = I_DC + (BALSARA ? 4 : 0);
+  constexpr int I_GR = I_DU + (ENERGY ? 1 : 0);
+  constexpr int NSUM = I_GR + (GRAV != GRAV_NONE ? 4 : 0);
+  static_assert(NSUM * PSPH_WIN_THREADS <= 2 * NROWS * PSPH_TILE,
+                "the slices' sums are combined in the staging buffer");
+  constexpr int NP = RECV ? 4 : 5;   // residual-P2P rows: x, y, z, [ih,] m
+  __shared__ __align__(16) float raw[2][NROWS][PSPH_TILE];
+  __shared__ __align__(16) float4 comp[NQ][PSPH_TILE];
+  __shared__ int wtab[64];
   const int g = blockIdx.x;
-  const int i = threadIdx.x;
+  const int i = threadIdx.x % a.b, k = threadIdx.x / a.b;
+  const int ns = a.ns;
+  const float av_alpha = a.av_alpha, av_beta = a.av_beta;
   const size_t t = (size_t)g * a.b + i;
   const float x = a.t[0][t], y = a.t[1][t], z = a.t[2][t], ih = a.t[3][t];
   float tcv = 0.0f;
@@ -109,123 +156,162 @@ __global__ void pass2_kernel(const Pass2Args a) {
   if (BALSARA) tfb = a.tfb[t];
   float tih4 = ih * ih;
   tih4 = tih4 * tih4;
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  float vax = 0.0f, vay = 0.0f, vaz = 0.0f;
-  float dv = 0.0f, cvx = 0.0f, cvy = 0.0f, cvz = 0.0f;
-  float du = 0.0f;
-  float phi = 0.0f, gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  float acc[NSUM];
+#pragma unroll
+  for (int q = 0; q < NSUM; ++q) acc[q] = 0.0f;
   int nd = 0;
 
-  const size_t row = (size_t)g * a.s_w;
-  const int n = min(a.nv[g], a.s_w);
-  for (int base = 0; base < n; base += PSPH_TILE) {
-    const int cnt = min(PSPH_TILE, n - base);
-    for (int j = i; j < cnt; j += blockDim.x) {
+  // the SPH window
+  const float* rows[NROWS];
 #pragma unroll
-      for (int k = 0; k < NROWS; ++k) c[k][j] = a.s[k][row + base + j];
-    }
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      const float dxx = x - c[R_X][j];
-      const float dxy = y - c[R_Y][j];
-      const float dxz = z - c[R_Z][j];
+  for (int r = 0; r < NROWS; ++r) rows[r] = a.s[r];
+  psph_window<NROWS>(rows, (size_t)g * a.s_w, min(a.nv[g], a.s_w),
+                     a.vec != 0, raw, [&](float (*st)[PSPH_TILE], int c) {
+    const int live = psph_compact(st[R_M], c, wtab, nd, [&](int j, int at) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = 4 * q + e;
+          v[e] = p < NROWS ? st[p < NROWS ? row_of(p) : 0][j] : 0.0f;
+        }
+        comp[q][at] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    });
+    for (int j = k; j < live; j += ns) {
+      const float4 q0 = comp[0][j];
+      const float4 q1 = comp[1][j];
+      const float dxx = x - q0.x;
+      const float dxy = y - q0.y;
+      const float dxz = z - q0.z;
       const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
-      const float m = c[R_M][j];
-      const float jh = c[R_IH][j];
+      const float m = q0.w;
+      const float jh = q1.x;
       const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
       const float r = r2 * inv_r;
-      float jh4 = jh * jh;
-      jh4 = jh4 * jh4;
-      const float q = r * ih;
-      const float qj = r * jh;
-      const float gw_i = gw_from<SIGN_BUG>(q, ih, tih4, inv_r);
-      const float gw_j = gw_from<SIGN_BUG>(qj, jh, jh4, inv_r);
-      float coef;
-      if (MODE == MODE_GRADH)
-        coef = m * (tcv * gw_i + c[R_CC][j] * gw_j);
-      else if (MODE == MODE_ASYM)
-        coef = m * c[R_CC][j] * (0.5f * (gw_i + gw_j));
-      else
-        coef = m * (tcv + c[R_CC][j]) * (0.5f * (gw_i + gw_j));
-      ax += dxx * coef;
-      ay += dxy * coef;
-      az += dxz * coef;
-      float dvx = 0.0f, dvy = 0.0f, dvz = 0.0f, vdotr = 0.0f, cav = 0.0f;
-      if (VEL) {
-        dvx = vx - c[R_VX][j];
-        dvy = vy - c[R_VY][j];
-        dvz = vz - c[R_VZ][j];
-        vdotr = dvx * dxx + dvy * dxy + dvz * dxz;
-      }
-      if (AV) {
-        const float hbar = 0.5f * (th + c[R_H][j]);
-        const float mu = hbar * vdotr / (r2 + 0.01f * hbar * hbar);
-        const float cbar = 0.5f * (tcs + c[R_CS][j]);
-        const float rhobar = 0.5f * (trho + c[R_RHO][j]);
-        float pi_ij = 0.0f;
-        if (vdotr < 0.0f)
-          pi_ij = (-a.av_alpha * cbar * mu + a.av_beta * mu * mu) / rhobar;
-        if (BALSARA) pi_ij = pi_ij * (0.5f * (tfb + c[R_FB][j]));
-        // the viscosity always takes the correct derivative
-        const float gs_av =
-            SIGN_BUG ? 0.5f * (gw_from<false>(q, ih, tih4, inv_r) +
-                               gw_from<false>(qj, jh, jh4, inv_r))
-                     : 0.5f * (gw_i + gw_j);
-        cav = m * pi_ij * gs_av;
-        vax += dxx * cav;
-        vay += dxy * cav;
-        vaz += dxz * cav;
-        if (BALSARA) {
-          const float g_dc = m * gs_av;
-          dv += g_dc * vdotr;
-          cvx += g_dc * (dvy * dxz - dvz * dxy);
-          cvy += g_dc * (dvz * dxx - dvx * dxz);
-          cvz += g_dc * (dvx * dxy - dvy * dxx);
+      if (!(r * ih >= 2.0f && r * jh >= 2.0f)) {
+        // inside the support of i or j, or a NaN in r, ih or jh: the SPH
+        // terms (r min(ih, jh) rounds as min(r ih, r jh) for r >= 0)
+        const float cc = q1.y;
+        float4 q2 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        float fb = 0.0f;
+        if (NQ > 2) q2 = comp[NQ > 2 ? 2 : 0][j];
+        if (BALSARA) fb = comp[NQ > 3 ? 3 : 0][j].x;
+        float jh4 = jh * jh;
+        jh4 = jh4 * jh4;
+        const float q = r * ih;
+        const float qj = r * jh;
+        const float gw_i = gw_from<SIGN_BUG>(q, ih, tih4, inv_r);
+        const float gw_j = gw_from<SIGN_BUG>(qj, jh, jh4, inv_r);
+        float coef;
+        if (MODE == MODE_GRADH)
+          coef = m * (tcv * gw_i + cc * gw_j);
+        else if (MODE == MODE_ASYM)
+          coef = m * cc * (0.5f * (gw_i + gw_j));
+        else
+          coef = m * (tcv + cc) * (0.5f * (gw_i + gw_j));
+        acc[0] += dxx * coef;
+        acc[1] += dxy * coef;
+        acc[2] += dxz * coef;
+        float dvx = 0.0f, dvy = 0.0f, dvz = 0.0f, vdotr = 0.0f, cav = 0.0f;
+        if (VEL) {
+          dvx = vx - q1.z;
+          dvy = vy - q1.w;
+          dvz = vz - q2.x;
+          vdotr = dvx * dxx + dvy * dxy + dvz * dxz;
+        }
+        if (AV) {
+          const float hbar = 0.5f * (th + q2.y);
+          const float mu = hbar * vdotr / (r2 + 0.01f * hbar * hbar);
+          const float cbar = 0.5f * (tcs + q2.z);
+          const float rhobar = 0.5f * (trho + q2.w);
+          float pi_ij = 0.0f;
+          if (vdotr < 0.0f)
+            pi_ij = (-av_alpha * cbar * mu + av_beta * mu * mu) / rhobar;
+          if (BALSARA) pi_ij = pi_ij * (0.5f * (tfb + fb));
+          // the viscosity always takes the correct derivative
+          const float gs_av =
+              SIGN_BUG ? 0.5f * (gw_from<false>(q, ih, tih4, inv_r) +
+                                 gw_from<false>(qj, jh, jh4, inv_r))
+                       : 0.5f * (gw_i + gw_j);
+          cav = m * pi_ij * gs_av;
+          acc[I_AV] += dxx * cav;
+          acc[I_AV + 1] += dxy * cav;
+          acc[I_AV + 2] += dxz * cav;
+          if (BALSARA) {
+            const float g_dc = m * gs_av;
+            acc[I_DC] += g_dc * vdotr;
+            acc[I_DC + 1] += g_dc * (dvy * dxz - dvz * dxy);
+            acc[I_DC + 2] += g_dc * (dvz * dxx - dvx * dxz);
+            acc[I_DC + 3] += g_dc * (dvx * dxy - dvy * dxx);
+          }
+        }
+        if (ENERGY) {
+          // conjugate energy equation on the same pair quantities: the
+          // pressure work, and half the viscous dissipation
+          float du_p = MODE == MODE_GRADH ? tcv * (m * gw_i) * vdotr
+                                          : 0.5f * coef * vdotr;
+          if (AV) du_p = du_p + 0.5f * cav * vdotr;
+          acc[I_DU] += du_p;
         }
       }
-      if (ENERGY) {
-        // conjugate energy equation on the same pair quantities: the
-        // pressure work, and half the viscous dissipation
-        float du_p = MODE == MODE_GRADH ? tcv * (m * gw_i) * vdotr
-                                        : 0.5f * coef * vdotr;
-        if (AV) du_p = du_p + 0.5f * cav * vdotr;
-        du += du_p;
-      }
-      if (GRAV != GRAV_NONE) {
-        psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r,
-                     RECV ? ih : fminf(ih, jh), phi, gx, gy, gz);
-        nd += (m > 0.0f) ? 1 : 0;
-      }
+      if (GRAV != GRAV_NONE)
+        psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r, RECV ? ih : fminf(ih, jh),
+                     acc[I_GR], acc[I_GR + 1], acc[I_GR + 2],
+                     acc[I_GR + 3]);
     }
-    __syncthreads();
+  });
+
+  // the residual-P2P window into the same gravity sums
+  if (GRAV == GRAV_MERGED) {
+    const float* prow[NP];
+    prow[0] = a.p[0];
+    prow[1] = a.p[1];
+    prow[2] = a.p[2];
+    if (!RECV) prow[3] = a.p[3];
+    prow[NP - 1] = a.p[4];
+    auto praw = reinterpret_cast<float (*)[NP][PSPH_TILE]>(&raw[0][0][0]);
+    psph_window<NP>(prow, (size_t)g * a.s2, min(a.nv2[g], a.s2),
+                    a.vec2 != 0, praw, [&](float (*st)[PSPH_TILE], int c) {
+      const int live = psph_compact(st[NP - 1], c, wtab, nd,
+                                    [&](int j, int at) {
+        comp[0][at] = make_float4(st[0][j], st[1][j], st[2][j],
+                                  st[NP - 1][j]);
+        if (!RECV) comp[1][at].x = st[RECV ? 0 : 3][j];
+      });
+      for (int j = k; j < live; j += ns) {
+        const float4 q0 = comp[0][j];
+        const float dxx = x - q0.x;
+        const float dxy = y - q0.y;
+        const float dxz = z - q0.z;
+        const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
+        const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
+        const float inv_a = RECV ? ih : fminf(ih, comp[1][j].x);
+        psph_dyer_ip(q0.w, dxx, dxy, dxz, r2, inv_r, inv_a, acc[I_GR],
+                     acc[I_GR + 1], acc[I_GR + 2], acc[I_GR + 3]);
+      }
+    });
   }
 
-  // residual-P2P window into the same gravity sums
-  if (GRAV == GRAV_MERGED)
-    psph_p2p_window<RECV>(a.p[0], a.p[1], a.p[2], a.p[3], a.p[4],
-                          (size_t)g * a.s2, min(a.nv2[g], a.s2), x, y, z,
-                          ih, c, phi, gx, gy, gz, nd);
-
-  a.gp[0][t] = ax;
-  a.gp[1][t] = ay;
-  a.gp[2][t] = az;
+  psph_combine(acc, &raw[0][0][0], a.b, ns);
+  if (k != 0) return;
+  a.gp[0][t] = acc[0];
+  a.gp[1][t] = acc[1];
+  a.gp[2][t] = acc[2];
   if (AV) {
-    a.av[0][t] = vax;
-    a.av[1][t] = vay;
-    a.av[2][t] = vaz;
+    a.av[0][t] = acc[I_AV];
+    a.av[1][t] = acc[I_AV + 1];
+    a.av[2][t] = acc[I_AV + 2];
   }
   if (BALSARA) {
-    a.dc[0][t] = dv;
-    a.dc[1][t] = cvx;
-    a.dc[2][t] = cvy;
-    a.dc[3][t] = cvz;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a.dc[q][t] = acc[I_DC + q];
   }
-  if (ENERGY) a.du[t] = du;
+  if (ENERGY) a.du[t] = acc[I_DU];
   if (GRAV != GRAV_NONE) {
-    a.grav[0][t] = a.g_const * phi;
-    a.grav[1][t] = a.g_const * gx;
-    a.grav[2][t] = a.g_const * gy;
-    a.grav[3][t] = a.g_const * gz;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a.grav[q][t] = a.g_const * acc[I_GR + q];
     a.nd[t] = nd;
   }
 }
@@ -238,11 +324,12 @@ static void launch6(const Pass2Args& a, int g, int energy, cudaStream_t st) {
   if constexpr (MODE != MODE_ASYM) {
     if (energy) {
       pass2_kernel<MODE, SB, AV, BAL, GRAV, RECV, true>
-          <<<g, a.b, 0, st>>>(a);
+          <<<g, a.b * a.ns, 0, st>>>(a);
       return;
     }
   }
-  pass2_kernel<MODE, SB, AV, BAL, GRAV, RECV, false><<<g, a.b, 0, st>>>(a);
+  pass2_kernel<MODE, SB, AV, BAL, GRAV, RECV, false>
+      <<<g, a.b * a.ns, 0, st>>>(a);
 }
 
 template <int MODE, bool SB, bool AV, bool BAL>
@@ -306,7 +393,11 @@ extern "C" int psph_pass2(
                  {px, py, pz, pih, pm}, nv, nv2, {gpx, gpy, gpz},
                  {avx, avy, avz}, {dv, cvx, cvy, cvz}, du, {phi, gx, gy, gz},
                  nd,
-                 b, s, s2, av_alpha, av_beta, g_const};
+                 b, s, s2, av_alpha, av_beta, g_const,
+                 psph_slices(b), 0, 0};
+  if (g > 0 && a.ns == 0) return (int)cudaErrorInvalidValue;
+  a.vec = psph_vec_rows(a.s, R_MAX, s) ? 1 : 0;
+  a.vec2 = psph_vec_rows(a.p, 5, s2) ? 1 : 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (g > 0) {
     if (mode == MODE_GRADH)

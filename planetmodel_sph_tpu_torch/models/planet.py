@@ -119,11 +119,15 @@ def h_eta(cfg: SimConfig) -> float:
 
 def com_correct(grad_phi, mass, cfg: SimConfig):
     """Opt-in exact momentum conservation for tree gravity: subtract the
-    mass-weighted mean potential gradient so sum(m_i a_grav,i) = 0."""
+    mass-weighted mean potential gradient so sum(m_i a_grav,i) = 0. The
+    two sums are taken in float64, so the correction does not depend on
+    the order of the particles (a sorted chunk's padded layout and the
+    state's own order give the same float32 result)."""
     if not (cfg.grav_com_correction and cfg.gravity_solver == "tree"):
         return grad_phi
-    f = (mass[:, None] * grad_phi).sum(dim=0)
-    return grad_phi - f[None, :] / mass.sum()
+    f = (mass[:, None].double() * grad_phi.double()).sum(dim=0)
+    mean = (f / mass.double().sum()).to(grad_phi.dtype)
+    return grad_phi - mean[None, :]
 
 
 balsara_factor = dense.balsara_factor

@@ -10,6 +10,7 @@ Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -71,36 +72,38 @@ def nvcc_path() -> str:
                        "the CUDA toolkit is installed")
 
 
-def lib_path(name: str) -> str:
-    return os.path.join(BUILD, f"lib{name}.so")
+def lib_path(name: str, out: str = BUILD) -> str:
+    return os.path.join(out, f"lib{name}.so")
 
 
-def _stale(name: str) -> bool:
-    so = lib_path(name)
+def _stale(name: str, src: str, out: str) -> bool:
+    so = lib_path(name, out)
     if not os.path.exists(so):
         return True
-    newest = max(os.path.getmtime(os.path.join(CSRC, f))
-                 for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
+    newest = max(os.path.getmtime(os.path.join(src, f))
+                 for f in os.listdir(src) if f.endswith((".cu", ".cuh")))
     return os.path.getmtime(so) < newest
 
 
-def build_all(names=None, force=False) -> dict:
-    """Compile the named kernels (default: all) in parallel.
+def build_all(names=None, force=False, src=CSRC, out=BUILD) -> dict:
+    """Compile the named kernels (default: all) in parallel, from the
+    sources in `src` into libraries in `out` (another checkout's sources
+    build into its own directory, to time the two versions in turns).
 
     Returns {name: (seconds, ptxas report)}; raises with the compiler's
     output if any build fails."""
     names = list(names or SIGNATURES)
-    todo = [n for n in names if force or _stale(n)]
+    todo = [n for n in names if force or _stale(n, src, out)]
     if not todo:
         return {}
-    os.makedirs(BUILD, exist_ok=True)
+    os.makedirs(out, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
     for n in todo:
         fmad = ["-fmad=false"] if n in NO_FMAD else []
-        cmd = [nvcc, *NVCC_FLAGS, *fmad, "-o", lib_path(n),
-               os.path.join(CSRC, f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *fmad, "-o", lib_path(n, out),
+               os.path.join(src, f"{n}.cu")]
         procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
     out, failed = {}, []
@@ -117,14 +120,33 @@ def build_all(names=None, force=False) -> dict:
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
+def load(name: str, path: str):
+    """The C entry point ``psph_<name>`` of the library at `path`."""
+    fn = getattr(ctypes.CDLL(path), f"psph_{name}")
+    fn.argtypes = [_CT[c] for c in SIGNATURES[name]]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def kernel(name: str):
     """The C entry point ``psph_<name>`` (building the library if needed)."""
     fn = _LIBS.get(name)
     if fn is None:
         build_all([name])
-        lib = ctypes.CDLL(lib_path(name))
-        fn = getattr(lib, f"psph_{name}")
-        fn.argtypes = [_CT[c] for c in SIGNATURES[name]]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = fn
+        fn = _LIBS[name] = load(name, lib_path(name))
     return fn
+
+
+@contextlib.contextmanager
+def library(name: str, path: str):
+    """Within the block, launches of `name` go to the library at `path`
+    (another version of its source, built by :func:`build_all`)."""
+    saved = _LIBS.get(name)
+    _LIBS[name] = load(name, path)
+    try:
+        yield
+    finally:
+        if saved is None:
+            _LIBS.pop(name)
+        else:
+            _LIBS[name] = saved

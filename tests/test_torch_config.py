@@ -192,3 +192,37 @@ def test_basalt_impact_preset_equals_jax_field_by_field():
     cfg = tc.basalt_impact()
     assert cfg.eos_mode == "tillotson" and cfg.evolves_u
     assert cfg.dt_mode == "cfl" and cfg.n == 4096
+
+
+def _names_bound_by_init(pkg):
+    """The names a package's __init__.py binds itself (its imports and
+    assignments), not the submodules other imports attach to it."""
+    import ast
+    import inspect
+    tree = ast.parse(inspect.getsource(pkg))
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            out |= {a.asname or a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return out
+
+
+def test_top_level_binds_every_name_the_reference_binds():
+    import planetmodel_sph_tpu as jp
+    import planetmodel_sph_tpu_torch as tp
+    names = _names_bound_by_init(jp)
+    assert {"auto", "basalt_impact", "parity", "SimConfig"} <= names
+    missing = sorted(n for n in names if not hasattr(tp, n))
+    assert not missing, f"the port's top level lacks {missing}"
+
+
+@pytest.mark.parametrize("name", ["auto", "basalt_impact", "parity",
+                                  "default", "jupiter_3k", "jupiter_100k"])
+def test_top_level_preset_equals_the_reference_field_by_field(name):
+    import planetmodel_sph_tpu as jp
+    import planetmodel_sph_tpu_torch as tp
+    assert getattr(tp, name) is getattr(tc, name)
+    assert dataclasses.asdict(getattr(tp, name)()) == \
+        dataclasses.asdict(getattr(jp, name)())

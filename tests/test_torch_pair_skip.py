@@ -1,0 +1,397 @@
+"""What the compacted sweeps ``csrc/pass1_gradh.cu`` and ``csrc/pass2.cu``
+keep exact when they visit only some pairs.
+
+The kernels visit only the live slots of a window (m != 0; padding and
+duplicates carry m = 0), pass 1 skips a pair with (r2 ih) ih >
+PSPH_Q2_SKIP before its square root, and pass 2 adds its SPH terms only
+where r ih_i < 2 or r ih_j < 2 (gravity still takes every live pair). The
+CUDA kernels run only on the card; here
+
+- the two tests are read from the sources as C expressions and evaluated
+  on numpy float32 arrays (``_c_test``), and held, in numpy and as a
+  hypothesis property over ih and knife-edge r (r2 built as the kernel
+  builds it), to never skip a pair with sqrt(r2) ih < 2 and never a NaN;
+- the plain versions on inputs with dead slots and pairs at q = 2 +- 1 ulp
+  are held against the same plain versions applied, target by target, to
+  just the slots the kernels visit: counts bit-equal, sums within the
+  tolerances of tests/test_torch_groups2_modes.py.
+"""
+
+import ast
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from planetmodel_sph_tpu_torch.ops.cuda import groups2 as tk
+from test_torch_groups2 import B, _case, _close, _cols, _t
+from test_torch_groups2_modes import (PASS2_CASES, _check_pass2,
+                                      _pass2_inputs)
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "planetmodel_sph_tpu_torch", "csrc")
+
+
+def _source(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+def _skip_constant():
+    m = re.search(r"#define\s+PSPH_Q2_SKIP\s+([0-9.eE+-]+)f",
+                  _source("pass1_gradh.cu"))
+    assert m, "PSPH_Q2_SKIP not found in pass1_gradh.cu"
+    return np.float32(m.group(1))
+
+
+Q2_SKIP = _skip_constant()
+
+# C's float functions with their NaN rules (fminf returns the other operand)
+_C_CALLS = {"fminf": np.fmin, "fmaxf": np.fmax, "sqrtf": np.sqrt}
+
+
+def _c_test(expr):
+    """A C float expression of the kernels (names, float literals, * + -,
+    comparisons, && || !, a ? b : c, fminf/fmaxf/sqrtf) as a function of
+    numpy float32 arrays given by name, with C's rounding and NaN rules."""
+    py = re.sub(r"(\d+\.\d*(?:[eE][+-]?\d+)?)f\b", r"\1", expr)
+    py = py.replace("&&", " and ").replace("||", " or ")
+    py = re.sub(r"!(?!=)", " not ", py)
+    m = re.fullmatch(r"\s*(.+?)\s*\?\s*(.+?)\s*:\s*(.+?)\s*", py)
+    if m:
+        py = f"({m.group(2)}) if ({m.group(1)}) else ({m.group(3)})"
+    tree = ast.parse(py.strip(), mode="eval").body
+    ops = {ast.Mult: np.multiply, ast.Add: np.add, ast.Sub: np.subtract,
+           ast.Gt: np.greater, ast.GtE: np.greater_equal, ast.Lt: np.less,
+           ast.LtE: np.less_equal}
+
+    def ev(n, env):
+        if isinstance(n, ast.Constant):
+            return np.float32(n.value)
+        if isinstance(n, ast.Name):
+            return env[n.id]
+        if isinstance(n, ast.BinOp):
+            return ops[type(n.op)](ev(n.left, env), ev(n.right, env))
+        if isinstance(n, ast.Compare):
+            (op,), (right,) = n.ops, n.comparators
+            return ops[type(op)](ev(n.left, env), ev(right, env))
+        if isinstance(n, ast.BoolOp):
+            f = np.logical_and if isinstance(n.op, ast.And) \
+                else np.logical_or
+            out = ev(n.values[0], env)
+            for v in n.values[1:]:
+                out = f(out, ev(v, env))
+            return out
+        if isinstance(n, ast.UnaryOp) and isinstance(n.op, ast.Not):
+            return np.logical_not(ev(n.operand, env))
+        if isinstance(n, ast.IfExp):
+            return np.where(ev(n.test, env), ev(n.body, env),
+                            ev(n.orelse, env)).astype(np.float32)
+        if isinstance(n, ast.Call):
+            return _C_CALLS[n.func.id](*(ev(a, env) for a in n.args))
+        raise ValueError(f"not a kernel test expression: {expr}")
+
+    def run(**env):
+        with np.errstate(invalid="ignore", over="ignore"):
+            return ev(tree, {k: np.asarray(v, np.float32)
+                             for k, v in env.items()})
+    return run
+
+
+def _kernel_tests():
+    """pass1_gradh.cu's ih_skip and visit test, pass2.cu's SPH gate: the C
+    expressions as the sources have them."""
+    p1, p2 = _source("pass1_gradh.cu"), _source("pass2.cu")
+    ih_skip = re.search(r"const float ih_skip = ([^;]+);", p1)
+    visit = re.search(r"if \((.*PSPH_Q2_SKIP.*)\) \{", p1)
+    gate = re.search(r"if \((.*\br \* .*)\) \{\s*// inside the support",
+                     p2)
+    assert ih_skip and visit and gate, "a kernel's pair test was not found"
+    return (_c_test(ih_skip.group(1)), _c_test(visit.group(1)),
+            _c_test(gate.group(1)))
+
+
+IH_SKIP, P1_VISIT, P2_GATE = _kernel_tests()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One thread keeps the tight tolerances here deterministic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _skipped(r2, ih):
+    """pass1_gradh.cu's skip, in float32, as its source states it."""
+    return ~P1_VISIT(r2=r2, ih_skip=IH_SKIP(ih=ih),
+                     PSPH_Q2_SKIP=Q2_SKIP)
+
+
+def _r2(dx, dy, dz):
+    """r2 as the kernel forms it (separate float32 operations)."""
+    return dx * dx + dy * dy + dz * dz
+
+
+def _q(r2, ih):
+    with np.errstate(invalid="ignore"):
+        return np.sqrt(r2) * ih
+
+
+def test_skip_constant_and_the_kernels_test():
+    """The constant is 4 (1 + 2^-12); pass 1's skip keeps every pair of a
+    NaN or non-positive ih, and pass 2's gate, on finite values, is r
+    min(ih_i, ih_j) < 2 and visits every pair with a NaN in r, ih or jh."""
+    assert Q2_SKIP == np.float32(4.0) * (1 + np.float32(2.0) ** -12)
+    # the pair that is visited takes q as the plain version does
+    assert "const float q = sqrtf(r2) * ih;" in _source("pass1_gradh.cu")
+    nan = np.float32(np.nan)
+    ih = np.array([nan, 0.0, -1.0, 2.0], np.float32)
+    assert IH_SKIP(ih=ih)[:3].tolist() == [0.0, 0.0, 0.0]
+    rng = np.random.default_rng(3)
+    n = 20_000
+    ih = (10.0 ** rng.uniform(-2, 2, n)).astype(np.float32)
+    jh = (ih * 10.0 ** rng.uniform(-1, 1, n)).astype(np.float32)
+    k = rng.integers(-64, 65, n)
+    r = ((2.0 / np.minimum(ih, jh).astype(np.float64))
+         * (1 + k * 2.0 ** -24)).astype(np.float32)
+    inside = r * np.minimum(ih, jh) < 2.0
+    assert 0 < inside.sum() < n
+    np.testing.assert_array_equal(P2_GATE(r=r, ih=ih, jh=jh), inside)
+    far = np.float32(1e3)
+    for r_, ih_, jh_ in ((far, 1.0, nan), (far, nan, 1.0), (nan, 1.0, 1.0),
+                         (far, nan, nan)):
+        assert P2_GATE(r=r_, ih=ih_, jh=jh_), (r_, ih_, jh_)
+    assert not P2_GATE(r=far, ih=1.0, jh=1.0)
+
+
+def _knife_edges(rng, n, rel):
+    """n pairs at |r| = (2 / ih) * rel * (1 + k 2^-24), k in [-256, 256],
+    in random directions, ih over six decades."""
+    ih = (10.0 ** rng.uniform(-3, 3, n)).astype(np.float32)
+    u = rng.normal(size=(3, n))
+    u /= np.linalg.norm(u, axis=0)
+    k = rng.integers(-256, 257, n)
+    r = (2.0 / ih.astype(np.float64)) * rel * (1 + k * 2.0 ** -24)
+    dx, dy, dz = (np.float32(1) * (r * c).astype(np.float32) for c in u)
+    return _r2(dx, dy, dz), ih
+
+
+@pytest.mark.parametrize("rel", [1.0, float(np.sqrt(Q2_SKIP / 4.0))],
+                         ids=["q_at_2", "at_the_skip_threshold"])
+def test_a_skipped_pair_is_outside_the_support_numpy(rel):
+    rng = np.random.default_rng(7)
+    r2, ih = _knife_edges(rng, 400_000, rel)
+    skip = _skipped(r2, ih)
+    assert not np.any(skip & (_q(r2, ih) < 2.0))
+    if rel == 1.0:
+        assert not skip.any()          # q within 256 ulps of 2: all kept
+    else:
+        assert 0 < skip.sum() < skip.size   # both sides of the threshold
+
+
+@settings(max_examples=300, deadline=None)
+@given(log_ih=st.floats(-3.0, 3.0), k=st.integers(-4096, 4096),
+       ux=st.floats(-1.0, 1.0), uy=st.floats(-1.0, 1.0),
+       uz=st.floats(-1.0, 1.0))
+def test_a_skipped_pair_is_outside_the_support_property(log_ih, k, ux, uy,
+                                                         uz):
+    norm = np.sqrt(ux * ux + uy * uy + uz * uz)
+    if norm < 1e-3:
+        ux, uy, uz, norm = 1.0, 0.0, 0.0, 1.0
+    ih = np.float32(10.0 ** log_ih)
+    r = (2.0 / float(ih)) * (1 + k * 2.0 ** -24)
+    dx, dy, dz = (np.float32(r * c / norm) for c in (ux, uy, uz))
+    r2 = _r2(dx, dy, dz)
+    if _skipped(np.float32(r2), ih):
+        assert _q(r2, ih) >= 2.0
+
+
+def test_nan_and_non_positive_ih_are_never_skipped():
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    r2 = np.array([nan, 1e6, nan, inf, 1e6, 1e6, inf], np.float32)
+    ih = np.array([1.0, nan, nan, 0.0, 0.0, -5.0, nan], np.float32)
+    assert not _skipped(r2, ih).any()
+    # far pairs of a positive ih are skipped, and inf too
+    assert _skipped(np.array([1e6, inf], np.float32),
+                    np.array([1.0, 1.0], np.float32)).all()
+
+
+# ---------------------------------------------------------------------------
+# the plain versions on the pairs the kernels visit
+# ---------------------------------------------------------------------------
+
+def _plant_knife_edges(nv, tgt, src):
+    """Target 0 of each group at the origin with ih = 2 (h = 0.5); slots
+    8-10 at q = 2, 2 - 1 ulp and 2 + 1 ulp along x, with ih = 2 too, and
+    slot 11 a dead copy of slot 9."""
+    b = tgt[0].shape[0] // src[0].shape[0]
+    edge = np.array([1.0, np.nextafter(np.float32(1), np.float32(0)),
+                     np.nextafter(np.float32(1), np.float32(2))], np.float32)
+    for gi in range(src[0].shape[0]):
+        t = gi * b
+        for c in tgt[:3]:
+            c[t] = 0.0
+        tgt[3][t] = 2.0
+        src[0][gi, 8:11] = edge
+        src[1][gi, 8:12] = 0.0
+        src[2][gi, 8:12] = 0.0
+        src[3][gi, 8:12] = 2.0
+        src[4][gi, 8:11] = 1.0
+        src[0][gi, 11], src[4][gi, 11] = edge[1], 0.0
+    assert 2.0 * edge[1] == np.nextafter(np.float32(2), np.float32(0))
+    assert 2.0 * edge[2] == np.nextafter(np.float32(2), np.float32(4))
+
+
+def _visited(nv, rows, keep):
+    """The slots each target visits (keep: [G, B, S] bool), in slot order,
+    as G*B groups of one target: (nv', rows')."""
+    g, b, s = keep.shape
+    k = keep.reshape(g * b, s)
+    n = k.sum(dim=1)
+    order = torch.argsort((~k).to(torch.int8), dim=1, stable=True)
+    order = order[:, :max(int(n.max()), 1)]
+    return n.to(torch.int32), [
+        torch.gather(r.repeat_interleave(b, dim=0), 1, order).contiguous()
+        for r in rows]
+
+
+def _geometry(nv, tgt, src):
+    g, s = src[0].shape
+    b = tgt[0].shape[0] // g
+    tx, ty, tz, tih = (c.reshape(g, b, 1) for c in tgt[:4])
+    sx, sy, sz = (r[:, None, :] for r in src[:3])
+    below = torch.arange(s)[None, None, :] < nv.reshape(g, 1, 1)
+    dxx, dxy, dxz = tx - sx, ty - sy, tz - sz
+    return below, dxx * dxx + dxy * dxy + dxz * dxz, tih
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pass1_on_the_visited_pairs_matches(seed):
+    nv, tgt, src = _case(seed)
+    _plant_knife_edges(nv, tgt, src)
+    nv, tgt = torch.from_numpy(nv), _t(_cols(tgt))
+    rows = _t([src[0], src[1], src[2], src[4]])
+    below, r2, tih = _geometry(nv, tgt, rows)
+    live = below & (rows[3][:, None, :] != 0.0)
+    skip = torch.from_numpy(_skipped(r2.numpy(), tih.numpy()))
+    keep = live & ~skip
+    assert int((below & ~live).sum()) > 0 and int((live & skip).sum()) > 0
+    # the knife edges are visited: q = 2 - 1 ulp counts, 2 and 2 + 1 ulp
+    # do not, and the dead copy is not visited
+    q = torch.sqrt(r2) * tih
+    g1 = int(torch.nonzero(nv > 12)[0])
+    assert keep[g1, 0, 8:11].all() and not keep[g1, 0, 11]
+    assert (q[g1, 0, 8:11] < 2.0).tolist() == [False, True, False]
+    ref = tk.pass1_gradh_plain(nv, tgt, rows)
+    nv1, rows1 = _visited(nv, rows, keep)
+    out = tk.pass1_gradh_plain(nv1, tgt, rows1)
+    _close(out[1], ref[1], 0)
+    _close(out[0], ref[0], 2e-6)
+    _close(out[2], ref[2], 1e-5, 1e-6 * float(ref[2].abs().max()))
+
+
+def _gate(nv, tgt, src):
+    """Live SPH pairs and those that pass pass2.cu's gate."""
+    below, r2, tih = _geometry(nv, tgt, src)
+    live = below & (src[4][:, None, :] != 0.0)
+    r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
+    gate = P2_GATE(r=r.numpy(), ih=tih.numpy(),
+                   jh=src[3][:, None, :].numpy())
+    inside = live & torch.from_numpy(np.asarray(gate))
+    return live.expand(inside.shape), inside
+
+
+def _plant_nans(nv, tgt, src):
+    """In the last group with more than 16 live slots: a NaN ih of
+    target 1 and a NaN jh (source ih) at slot 14, a live slot outside the
+    support of target 0, which sits at the origin with ih = 2."""
+    g, s = src[0].shape
+    b = tgt[0].shape[0] // g
+    gi = int(np.nonzero(nv > 16)[0][-1])
+    src[0][gi, 14], src[1][gi, 14], src[2][gi, 14] = 5.0, 0.0, 0.0
+    src[4][gi, 14] = 1.0
+    src[3][gi, 14] = np.nan
+    tgt[3][gi * b + 1] = np.nan
+    return gi
+
+
+def _check_pass2_nans(out, ref, f):
+    """NaN at the same places, the rest as _check_pass2 holds it."""
+    ref_nan = [torch.isnan(r) for r in ref]
+    assert any(bool(m.any()) for m in ref_nan)
+    for o, m in zip(out, ref_nan):
+        assert torch.equal(torch.isnan(o), m)
+    _check_pass2([torch.where(m, 0.0, o) if o.is_floating_point() else o
+                  for o, m in zip(out, ref_nan)],
+                 [torch.where(m, 0.0, r) if r.is_floating_point() else r
+                  for r, m in zip(ref, ref_nan)], f)
+
+
+def _live_window(nv, rows, b):
+    """Every live slot of a window, for each of its b targets."""
+    g, s = rows[0].shape
+    below = torch.arange(s)[None, :] < nv[:, None]
+    keep = (below & (rows[-1] != 0.0))[:, None, :].expand(g, b, s)
+    return _visited(nv, rows, keep)
+
+
+@pytest.mark.parametrize("case", sorted(PASS2_CASES))
+def test_pass2_on_the_visited_pairs_matches(case):
+    f = PASS2_CASES[case]
+    nv, tgt, src, pkw = _pass2_inputs(3, f["mode"], f["av"], f["balsara"],
+                                      f["merged"], f["receiver"],
+                                      energy=f["energy"])
+    _plant_knife_edges(nv, tgt, src)
+    gi = _plant_nans(nv, tgt, src)
+    nv, tgt, src = torch.from_numpy(nv), _t(tgt), _t(src)
+    kw = dict(mode=f["mode"], av=f["av"], balsara=f["balsara"],
+              energy=f["energy"], sign_bug=f["sign_bug"], av_alpha=1.0,
+              av_beta=2.0, receiver_soft=f["receiver"], g_const=0.7)
+    tkw = {}
+    if f["merged"]:
+        tkw = dict(nv_p2p=torch.from_numpy(pkw["nv_p2p"]),
+                   p2p_rows=_t(pkw["p2p_rows"]))
+    ref = tk.pass2_plain(nv, tgt, src, grav=f["grav"], **kw, **tkw)
+    live, inside = _gate(nv, tgt, src)
+    assert int((live & ~inside).sum()) > 0          # the gate drops pairs
+    # the NaN source ih is visited by the target outside its support
+    assert bool(inside[gi, 0, 14])
+    assert torch.equal(inside[gi, 1], live[gi, 1])  # the NaN target's
+    # the SPH terms from the pairs inside the gate alone
+    nv_s, rows_s = _visited(nv, src, inside)
+    out = list(tk.pass2_plain(nv_s, tgt, rows_s, grav=False, **kw))
+    if f["grav"]:
+        # gravity and n_direct from every live slot of both windows
+        nv_g, rows_g = _visited(nv, src, live)
+        gkw = {}
+        if f["merged"]:
+            nv_p, rows_p = _live_window(tkw["nv_p2p"], tkw["p2p_rows"], B)
+            gkw = dict(nv_p2p=nv_p, p2p_rows=rows_p)
+        out += list(tk.pass2_plain(nv_g, tgt, rows_g, grav=True, **kw,
+                                   **gkw))[-5:]
+    _check_pass2_nans(out, ref, f)
+
+
+def test_visited_rows_keep_slot_order():
+    rows = [torch.arange(12, dtype=torch.float32).reshape(2, 6)]
+    keep = torch.tensor([[[1, 0, 1, 0, 0, 1]], [[0, 0, 0, 0, 0, 0]]],
+                        dtype=torch.bool)
+    n, (r,) = _visited(torch.tensor([6, 6], dtype=torch.int32), rows, keep)
+    assert n.tolist() == [3, 0] and r[0].tolist() == [0.0, 2.0, 5.0]
+
+
+def test_cases_cover_both_windows_and_every_flag():
+    """The cases above reach every form the kernel has: each pressure form,
+    the sign bug, viscosity, Balsara, energy, both gravity forms and
+    receiver softening."""
+    fs = PASS2_CASES.values()
+    assert {f["mode"] for f in fs} == set(tk.MODES)
+    for key in ("sign_bug", "av", "balsara", "energy", "grav", "merged",
+                "receiver"):
+        assert any(f[key] for f in fs), key

@@ -105,3 +105,22 @@ def test_runner_refuses_uncached_step():
     with pytest.raises(NotImplementedError, match="grav_pair_dtype"):
         tp.run_info(None, TCFG.replace(sorted_chunks=False,
                                        grav_pair_dtype="bfloat16"), 4)
+
+
+def test_unsorted_chunks_repeat_the_sorted_run(runs):
+    """The order the particles run in (a sorted chunk's padded layout, or
+    the state's own order) does not change the dynamics: with the centre-
+    of-mass correction's sums in float64 the unsorted run repeats the
+    sorted one bit for bit."""
+    import torch
+    start = runs[4]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        srt, _ = tp.run_info(start, TCFG, STEPS)
+        uns, _ = tp.run_info(start, TCFG.replace(sorted_chunks=False), STEPS)
+    finally:
+        torch.set_num_threads(n)
+    for k in ("pos", "vel", "accel", "h", "rho", "n_neighbors", "n_direct",
+              "n_approx"):
+        assert torch.equal(getattr(uns, k), getattr(srt, k)), k

@@ -1,0 +1,190 @@
+"""What chip_smoke.py reports of the two compacted sweeps, checked on the
+CPU: the per-instance ``-Xptxas -v`` parse, the instance a pass-2 call
+launches, the shares of live slots and of pairs inside the support, and
+the bit comparison of two launches, the planted-NaN check, the agreement
+ratios, and the routing of a kernel to another build; and the script
+refuses to run without a card, with or without --parent."""
+
+import importlib.util
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from planetmodel_sph_tpu_torch.ops.cuda import build
+from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+from test_torch_groups2 import B, _case, _cols, _t
+from test_torch_groups2_modes import _pass2_inputs
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _smoke()
+
+LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z12pass2_kernelILi0ELb0ELb1ELb1ELi2ELb0ELb1EEv9Pass2Args' for 'sm_90a'
+ptxas info    : Function properties for _Z12pass2_kernelILi0ELb0ELb1ELb1ELi2ELb0ELb1EEv9Pass2Args
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 43264 bytes smem, 784 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z12pass2_kernelILi2ELb0ELb0ELb0ELi0ELb0ELb0EEv9Pass2Args' for 'sm_90a'
+ptxas info    : Function properties for _Z12pass2_kernelILi2ELb0ELb0ELb0ELi0ELb0ELb0EEv9Pass2Args
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, 20736 bytes smem, 784 bytes cmem[0]
+"""
+
+
+def test_ptxas_instances_parse_each_entry():
+    a, b = cs.ptxas_instances(LOG)
+    assert a["args"] == (0, 0, 1, 1, 2, 0, 1)
+    assert (a["regs"], a["smem"], a["stack"], a["spill_stores"],
+            a["spill_loads"]) == (64, 43264, 8, 4, 12)
+    assert b["args"] == (2, 0, 0, 0, 0, 0, 0)
+    assert (b["regs"], b["smem"], b["spill_stores"]) == (38, 20736, 0)
+    p1 = cs.ptxas_instances(
+        "ptxas info    : Compiling entry function '_Z18pass1_gradh_kernelPK"
+        "fS0_S0_S0_S0_S0_S0_S0_PKiPfPiS3_iiii' for 'sm_90a'\n"
+        "ptxas info    : Used 37 registers, 12544 bytes smem\n")
+    assert p1[0]["args"] == () and p1[0]["regs"] == 37
+
+
+def test_instance_key_follows_the_template_order():
+    """pass2.cu's template parameters are MODE, SIGN_BUG, AV, BALSARA,
+    GRAV, RECV, ENERGY; the key a call maps to follows them."""
+    src = open(os.path.join(ROOT, "planetmodel_sph_tpu_torch", "csrc",
+                            "pass2.cu")).read()
+    assert re.search(r"template <int MODE, bool SIGN_BUG, bool AV, bool "
+                     r"BALSARA, int GRAV,\s+bool RECV, bool ENERGY>", src)
+    key = cs.instance_key
+    assert key("pass2", dict(mode="grad_h", grav=True, p2p_rows=[0])) == \
+        ("pass2", (0, 0, 0, 0, 2, 0, 0))
+    assert key("pass2", dict(mode="symmetric", av=True, balsara=True,
+                             energy=True, receiver_soft=True)) == \
+        ("pass2", (2, 0, 1, 1, 0, 0, 1))
+    assert key("pass2", dict(mode="reference_asymmetric", sign_bug=True,
+                             grav=True, receiver_soft=True)) == \
+        ("pass2", (1, 1, 0, 0, 1, 1, 0))
+    assert key("pass1_gradh", {}) == ("pass1_gradh", ())
+
+
+def _direct_shares(nv, tgt, src, pass1):
+    """Shares counted pair by pair in numpy."""
+    g, s = src[0].shape
+    b = tgt[0].shape[0] // g
+    m = src[3] if pass1 else src[4]
+    below = live = live_pairs = inside = 0
+    for gi in range(g):
+        for j in range(min(int(nv[gi]), s)):
+            below += 1
+            if m[gi, j] == 0:
+                continue
+            live += 1
+            for i in range(gi * b, gi * b + b):
+                live_pairs += 1
+                d = [tgt[k][i, 0] - src[k][gi, j] for k in range(3)]
+                r2 = np.float32(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+                if pass1:
+                    ins = np.sqrt(r2) * tgt[3][i, 0] < 2.0
+                else:
+                    r = np.sqrt(r2)
+                    ins = r * min(tgt[3][i, 0], src[3][gi, j]) < 2.0
+                inside += int(ins)
+    return below, live, live_pairs, inside
+
+
+@pytest.mark.parametrize("pass1", [True, False], ids=["pass1", "pass2"])
+def test_window_shares_count_live_slots_and_pairs_inside(pass1):
+    nv, tgt, src = _case(3)
+    tgt = _cols(tgt)
+    rows = [src[0], src[1], src[2], src[4]] if pass1 else src
+    name = "pass1_gradh" if pass1 else "pass2"
+    sh = cs.window_shares(name, (torch.from_numpy(nv), _t(tgt), _t(rows)),
+                          {"b": B})
+    below, live, live_pairs, inside = _direct_shares(nv, tgt, rows, pass1)
+    assert (sh["slots_below_nv"], sh["live_slots"], sh["live_pairs"]) == \
+        (below, live, live_pairs)
+    # r from rsqrt in pass 2 may put a knife-edge pair on the other side
+    assert abs(sh["pairs_inside"] - inside) <= (0 if pass1 else 2)
+    assert 0 < sh["live_share"] < 1 and 0 < sh["inside_share"] < 1
+
+
+def test_same_bits_tells_negative_zero_and_nan_apart():
+    a = (torch.tensor([0.0, 1.0]), torch.tensor([3], dtype=torch.int32))
+    assert cs.same_bits(a, tuple(t.clone() for t in a))
+    assert not cs.same_bits(a, (torch.tensor([-0.0, 1.0]), a[1]))
+    n = torch.tensor([float("nan")])
+    assert cs.same_bits(n, n.clone())
+
+
+def test_compacted_sweeps_are_the_redesigned_pair():
+    assert set(cs.COMPACTED) == {"pass1_gradh", "pass2"}
+    assert set(cs.COMPACTED) <= set(gk2.KERNELS)
+
+
+@pytest.mark.parametrize("pass1", [True, False], ids=["pass1", "pass2"])
+def test_nan_agreement_plants_nans_that_reach_the_outputs(pass1):
+    """On the CPU the wrappers run their plain versions, so the check
+    must pass, and the planted NaNs must reach an output."""
+    if pass1:
+        nv, tgt, src = _case(3)
+        tgt, rows, kw = _cols(tgt), [src[0], src[1], src[2], src[4]], {}
+    else:
+        # the production form: grad-h, gravity with the merged P2P window
+        nv, tgt, rows, pkw = _pass2_inputs(3, "grad_h", False, False, True,
+                                           False)
+        kw = dict(mode="grad_h", grav=True,
+                  nv_p2p=torch.from_numpy(pkw["nv_p2p"]),
+                  p2p_rows=_t(pkw["p2p_rows"]))
+    name = "pass1_gradh" if pass1 else "pass2"
+    a = (torch.from_numpy(nv), tuple(_t(tgt)), tuple(_t(rows)))
+    assert cs.nan_agreement(name, a, dict(kw, b=B)) is None
+    # the inputs themselves are left as they were
+    assert all(bool(torch.isfinite(t).all()) for t in a[1] + a[2])
+
+
+def test_agreement_ratios_are_over_the_limit():
+    from planetmodel_sph_tpu_torch.state import FIELDS
+
+    class S:
+        pass
+    a, b = S(), S()
+    for k in FIELDS:
+        setattr(a, k, torch.zeros(3))
+        setattr(b, k, torch.zeros(3))
+    a.n_neighbors = torch.tensor([1, 5, 2], dtype=torch.int32)
+    b.n_neighbors = torch.tensor([1, 2, 2], dtype=torch.int32)
+    a.pos = torch.tensor([1.0, 0.0, 1.0 + 4e-5])
+    b.pos = torch.tensor([1.0, 0.0, 1.0])
+    r = cs.agreement_ratios(a, b)
+    assert r["n_neighbors"] == 3.0 and r["vel"] == 0.0
+    assert r["pos"] == pytest.approx((float(a.pos[2]) - 1.0) / (1e-6 + 2e-5))
+
+
+def test_library_routes_a_kernel_and_restores_it(monkeypatch):
+    monkeypatch.setattr(build, "load", lambda name, path: (name, path))
+    monkeypatch.setattr(build, "_LIBS", {"pass2": "this"})
+    with build.library("pass2", "/x/libpass2.so"):
+        with build.library("pass1_gradh", "/x/libpass1_gradh.so"):
+            assert build._LIBS == {
+                "pass2": ("pass2", "/x/libpass2.so"),
+                "pass1_gradh": ("pass1_gradh", "/x/libpass1_gradh.so")}
+        assert "pass1_gradh" not in build._LIBS
+    assert build._LIBS == {"pass2": "this"}
+    assert build.lib_path("pass2", "/y") == os.path.join("/y", "libpass2.so")
+
+
+@pytest.mark.parametrize("argv", [[], ["--parent", "elsewhere"]],
+                         ids=["plain", "parent"])
+def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cs.main(argv) != 0
+    assert capsys.readouterr().out == ""
