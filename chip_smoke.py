@@ -36,10 +36,20 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    compacted sweeps (``pass1_gradh``, ``pass2``) it also prints the share
    of slots below nv that are live and of live pairs inside the support,
    the instance's registers, shared memory and spills from the build's
-   ``-Xptxas -v`` log (phase 2 prints every instance), holds a second
-   launch on the same inputs to the same bits, and plants NaNs where the
-   sweep leaves out work (a NaN there must reach the same outputs as in
-   the plain version);
+   ``-Xptxas -v`` log (phase 2 prints every instance), and holds a second
+   launch on the same inputs to the same bits. In every case of
+   ``pass1_gradh``, ``pass2``, ``p2p`` and ``gravity_fused`` it plants
+   NaNs, one field at a time (m, cc, a velocity row, ih), where a sweep
+   leaves out work: each output must be NaN exactly where the plain
+   version's is. Every case prints its wrapper time ``ms`` (CUDA events
+   from before the wrapper's host work to after its kernel) beside
+   ``device_ms`` (the kernel's own duration, torch.profiler), and the
+   production ``pass1_gradh`` and ``pass2`` their host time a wrapper call
+   (``host_us``). ``probe_launch`` and the production ``pass1_gradh`` are
+   launched on a side stream and inside a CUDA graph capture and held
+   against their plain versions (a stale stream handle would show); the
+   launch probe prints an eager wrapper call and a launch replayed from a
+   CUDA graph, beside ``torch.mul``;
 5. main paths, each with the launch counts reset just before and read just
    after: ``planet.run_info`` for 64 steps of the 100k state (two K=32
    chunks, one sort_every=64 period), then the dense ``jupiter_3k`` path
@@ -95,10 +105,12 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    with ``git archive`` into a git-ignored directory): phase 2 also builds
    DIR's ``pass1_gradh`` and ``pass2`` into DIR's own build directory,
    phase 4 times them and this checkout's in turns (parent, this, this,
-   parent) on each case's inputs, and this phase runs the production step
-   from both checkouts, each in its own processes (``bench --repeat 3``:
-   parent, this, this, parent), and each checkout's sorted and unsorted
-   chunks against each other.
+   parent) on each case's inputs, and this phase times the two probes
+   (``probe_launch`` in a chain beside ``torch.mul``, ``probe_gather``
+   beside ``packed[idx]``) and runs the production step from both
+   checkouts, each in its own processes, in the same turns (``bench
+   --repeat 3``), and each checkout's sorted and unsorted chunks against
+   each other.
 
 The second-to-last line of standard output is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. A full
@@ -124,6 +136,10 @@ STEPS = 64
 SLICE_GROUPS = 256        # plain versions run in slices of this many groups
 KERNEL_REPS = 21          # CUDA-event timings per kernel (median)
 PLAIN_REPS = 5            # timings of the sliced plain version (median)
+DEVICE_REPS = 10          # profiled calls per kernel (device time, mean)
+HOST_REPS = 200           # host timings of a wrapper call (median)
+SIDE_SLEEP_CYCLES = 20_000_000   # the side stream's sleep: some 10 ms
+CHAIN_TURNS = 11          # chains of probe_launch and torch.mul, in turns
 SMALL_N = 2048            # particles of the card-against-CPU agreement run
 SMALL_STEPS = 8           # its steps: two chunks, RESPA, one sort reuse
 
@@ -729,6 +745,55 @@ def cuda_ms(fn, reps):
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps=DEVICE_REPS, tries=3):
+    """Device time of one fn() call in ms: the durations of the CUDA
+    kernels it launched, from torch.profiler over `reps` calls (one
+    warm-up call first), divided by `reps`. Beside cuda_ms, which runs
+    from before the wrapper's host work to after the kernel, it tells the
+    kernel's own time from the host's. A trace that holds no kernel is
+    taken again, up to `tries` times; then the time is None (not
+    measured), never 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def fmt_ms(v, digits=4):
+    """A time for the report: its digits, or "not measured" for None."""
+    return "not measured" if v is None else f"{v:.{digits}f}"
+
+
+def host_us(fn, reps=HOST_REPS):
+    """Median host microseconds of one fn() call, from before the call to
+    its return (the card runs behind; one synchronize every 50 calls keeps
+    the launch queue short)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for k in range(reps):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append((time.perf_counter_ns() - t0) / 1e3)
+        if k % 50 == 49:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
 def _group_slices(g, step=SLICE_GROUPS):
     for g0 in range(0, g, step):
         yield g0, min(g, g0 + step)
@@ -1253,55 +1318,138 @@ def same_bits(out, again) -> bool:
                for o, r in zip(out, again))
 
 
+# the kernels whose planted NaNs phase 4 holds against the plain versions
+NAN_CHECKED = ("pass1_gradh", "pass2", "p2p", "gravity_fused")
+
+
+def _live_slot(nv, m_row, gi=None):
+    """(group, slot): the last live slot (m != 0, below nv) of group gi,
+    by default of the first group with more than one."""
+    import torch
+    s = m_row.shape[1]
+    live = (torch.arange(s, device=nv.device)[None, :] < nv[:, None]) \
+        & (m_row != 0.0)
+    if gi is None:
+        gi = int(torch.nonzero(live.sum(dim=1) > 1)[0])
+    return gi, int(torch.nonzero(live[gi])[-1])
+
+
+def nan_plantings(name, a, kw):
+    """The NaNs phase 4 plants in one kernel call, one planting a launch:
+    [(label, args, keywords, group, must_reach)]. Each puts a NaN in one
+    field at the last live slot of a group (a pair outside the support
+    for most of its targets: where a sweep leaves out work) or, for ih, in
+    target 1's column too. pass1_gradh: x with a target ih, and m;
+    pass2: the source and target ih, m, cc and a velocity row (when the
+    form stages one); p2p: ih (source ih under min-h softening) and m;
+    gravity_fused: ih (the near tier's source ih too) and m (the ring's,
+    and the near tier's). `must_reach`: the plain version's outputs hold a
+    NaN for this planting whatever the inputs (a NaN m of the ring and far
+    tiers is masked out by m > 0, a NaN velocity meets no viscosity where
+    no pair approaches)."""
+    import torch
+    b = kw["b"]
+    nv, tgt = a[0], list(a[1])
+    if name == "gravity_fused":
+        rows, fields = list(a[2]), {"m": 0}
+    else:
+        rows = list(a[2])
+        fields = {"pass1_gradh": {"x": 0, "m": 3},
+                  "pass2": {"ih": 3, "m": 4, "cc": 5},
+                  "p2p": {"m": len(rows) - 1}}[name]
+        if name == "pass2" and len(rows) > 6:
+            fields["velocity"] = 6
+        if name == "p2p" and not kw.get("receiver_soft", False):
+            fields["ih"] = 3
+    m_row = rows[fields["m"]]
+    gi, j = _live_slot(nv, m_row)
+    near = kw.get("p2p_rows") is not None
+    if near:
+        prow = list(kw["p2p_rows"])
+        _, jp = _live_slot(kw["nv_p2p"], prow[-1], gi)
+
+    def with_nan(seq, k, at):
+        seq = list(seq)
+        seq[k] = seq[k].clone()
+        seq[k][at] = float("nan")
+        return seq
+
+    def target_ih():
+        return with_nan(tgt, 3, gi * b + min(1, b - 1))
+
+    out = []
+    labels = list(fields) + (["ih"] if name == "gravity_fused" else [])
+    for label in labels:
+        t, r, k2 = tgt, rows, dict(kw)
+        if label in ("x", "ih"):
+            t = target_ih()
+        if label in fields:
+            r = with_nan(rows, fields[label], (gi, j))
+        if near and label == "m":
+            k2["p2p_rows"] = with_nan(prow, len(prow) - 1, (gi, jp))
+        if near and label == "ih" and name == "gravity_fused" \
+                and not kw.get("receiver_soft", False):
+            k2["p2p_rows"] = with_nan(prow, 3, (gi, jp))
+        reach = {"pass1_gradh": True, "pass2": label != "velocity",
+                 "p2p": label == "m",
+                 "gravity_fused": near and label == "m"}[name]
+        args = (nv, type(a[1])(t), type(a[2])(r), *a[3:])
+        out.append(("x+ih" if label == "x" else label, args, k2, gi, reach))
+    return out
+
+
 def nan_agreement(name, a, kw):
-    """NaNs planted where a compacted sweep leaves out work, in one group:
-    a NaN target ih, and at its last live slot a NaN x (pass 1) or source
-    ih (pass 2). The kernel's outputs for that group must be NaN exactly
-    where the plain version's are, counts equal (pass 2: its SPH outputs;
-    its gravity softens with fminf(ih_i, ih_j), which drops a NaN ih, as
-    the kernels' gravity did before). Returns a message or None."""
+    """NaNs planted one field at a time (nan_plantings): for the planted
+    group, the kernel's outputs must be NaN and infinite exactly where the
+    plain version's are, counts equal, and the finite values within the
+    case's tolerances. Returns (message or None, {label: reached})."""
     import torch
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
-    nv, tgt, src = a
-    g, s = src[0].shape
     b = kw["b"]
-    m_row = src[3] if name == "pass1_gradh" else src[4]
-    live = (torch.arange(s, device=nv.device)[None, :]
-            < nv[:, None]) & (m_row != 0.0)
-    gi = int(torch.nonzero(live.sum(dim=1) > 1)[0])
-    j = int(torch.nonzero(live[gi])[-1])
-    tgt, src = list(tgt), list(src)
-    row = 0 if name == "pass1_gradh" else 3
-    tgt[3], src[row] = tgt[3].clone(), src[row].clone()
-    tgt[3][gi * b + min(1, b - 1)] = float("nan")
-    src[row][gi, j] = float("nan")
-    a = (nv, type(a[1])(tgt), type(a[2])(src))
-    out = getattr(gk2, name)(*a, **kw)
-    out = out if isinstance(out, tuple) else (out,)
-    sa, skw = slice_args(a, kw, gi, gi + 1)
-    ref = getattr(gk2, name + "_plain")(*sa, **skw)
-    ref = ref if isinstance(ref, tuple) else (ref,)
-    n_sph = len(ref) if name == "pass1_gradh" else len(
-        pass2_tol(dict(kw, grav=False)))
-    for k, (o, r) in enumerate(zip(out[:n_sph], ref[:n_sph])):
-        o = o[gi * b:(gi + 1) * b]
-        if not r.is_floating_point():
-            if not torch.equal(o, r):
-                return f"output {k}: counts differ with NaN inputs"
-        elif not torch.equal(torch.isnan(o), torch.isnan(r)):
-            return (f"output {k}: NaN at {int(torch.isnan(o).sum())} "
-                    f"targets, the plain version at "
-                    f"{int(torch.isnan(r).sum())}")
-    if not bool(torch.isnan(ref[0]).any()):
-        return "the planted NaN reached no output of the plain version"
-    return None
+    reached = {}
+    for label, pa, pkw, gi, must in nan_plantings(name, a, kw):
+        out = getattr(gk2, name)(*pa, **pkw)
+        out = out if isinstance(out, tuple) else (out,)
+        out = tuple(o[gi * b:(gi + 1) * b] for o in out)
+        sa, skw = slice_args(pa, pkw, gi, gi + 1)
+        ref = getattr(gk2, name + "_plain")(*sa, **skw)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for k, (o, r) in enumerate(zip(out, ref)):
+            if not r.is_floating_point():
+                if not torch.equal(o, r):
+                    return (f"{label}: output {k}: counts differ with NaN "
+                            "inputs"), reached
+                continue
+            same_nan = torch.equal(torch.isnan(o), torch.isnan(r))
+            inf = torch.isinf(r)
+            same_inf = torch.equal(torch.isinf(o), inf) and \
+                torch.equal(o[inf], r[inf])
+            if not (same_nan and same_inf):
+                return (f"{label}: output {k}: NaN at "
+                        f"{int(torch.isnan(o).sum())} targets, infinite at "
+                        f"{int(torch.isinf(o).sum())}, the plain version at "
+                        f"{int(torch.isnan(r).sum())} and {int(inf.sum())}"
+                        ), reached
+        reached[label] = any(bool(torch.isnan(r).any()) for r in ref
+                             if r.is_floating_point())
+        if must and not reached[label]:
+            return (f"{label}: the planted NaN reached no output of the "
+                    "plain version"), reached
+        fin = lambda t, r: torch.where(torch.isfinite(r), t, 0.0) \
+            if r.is_floating_point() else t  # noqa: E731
+        ok, _, msgs = compare(name, tuple(fin(o, r) for o, r in
+                                          zip(out, ref)),
+                              tuple(fin(r, r) for r in ref), kw)
+        if not ok:
+            return f"{label}: finite outputs: {msgs}", reached
+    return None, reached
 
 
-def check_one(name, case, a, kw, ptxas=None, parent_libs=None):
+def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
     """One kernel call against its plain version, timed: the report.
     `ptxas`: the build's instances by (kernel, template arguments);
     `parent_libs`: {kernel: library} of another checkout's build, timed in
-    turns with this one's."""
+    turns with this one's; `host`: also the host time of a wrapper call."""
     import torch
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
     wrapper = getattr(gk2, name)
@@ -1319,14 +1467,18 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None):
             ok = False
             msgs.append("two launches on the same inputs differ")
         del again
-        nan_msg = nan_agreement(name, a, kw)
+        extra["shares"] = window_shares(name, a, kw)
+        extra["ptxas"] = (ptxas or {}).get(instance_key(name, kw))
+    if name in NAN_CHECKED:
+        nan_msg, extra["nan_reached"] = nan_agreement(name, a, kw)
         extra["nan_agrees"] = nan_msg is None
         if nan_msg:
             ok = False
             msgs.append(f"planted NaNs: {nan_msg}")
-        extra["shares"] = window_shares(name, a, kw)
-        extra["ptxas"] = (ptxas or {}).get(instance_key(name, kw))
     ms = cuda_ms(lambda: wrapper(*a, **kw), KERNEL_REPS)
+    dev_ms = device_ms(lambda: wrapper(*a, **kw))
+    if host:
+        extra["host_us"] = host_us(lambda: wrapper(*a, **kw))
     if parent_libs and name in parent_libs:
         # the parent's kernel and this one in turns: parent, this, this,
         # parent, on the same inputs through the same wrapper
@@ -1351,10 +1503,13 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None):
         if kw.get("blk_rows") is not None:
             shapes["blk_window"] = list(kw["blk_rows"][0].shape)
     label = name + (f" [{case}]" if case else "")
+    hus = (f" host_us={extra['host_us']:.2f}" if "host_us" in extra
+           else "")
     print(f"kernel {label}: {'ok' if ok else 'MISMATCH'} "
-          f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.4f} ({b_by}) shapes={shapes}", flush=True)
-    if extra:
+          f"max_abs_err={err:.3e} ms={ms:.4f} device_ms={fmt_ms(dev_ms)}{hus} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"shapes={shapes}", flush=True)
+    if name in COMPACTED:
         sh, px = extra["shares"], extra["ptxas"] or {}
         p2p = (f", P2P window live {sh['p2p_live_share']:.4f}"
                if "p2p_live_share" in sh else "")
@@ -1364,8 +1519,13 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None):
               f"pairs; {px.get('regs')} registers, {px.get('smem')} B "
               f"shared, spills {px.get('spill_stores')}/"
               f"{px.get('spill_loads')} B; two launches "
-              f"{'bit-identical' if extra['same_bits'] else 'DIFFER'}"
-              f"; planted NaNs {'agree' if extra['nan_agrees'] else 'DIFFER'}",
+              f"{'bit-identical' if extra['same_bits'] else 'DIFFER'}",
+              flush=True)
+    if name in NAN_CHECKED:
+        got = ", ".join(f"{k} {'reached' if v else 'masked'}"
+                        for k, v in extra["nan_reached"].items())
+        print(f"  {label}: planted NaNs "
+              f"{'agree' if extra['nan_agrees'] else 'DIFFER'} ({got})",
               flush=True)
     if "parent_ms" in extra:
         p, t = extra["parent_ms"], extra["ms_in_turns"]
@@ -1377,9 +1537,68 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None):
     del out, ref
     torch.cuda.empty_cache()
     return dict(name=name, case=case, ok=ok, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, ops=ops, shapes=shapes, messages=msgs,
-                **extra)
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, ops=ops, shapes=shapes,
+                messages=msgs, **extra)
+
+
+def stream_checks(seen):
+    """Launches on a stream that is not the default one: probe_launch and
+    the production pass1_gradh inside ``torch.cuda.stream(side)`` and
+    inside a CUDA graph capture. On the side stream the input is written
+    after a long device sleep queued on that same stream, and the kernel
+    must see the new value: a launch on a stale stream handle would run
+    before the write. In the graph the input is written after the
+    capture, and the replay must see it. Each result is held against the
+    plain version on the new input (probe_launch exactly, pass1_gradh to
+    its tolerances). Returns ({check: ok}, failures)."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    from planetmodel_sph_tpu_torch.ops.cuda import probes
+    gen = torch.Generator().manual_seed(3)
+    x_new = torch.rand(LAUNCH_SHAPE, generator=gen).cuda()
+    nv, tgt, src = seen["pass1_gradh"][0]
+    b = seen["pass1_gradh"][1]["b"]
+    m_new = src[3] * 2.0
+    cases = {
+        "probe_launch": (lambda x: probes.probe_launch(x),
+                         torch.zeros_like(x_new), x_new,
+                         lambda out: bool(torch.equal(
+                             out, probes.probe_launch_plain(x_new)))),
+        "pass1_gradh": (lambda m: gk2.pass1_gradh(
+            nv, tgt, [*src[:3], m], b=b), src[3].clone(), m_new,
+            lambda out: compare("pass1_gradh", out, plain_sliced(
+                "pass1_gradh", (nv, tgt, [*src[:3], m_new]),
+                {"b": b}))[0]),
+    }
+    res, failures = {}, []
+    for name, (call, buf, new, check) in cases.items():
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(SIDE_SLEEP_CYCLES)
+            buf.copy_(new)
+            out = call(buf)
+        cur.wait_stream(side)
+        torch.cuda.synchronize()
+        res[f"{name} on a side stream"] = check(out)
+        buf = torch.zeros_like(new)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call(buf)
+        buf.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        res[f"{name} in a CUDA graph"] = check(out)
+        del graph, out
+    for k, ok in res.items():
+        print(f"stream check, {k}: {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            failures.append(f"stream check: {k} disagrees with the plain "
+                            "version")
+    return res, failures
 
 
 # the production path's case of the kernels that have several
@@ -1396,7 +1615,8 @@ def check_kernels(seen, ptxas=None, parent_libs=None):
             continue
         a, kw = seen[name]
         reports[name] = check_one(name, MAIN_CASE.get(name, ""), a, kw,
-                                  ptxas, parent_libs)
+                                  ptxas, parent_libs,
+                                  host=name in COMPACTED)
         if not reports[name]["ok"]:
             failures.append(f"{name}: disagrees with its plain version")
     return reports, failures
@@ -1501,11 +1721,13 @@ def check_pairwise(n):
         as_tuple = lambda o: tuple(o) if isinstance(o, tuple) else (o,)
         ok, err, msgs = compare(name, as_tuple(out), as_tuple(ref))
         ms = cuda_ms(lambda: kernel(*args, cfg, **kw), KERNEL_REPS)
+        dev_ms = device_ms(lambda: kernel(*args, cfg, **kw))
         plain_ms = cuda_ms(lambda: plain(*args, cfg, **kw), PLAIN_REPS)
         b_ms, b_by, nbytes, ops = pairwise_bound(name, args, kw, cfg,
                                                  as_tuple(out))
         rep = dict(name=name, case=case, n=n, ok=ok, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by,
                    bytes=nbytes, ops=ops, splits=pw.splits_for(n),
                    messages=msgs)
         reports["cases"].append(rep)
@@ -1513,8 +1735,9 @@ def check_pairwise(n):
             reports[name] = rep
         print(f"kernel {name} [{case}, n={n}]: "
               f"{'ok' if ok else 'MISMATCH'} max_abs_err={err:.3e} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
-              f"({b_by})", flush=True)
+              f"ms={ms:.4f} device_ms={fmt_ms(dev_ms)} "
+              f"plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
         for m in msgs:
             print(f"  {name} [{case}]: {m}", flush=True)
         if not ok:
@@ -1586,20 +1809,30 @@ def check_probe(name, case, a, kw):
         bad = int((err > lim).sum())
     ok = finite and bad == 0 and out.shape == ref.shape
     max_err = float(err.max())
-    library_ms = None
+    library_ms = library_dev = graph_ms = None
     if name == "probe_launch":
-        # the fixed cost of one launch: a chain of launches, each on the
-        # previous output, as the reference's measure_launch
-        ms = chain_ms(kernel, a[0], LAUNCH_CHAIN)
+        # the fixed cost of one launch: chains of launches, each on the
+        # previous output, as the reference's measure_launch; the wrapper
+        # and torch.mul in turns, the median of CHAIN_TURNS chains each
+        mul = lambda v: torch.mul(v, probes.LAUNCH_SCALE)  # noqa: E731
+        chains = {kernel: [], mul: []}
+        for _ in range(CHAIN_TURNS):
+            for fn in chains:
+                chains[fn].append(chain_ms(fn, a[0], LAUNCH_CHAIN))
+        ms, library_ms = (sorted(c)[len(c) // 2] for c in chains.values())
         plain_ms = chain_ms(plain, a[0], LAUNCH_CHAIN)
-        library_ms = chain_ms(lambda v: torch.mul(v, probes.LAUNCH_SCALE),
-                              a[0], LAUNCH_CHAIN)
+        library_dev = device_ms(
+            lambda: torch.mul(a[0], probes.LAUNCH_SCALE))
+        from planetmodel_sph_tpu_torch.tools import roofline
+        graph_ms = roofline.graph_launch(LAUNCH_CHAIN) * 1e3
     else:
         ms = cuda_ms(lambda: kernel(*a, **kw), KERNEL_REPS)
         plain_ms = cuda_ms(call_plain, PLAIN_REPS)
         if name == "probe_gather":
             rows = a[1].long()
             library_ms = cuda_ms(lambda: a[0][rows], KERNEL_REPS)
+            library_dev = device_ms(lambda: a[0][rows])
+    dev_ms = device_ms(lambda: kernel(*a, **kw))
     b_ms, b_by, nbytes, ops = bound(name, a, kw, out)
     shapes = {"inputs": [list(t.shape) for t in a
                          if isinstance(t, torch.Tensor)],
@@ -1609,15 +1842,23 @@ def check_probe(name, case, a, kw):
                   "rows": list(a[2][0].shape), "nv": int(a[0][0])}
     label = name + (f" [{case}]" if case else "")
     print(f"kernel {label}: {'ok' if ok else 'MISMATCH'} "
-          f"max_abs_err={max_err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms} bound_ms={b_ms:.5f} ({b_by}) "
+          f"max_abs_err={max_err:.3e} ms={ms:.4f} "
+          f"device_ms={fmt_ms(dev_ms, 5)} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
+          f"library_device_ms={library_dev} bound_ms={b_ms:.5f} ({b_by}) "
           f"shapes={shapes}", flush=True)
+    if graph_ms is not None:
+        print(f"  {label}: a launch in a chain of {LAUNCH_CHAIN}: "
+              f"{ms:.5f} ms a wrapper call (torch.mul {library_ms:.5f}), "
+              f"{graph_ms:.5f} ms replayed from a CUDA graph", flush=True)
     msgs = [] if ok else [f"{bad} entries outside tolerance, finite "
                           f"{finite}"]
     del out, ref
     torch.cuda.empty_cache()
     return dict(name=name, case=case, ok=ok, max_abs_err=max_err, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_dev, graph_ms=graph_ms,
+                bound_ms=b_ms,
                 bound_by=b_by, bytes=nbytes, ops=ops, shapes=shapes,
                 messages=msgs)
 
@@ -1655,13 +1896,17 @@ def tools_phase(state, cfg, main_wall, card):
     disp = roofline.measure_dispatch()
     hbm = roofline.measure_hbm(k=HBM_K, mb=HBM_MB)
     vpu = roofline.measure_vpu(k=VPU_K, reps=roofline.VPU_RATE_REPS)
-    lat = roofline.measure_launch(k=LAUNCH_CHAIN)
+    launch_cost = roofline.measure_launch(k=LAUNCH_CHAIN)
+    lat = launch_cost["eager_s"]
     gathers = microbench.bench_gathers(k=TOOL_K)
     tiles = microbench.bench_kernel_tiles(k=TOOL_K, supers=TILE_SUPERS)
     torch.cuda.synchronize()
     launches = dict(launch.LAUNCHES)
     want = dict.fromkeys(launches, 0)
-    want.update(probe_fma=VPU_K + 1, probe_launch=LAUNCH_CHAIN + 1,
+    # probe_launch: the eager chain and its warm-up, then the graphed
+    # chain's warm-up and the launches it captured (a replay calls no
+    # wrapper and counts nothing)
+    want.update(probe_fma=VPU_K + 1, probe_launch=2 * LAUNCH_CHAIN + 2,
                 probe_gather=TOOL_K + 1,
                 probe_pass1_tile=len(TILE_SUPERS) * (TOOL_K + 1))
     floor = roofline.modeled_floor(cfg, work, vpu, hbm, lat)
@@ -1672,7 +1917,9 @@ def tools_phase(state, cfg, main_wall, card):
           f"{hbm / 1e9:.1f} GB/s ({hbm / PEAK_BYTES * 100:.1f} % of peak); "
           f"f32 FMA {vpu / 1e12:.3f} TFLOP/s at reps="
           f"{roofline.VPU_RATE_REPS} ({vpu / PEAK_F32 * 100:.1f} % of "
-          f"peak); launch {lat * 1e6:.3f} us", flush=True)
+          f"peak); launch {lat * 1e6:.3f} us a wrapper call, "
+          f"{launch_cost['graph_s'] * 1e6:.3f} us in a CUDA graph",
+          flush=True)
     print(f"  count_work {work}", flush=True)
     print(f"  modeled floor {floor['total'] * 1e3:.4f} ms/step (f32 "
           f"{floor['vpu'] * 1e3:.4f}, gathers {floor['hbm'] * 1e3:.4f}, "
@@ -1682,7 +1929,8 @@ def tools_phase(state, cfg, main_wall, card):
           "%)", flush=True)
     print(f"  probe launches {({k: v for k, v in launches.items() if v})}",
           flush=True)
-    rates = dict(dispatch_s=disp, hbm_Bps=hbm, vpu_ops=vpu, launch_s=lat)
+    rates = dict(dispatch_s=disp, hbm_Bps=hbm, vpu_ops=vpu, launch_s=lat,
+                 launch_graph_s=launch_cost["graph_s"])
     failures = []
     for k, v in rates.items():
         if not (math.isfinite(v) and v > 0.0):
@@ -1728,23 +1976,85 @@ def agreement_ratios(a, b, rtol=2e-5, atol=1e-6):
     return out
 
 
-def _tree_run(tree, args, timeout=900):
-    """`python -m planetmodel_sph_tpu_torch.<args>` in `tree`'s checkout
-    (its own package and state file), in a process of its own: stdout."""
+def _tree_run(tree, args, timeout=900, module=True):
+    """`python -m <args>` (or `python <args>`) in `tree`'s checkout (its
+    own package and state file), in a process of its own: stdout."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    r = subprocess.run([sys.executable, "-m", *args], cwd=tree, env=env,
-                       capture_output=True, text=True, timeout=timeout)
+    r = subprocess.run([sys.executable, *(["-m"] if module else []), *args],
+                       cwd=tree, env=env, capture_output=True, text=True,
+                       timeout=timeout)
     if r.returncode != 0:
         raise RuntimeError(f"{' '.join(args)} in {tree} exited "
                            f"{r.returncode}: {r.stderr[-2000:]}")
     return r.stdout
 
 
+# One turn of the two probes, run by `python -c` in a checkout of its own
+# (it imports that checkout's package, which builds its own kernels): a
+# probe_launch wrapper call and torch.mul in chains of LAUNCH_CHAIN, host
+# microseconds a call; probe_gather and packed[idx] at the microbench
+# tool's shape, the median of KERNEL_REPS CUDA-event timings in ms.
+PROBE_TURN = """
+import json, time, torch
+from planetmodel_sph_tpu_torch.ops.cuda import probes
+def chain_us(fn, x, k):
+    y = fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(k):
+        y = fn(y)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / k * 1e6
+def event_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    return sorted(ts)[len(ts) // 2]
+gen = torch.Generator().manual_seed(0)
+x = torch.rand(%(shape)r, generator=gen).cuda()
+packed = torch.randn((%(nb)d, %(c)d * 64), generator=gen).cuda()
+idx = torch.randint(0, %(nb)d, (%(nb)d, %(w)d), generator=gen,
+                    dtype=torch.int32).cuda()
+rows = idx.long()
+print(json.dumps({
+    "launch_us": chain_us(probes.probe_launch, x, %(k)d),
+    "mul_us": chain_us(lambda v: torch.mul(v, 1.000001), x, %(k)d),
+    "gather_ms": event_ms(lambda: probes.probe_gather(packed, idx), %(r)d),
+    "index_ms": event_ms(lambda: packed[rows], %(r)d)}))
+""" % dict(shape=LAUNCH_SHAPE, nb=GATHER_NB, c=GATHER_C, w=GATHER_W,
+           k=LAUNCH_CHAIN, r=KERNEL_REPS)
+
+
+def probe_turns(trees):
+    """The two probes from each checkout, each in a process of its own, in
+    the order parent, this, this, parent: [{tree, launch_us, mul_us,
+    gather_ms, index_ms}]."""
+    rows = []
+    for who in ("parent", "this", "this", "parent"):
+        out = _tree_run(trees[who], ["-c", PROBE_TURN], module=False)
+        row = dict(tree=who, **json.loads(out.strip().splitlines()[-1]))
+        rows.append(row)
+        print(f"  probes, {who}: probe_launch {row['launch_us']:.3f} us a "
+              f"call (torch.mul {row['mul_us']:.3f}), probe_gather "
+              f"{row['gather_ms']:.4f} ms (packed[idx] "
+              f"{row['index_ms']:.4f})", flush=True)
+    return rows
+
+
 def parent_phase(parent, state, cfg):
-    """Phase 7, with --parent DIR: the production step from DIR's
-    checkout and from this one in turns, each whole (its kernels, its
-    Python): `bench --repeat 3` in the order parent, this, this, parent,
+    """Phase 7, with --parent DIR: the two probes (probe_turns) and the
+    production step from DIR's checkout and from this one in turns, each
+    whole (its kernels, its Python): `bench --repeat 3` in the order
+    parent, this, this, parent,
     the first of each with --profile (busy time, idle share); then each
     checkout's sorted and unsorted chunks (the CLI's 64 steps of the
     settled state, restored from npz checkpoints that differ only in
@@ -1753,6 +2063,7 @@ def parent_phase(parent, state, cfg):
     from planetmodel_sph_tpu_torch.utils import checkpoint
     trees = {"parent": os.path.abspath(parent), "this": ROOT}
     rep, failures = {"steps": [], "unsorted": {}}, []
+    rep["probes"] = probe_turns(trees)
     for k, who in enumerate(("parent", "this", "this", "parent")):
         out = _tree_run(trees[who], ["planetmodel_sph_tpu_torch.bench",
                                      "--repeat", "3"]
@@ -1771,6 +2082,17 @@ def parent_phase(parent, state, cfg):
                         if r.get("profiled") else "")
                 print(f"  production step, {who}: {r['steps_per_sec']:.3f} "
                       f"steps/s{busy}", flush=True)
+    med = {}
+    for who in trees:
+        # every repeat of the two runs of each checkout
+        sps = sorted(x for r in rep["steps"] if r["tree"] == who
+                     for x in (r["steps_per_s"] if isinstance(
+                         r["steps_per_s"], list) else [r["steps_per_s"]]))
+        med[who] = sps[len(sps) // 2] if sps else float("nan")
+    rep["median_steps_per_s"] = med
+    print(f"  production step medians: this {med['this']:.3f}, parent "
+          f"{med['parent']:.3f} steps/s ({med['this'] / med['parent']:.3f}x)",
+          flush=True)
     work = os.path.join(OUT_DIR, "parent_phase")
     os.makedirs(work, exist_ok=True)
     starts = {}
@@ -2212,8 +2534,8 @@ def probe_entry(name, source, replaces, probe_reports, launches):
     """The kernels line's entry of one probe: its first case, the others
     (probe_pass1_tile's wider tiles) under "case_<case>"; launches from
     the tools phase."""
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "graph_ms")
     own = [r for r in probe_reports if r["name"] == name]
     entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches[name], **{k: own[0][k] for k in keys})
@@ -2329,6 +2651,8 @@ def main(argv=None) -> int:
     seen = capture_inputs(state, cfg)
     torch.cuda.synchronize()
     kreports, failures = check_kernels(seen, ptxas, parent_libs)
+    report["stream_checks"], fails = stream_checks(seen)
+    failures += fails
     del seen
     torch.cuda.empty_cache()
     # the settle phase's start: a raw polytrope at the same n, primed
@@ -2540,7 +2864,8 @@ def main(argv=None) -> int:
 
     print(card, flush=True)
     kernels = []
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by")
     legs = {r["leg"]: r["launches"] for r in leg_reports}
 
     def leg_launches(case_report, name):

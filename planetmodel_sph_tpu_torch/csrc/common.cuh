@@ -17,6 +17,14 @@
 // 1/pi rounded once to float, as the plain versions' scalar is
 #define PSPH_INV_PI 0.3183098861837907f
 
+// min(a, b), NaN when either operand is NaN, as torch.minimum and
+// jnp.minimum are (fminf returns the other operand)
+__device__ __forceinline__ float psph_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Dyer-Ip softened point-mass term, accumulated into (phi, g). Finite at
 // r = 0 (x = 0 takes the inner branch, dx = 0 kills the force); phi then
 // holds the -2.4 m/a self term that the caller removes.
@@ -45,9 +53,9 @@ __device__ __forceinline__ void psph_dyer_ip(
 // Near-field gravity sweep over one window: the first n slots of the rows
 // (x, y, z, [ih,] m) starting at `row`, Dyer-Ip softened with
 // 1/a = ih_i (RECV: receiver softening, the ih row is not read) or
-// min(ih_i, ih_j). Adds into (phi, g) and counts the slots with m > 0 into
-// nd; the self pair is one of them (dx = 0: no force, the finite inner
-// potential -2.4 m/a). `c` is the block's staging buffer, at least 5 rows.
+// min(ih_i, ih_j) (NaN when either is). Adds into (phi, g) and counts the
+// slots with m > 0 into nd; the self pair is one of them (dx = 0: no
+// force, the finite inner potential -2.4 m/a). `c` is the block's staging buffer, at least 5 rows.
 // Every thread of the block must call it (it synchronises).
 template <bool RECV>
 __device__ __forceinline__ void psph_p2p_window(
@@ -74,7 +82,7 @@ __device__ __forceinline__ void psph_p2p_window(
       const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
       const float m = c[4][j];
       const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
-      const float inv_a = RECV ? ih : fminf(ih, c[3][j]);
+      const float inv_a = RECV ? ih : psph_min(ih, c[3][j]);
       psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r, inv_a, phi, gx, gy, gz);
       nd += (m > 0.0f) ? 1 : 0;
     }
@@ -119,19 +127,25 @@ __device__ __forceinline__ void psph_stage(float (*dst)[PSPH_TILE],
 // Stable compaction of the staged slots [0, cnt) whose mass mrow[j] is
 // not 0 (padding and duplicates carry m = 0 and add exactly 0 to every
 // sum): put(j, k) stores slot j at compacted position k, k counting the
-// kept slots before j. Returns the number kept and adds the number with
-// m > 0 to npos, the same in every thread. Every thread of the block
-// calls it; it ends with a barrier, after which the compacted slots are
-// visible to the whole block. wtab: 64 ints of shared memory.
+// kept slots before j, and returns true when one of the slot's staged
+// fields is not finite. Returns the number kept, adds the number with
+// m > 0 to npos and sets `bad` when some kept slot reported a non-finite
+// field (a sweep that leaves out pairs then visits every pair of the
+// tile: in the plain versions a NaN or an infinity times a weight of 0 is
+// NaN), all the same in every thread. Every thread of the block calls
+// it; it ends with a barrier, after which the compacted slots are visible
+// to the whole block. wtab: 64 ints of shared memory.
 template <typename Put>
 __device__ __forceinline__ int psph_compact(const float* mrow, int cnt,
-                                            int* wtab, int& npos, Put put) {
+                                            int* wtab, int& npos, bool& bad,
+                                            Put put) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = (blockDim.x + 31) >> 5;
   const int here = blockDim.x - (warp << 5);        // threads of this warp
   const unsigned mask = here >= 32 ? 0xffffffffu : (1u << here) - 1u;
   const unsigned below = (1u << lane) - 1u;
   int kept = 0;
+  bool any_bad = false;
   for (int base = 0; base < cnt; base += blockDim.x) {
     const int j = base + tid;
     const float m = j < cnt ? mrow[j] : 0.0f;
@@ -149,12 +163,23 @@ __device__ __forceinline__ int psph_compact(const float* mrow, int cnt,
       all += c;
       all_pos += wtab[32 + w];
     }
-    if (m != 0.0f) put(j, at);
+    bool mine = false;
+    if (m != 0.0f) mine = put(j, at);
     kept += all;
     npos += all_pos;
-    __syncthreads();
+    any_bad |= __syncthreads_or(mine) != 0;
   }
+  bad = any_bad;
   return kept;
+}
+
+// True when every one of the n values is finite.
+template <int N>
+__device__ __forceinline__ bool psph_all_finite(const float (&v)[N]) {
+  bool ok = true;
+#pragma unroll
+  for (int e = 0; e < N; ++e) ok = ok && isfinite(v[e]);
+  return ok;
 }
 
 // Sweep the first n slots of NR window rows starting at `row`, one tile of

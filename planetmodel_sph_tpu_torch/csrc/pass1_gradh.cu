@@ -25,7 +25,13 @@
 //   root: PSPH_Q2_SKIP = 4 (1 + 2^-12) lies far above the rounding of
 //   either product, so a skipped pair has sqrtf(r2) ih >= 2 and adds
 //   nothing to rho, xi or the count; the test is false for NaN and for
-//   ih <= 0, so those pairs are evaluated as before;
+//   ih <= 0, so those pairs are evaluated as before; a tile in which a
+//   live slot holds a non-finite x, y, z or m, and a target whose own
+//   x, y, z or ih is not finite, skip nothing (all_pairs: the flag is
+//   set once a tile at the compaction and once a target, and zeroes the
+//   skip's ih for the tile, so that the pair test costs what it did), so
+//   that a NaN or an infinity reaches rho and xi as in the plain version,
+//   where it meets a weight of 0;
 // - every other pair takes q = sqrtf(r2) ih exactly as the plain version
 //   does (the library is built with -fmad=false, so r2 rounds as its
 //   separate operations do and the q < 2 count matches it exactly) and
@@ -54,6 +60,8 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_gradh_kernel(
   const size_t t = (size_t)g * b + i;
   const float x = tx[t], y = ty[t], z = tz[t], ih = tih[t];
   const float ih_skip = ih > 0.0f ? ih : 0.0f;
+  const float own[4] = {x, y, z, ih};
+  const bool target_bad = !psph_all_finite(own);
   const int n = min(nv[g], s);
   const float* const rows[4] = {sx, sy, sz, sm};
   float acc[2] = {0.0f, 0.0f};     // sum m Wpoly, sum m (3 Wpoly + q Wpoly')
@@ -61,9 +69,16 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_gradh_kernel(
   int npos = 0;
   psph_window<4>(rows, (size_t)g * s, n, vec != 0, raw,
                  [&](float (*st)[PSPH_TILE], int c) {
-    const int live = psph_compact(st[3], c, wtab, npos, [&](int j, int at) {
-      comp[at] = make_float4(st[0][j], st[1][j], st[2][j], st[3][j]);
+    bool tile_bad;
+    const int live = psph_compact(st[3], c, wtab, npos, tile_bad,
+                                  [&](int j, int at) {
+      const float v[4] = {st[0][j], st[1][j], st[2][j], st[3][j]};
+      comp[at] = make_float4(v[0], v[1], v[2], v[3]);
+      return !psph_all_finite(v);
     });
+    const bool all_pairs = tile_bad || target_bad;
+    // the skip's ih for this tile: 0 skips nothing ((r2 0) 0 is 0 or NaN)
+    const float ih_tile = all_pairs ? 0.0f : ih_skip;
 #pragma unroll 4
     for (int j = k; j < live; j += ns) {
       const float4 p = comp[j];
@@ -71,7 +86,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_gradh_kernel(
       const float dxy = y - p.y;
       const float dxz = z - p.z;
       const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
-      if (!((r2 * ih_skip) * ih_skip > PSPH_Q2_SKIP)) {
+      if (!((r2 * ih_tile) * ih_tile > PSPH_Q2_SKIP)) {
         const float q = sqrtf(r2) * ih;
         const float q2 = q * q;
         const float q3 = q2 * q;

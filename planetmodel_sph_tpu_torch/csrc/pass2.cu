@@ -61,7 +61,15 @@
 //   before, the Dyer-Ip term with gravity, and the SPH block only when
 //   r ih_i < 2 or r ih_j < 2, or either product is NaN: outside it both
 //   gw are 0, and with them every pressure, viscosity, Balsara and energy
-//   term; a NaN reaches the outputs as in the plain version;
+//   term; a NaN reaches the outputs as in the plain version. A tile in
+//   which a live slot holds a non-finite value in any staged row, and a
+//   target with a non-finite value in any of its columns, gate out
+//   nothing (all_pairs: the flag is set once a tile at the compaction and
+//   once a target, and zeroes the gate's ih_i for the tile, so that the
+//   gate costs what it did), since there a NaN or an infinity times a gw
+//   of 0 is NaN in the plain version;
+// - gravity softens with min(ih_i, ih_j) that is NaN when either is
+//   (psph_min), as the plain version's torch.minimum;
 // - the count of m > 0 slots (n_direct) comes from the compaction, once
 //   per group;
 // - the merged residual-P2P window goes through the same staging,
@@ -122,9 +130,13 @@ __device__ __forceinline__ constexpr int row_of(int c) {
   return c == R_IH ? R_M : c == R_M ? R_IH : c;
 }
 
+// At most 64 registers a thread, so that four blocks of 256 threads fit
+// an SM: the viscosity and Balsara forms sit at that edge, and with the
+// non-finite flag the compiler otherwise takes 71-77 registers and three
+// blocks an SM, which was slower than a few bytes of spill (PERF.md).
 template <int MODE, bool SIGN_BUG, bool AV, bool BALSARA, int GRAV,
           bool RECV, bool ENERGY>
-__global__ void __launch_bounds__(PSPH_WIN_THREADS)
+__global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
     pass2_kernel(const Pass2Args a) {
   constexpr bool VEL = AV || ENERGY;
   constexpr int NROWS = 6 + (AV ? 6 : (ENERGY ? 3 : 0)) + (BALSARA ? 1 : 0);
@@ -154,6 +166,8 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS)
   if (VEL) vx = a.tav[0][t], vy = a.tav[1][t], vz = a.tav[2][t];
   if (AV) th = a.tav[3][t], tcs = a.tav[4][t], trho = a.tav[5][t];
   if (BALSARA) tfb = a.tfb[t];
+  const float own[12] = {x, y, z, ih, tcv, vx, vy, vz, th, tcs, trho, tfb};
+  const bool target_bad = !psph_all_finite(own);
   float tih4 = ih * ih;
   tih4 = tih4 * tih4;
   float acc[NSUM];
@@ -167,7 +181,10 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS)
   for (int r = 0; r < NROWS; ++r) rows[r] = a.s[r];
   psph_window<NROWS>(rows, (size_t)g * a.s_w, min(a.nv[g], a.s_w),
                      a.vec != 0, raw, [&](float (*st)[PSPH_TILE], int c) {
-    const int live = psph_compact(st[R_M], c, wtab, nd, [&](int j, int at) {
+    bool tile_bad;
+    const int live = psph_compact(st[R_M], c, wtab, nd, tile_bad,
+                                  [&](int j, int at) {
+      bool ok = true;
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
         float v[4];
@@ -177,8 +194,14 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS)
           v[e] = p < NROWS ? st[p < NROWS ? row_of(p) : 0][j] : 0.0f;
         }
         comp[q][at] = make_float4(v[0], v[1], v[2], v[3]);
+        ok = ok && psph_all_finite(v);
       }
+      return !ok;
     });
+    const bool all_pairs = tile_bad || target_bad;
+    // the gate's ih for this tile: 0 opens it for every pair (r 0 is 0
+    // or NaN, never >= 2)
+    const float ih_gate = all_pairs ? 0.0f : ih;
     for (int j = k; j < live; j += ns) {
       const float4 q0 = comp[0][j];
       const float4 q1 = comp[1][j];
@@ -190,7 +213,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS)
       const float jh = q1.x;
       const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
       const float r = r2 * inv_r;
-      if (!(r * ih >= 2.0f && r * jh >= 2.0f)) {
+      if (!(r * ih_gate >= 2.0f && r * jh >= 2.0f)) {
         // inside the support of i or j, or a NaN in r, ih or jh: the SPH
         // terms (r min(ih, jh) rounds as min(r ih, r jh) for r >= 0)
         const float cc = q1.y;
@@ -257,9 +280,9 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS)
         }
       }
       if (GRAV != GRAV_NONE)
-        psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r, RECV ? ih : fminf(ih, jh),
-                     acc[I_GR], acc[I_GR + 1], acc[I_GR + 2],
-                     acc[I_GR + 3]);
+        psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r,
+                     RECV ? ih : psph_min(ih, jh), acc[I_GR],
+                     acc[I_GR + 1], acc[I_GR + 2], acc[I_GR + 3]);
     }
   });
 
@@ -274,11 +297,13 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS)
     auto praw = reinterpret_cast<float (*)[NP][PSPH_TILE]>(&raw[0][0][0]);
     psph_window<NP>(prow, (size_t)g * a.s2, min(a.nv2[g], a.s2),
                     a.vec2 != 0, praw, [&](float (*st)[PSPH_TILE], int c) {
-      const int live = psph_compact(st[NP - 1], c, wtab, nd,
+      bool unused;    // gravity leaves out no pair
+      const int live = psph_compact(st[NP - 1], c, wtab, nd, unused,
                                     [&](int j, int at) {
         comp[0][at] = make_float4(st[0][j], st[1][j], st[2][j],
                                   st[NP - 1][j]);
         if (!RECV) comp[1][at].x = st[RECV ? 0 : 3][j];
+        return false;
       });
       for (int j = k; j < live; j += ns) {
         const float4 q0 = comp[0][j];
@@ -287,7 +312,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS)
         const float dxz = z - q0.z;
         const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
         const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
-        const float inv_a = RECV ? ih : fminf(ih, comp[1][j].x);
+        const float inv_a = RECV ? ih : psph_min(ih, comp[1][j].x);
         psph_dyer_ip(q0.w, dxx, dxy, dxz, r2, inv_r, inv_a, acc[I_GR],
                      acc[I_GR + 1], acc[I_GR + 2], acc[I_GR + 3]);
       }

@@ -121,8 +121,11 @@ _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def load(name: str, path: str):
-    """The C entry point ``psph_<name>`` of the library at `path`."""
-    fn = getattr(ctypes.CDLL(path), f"psph_{name}")
+    """The C entry point ``psph_<name>`` of the library at `path`. The
+    library is loaded as a ``ctypes.PyDLL``: a call keeps the GIL, which
+    costs less than releasing it for a function that only enqueues a
+    launch."""
+    fn = getattr(ctypes.PyDLL(path), f"psph_{name}")
     fn.argtypes = [_CT[c] for c in SIGNATURES[name]]
     fn.restype = ctypes.c_int
     return fn

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .launch import (LAUNCHES, is_cuda as _is_cuda, launch as _launch,
-                     need as _need, reset_launches)
+                     need as _need, need_all as _need_all, reset_launches)
 
 INV_PI = 1.0 / 3.14159265358979323846
 KERNELS = ("filter_sph", "pass1_gradh", "pass1_sym", "pass2", "p2p",
@@ -39,19 +39,30 @@ MODES = ("grad_h", "reference_asymmetric", "symmetric")   # the C interface's
 # argument checks
 # ---------------------------------------------------------------------------
 
-def _check_window(name, nv, tgt, rows, b):
-    g, s = rows[0].shape
-    _need(name, "nv", nv, (g,), torch.int32)
-    for k, t in enumerate(tgt):
-        _need(name, f"target column {k}", t, (g * b, 1))
-    for k, r in enumerate(rows):
-        _need(name, f"source row {k}", r, (g, s))
-    return g, s
+def _check_window(name, nv, tgt, rows, b, g=None):
+    """Check one window (nv, its rows) and the target columns `tgt` (none
+    where the caller has checked them already; then `g` is the groups the
+    rows must have). Returns (groups, slots)."""
+    g0, s = rows[0].shape
+    if g is not None and g0 != g:
+        raise ValueError(f"{name}: a window of {g0} groups, expected {g}")
+    _need(name, "nv", nv, (g0,), torch.int32)
+    _need_all(name, "target column", tgt, (g0 * b, 1))
+    _need_all(name, "source row", rows, (g0, s))
+    return g0, s
 
 
 def _out(like, g, b, n, dtype=torch.float32):
     return [torch.empty((g * b, 1), dtype=dtype, device=like.device)
             for _ in range(n)]
+
+
+def _out_block(like, g, b, n_f, n_i):
+    """n_f float32 and then n_i int32 [G*B, 1] outputs as views of one
+    allocation (one allocation costs less host time than n_f + n_i)."""
+    outs = torch.empty((n_f + n_i, g * b, 1), dtype=torch.float32,
+                       device=like.device).unbind(0)
+    return list(outs[:n_f]), [o.view(torch.int32) for o in outs[n_f:]]
 
 
 # ---------------------------------------------------------------------------
@@ -466,14 +477,15 @@ def pass2(nv, tgt, src, *, b, mode="grad_h", av=False, sign_bug=False,
     cuda = _is_cuda(name, [nv, *tgt, *src, *p2p_rows]
                     + ([nv_p2p] if merged else []))
     g, s = _check_window(name, nv, tgt, src, b)
-    s2 = _check_window(name, nv_p2p, tgt[:4], p2p_rows, b)[1] if merged \
+    s2 = _check_window(name, nv_p2p, (), p2p_rows, b, g)[1] if merged \
         else 0
-    kw = dict(mode=mode, av=av, sign_bug=sign_bug, av_alpha=av_alpha,
-              av_beta=av_beta, balsara=balsara, energy=energy, grav=grav,
-              receiver_soft=receiver_soft, g_const=g_const)
     if not cuda:
         return pass2_plain(nv, tgt, src, nv_p2p=nv_p2p if merged else None,
-                           p2p_rows=p2p_rows if merged else None, **kw)
+                           p2p_rows=p2p_rows if merged else None, mode=mode,
+                           av=av, sign_bug=sign_bug, av_alpha=av_alpha,
+                           av_beta=av_beta, balsara=balsara, energy=energy,
+                           grav=grav, receiver_soft=receiver_soft,
+                           g_const=g_const)
     # the C interface takes every pointer by name; None is a null pointer
     tcols = list(tgt[:4]) + ([None] if mode == "reference_asymmetric"
                              else [tgt[4]])
@@ -484,12 +496,18 @@ def pass2(nv, tgt, src, *, b, mode="grad_h", av=False, sign_bug=False,
     if merged:
         prow = (p2p_rows[:3] + [None, p2p_rows[3]] if receiver_soft
                 else p2p_rows)
-    gp = _out(nv, g, b, 3)
-    avo = _out(nv, g, b, 3) if av else [None] * 3
-    dco = _out(nv, g, b, 4) if balsara else [None] * 4
-    duo = _out(nv, g, b, 1) if energy else [None]
-    gro = _out(nv, g, b, 4) if grav else [None] * 4
-    nd = _out(nv, g, b, 1, torch.int32) if grav else [None]
+    # every output of the call in one allocation, views in the return
+    # order; a block the flags switch off passes null pointers
+    full = (3, 3, 4, 1, 4)          # gp, av, div/curl, du, gravity
+    on = (True, av, balsara, energy, grav)
+    f32, i32 = _out_block(nv, g, b, sum(w for w, o in zip(full, on) if o),
+                          1 if grav else 0)
+    blocks, at = [], 0
+    for w, o in zip(full, on):
+        blocks.append(f32[at:at + w] if o else [None] * w)
+        at += w if o else 0
+    gp, avo, dco, duo, gro = blocks
+    nd = i32 or [None]
     _launch(name, [*tcols, *t_av, *rows, *prow, nv,
                    nv_p2p if merged else None, *gp, *avo, *dco, *duo, *gro,
                    *nd, g, b, s, s2, MODES.index(mode), int(sign_bug),
@@ -559,8 +577,10 @@ def gravity_fused(nv_ring, tgt, ring_rows, far_rows, accept, *, b,
                     + ([nv_p2p] if has_p2p else [])
                     + ([nv_blk] if has_blk else []))
     g, sr = _check_window(name, nv_ring, tgt, ring_rows, b)
-    sb = _check_window(name, nv_blk, tgt, blk_rows, b)[1] if has_blk else 0
-    sp = _check_window(name, nv_p2p, tgt, p2p_rows, b)[1] if has_p2p else 0
+    sb = _check_window(name, nv_blk, (), blk_rows, b, g)[1] if has_blk \
+        else 0
+    sp = _check_window(name, nv_p2p, (), p2p_rows, b, g)[1] if has_p2p \
+        else 0
     nbpad = far_rows[0].shape[1]
     for k, r in enumerate(far_rows):
         _need(name, f"far row {k}", r, (1, nbpad))

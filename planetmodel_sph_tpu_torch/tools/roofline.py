@@ -8,10 +8,11 @@ modeled floor (PyTorch port of ``tools/roofline.py``).
 Runs on the card unless ``--device cpu`` is given. Measures primitive
 rates (host dispatch latency, the device-memory stream, the f32 FMA rate
 through the ``probe_fma`` kernel, the fixed cost of a launch through
-``probe_launch``), loads the production operating point (the settled
-state), counts the pair-slot and gather work one force evaluation issues,
-and prints the modeled per-step floor beside the measured step time and
-the kernel launches a step actually made.
+``probe_launch``, as an eager wrapper call and inside a CUDA graph), loads
+the production operating point (the settled state), counts the pair-slot
+and gather work of one force evaluation, and prints the modeled
+per-step floor beside the measured step time and the kernel launches a
+step actually made.
 """
 
 from __future__ import annotations
@@ -105,11 +106,49 @@ def measure_vpu(k=16, reps=512, b=256, lanes=512, device="cuda"):
 
 
 def measure_launch(k=256, device="cuda"):
-    """Seconds per launch of a chain of k ``probe_launch`` calls, each on
-    the previous output, then one synchronize."""
+    """The cost of one launch, two ways: {"eager_s": seconds per wrapper
+    call of a chain of k ``probe_launch`` calls, each on the previous
+    output (k + 1 launches with the warm-up), "graph_s": seconds per
+    launch of the same chain captured once in a CUDA graph and replayed
+    (:func:`graph_launch`; None on the CPU, which has no graphs)}. The
+    eager number is the host's cost of a wrapper call, the one the
+    modeled floor charges; the graphed one is the counterpart of the
+    reference's chain of launches inside one jitted scan."""
     dev = resolve_device(device)
     x = torch.ones((8, 128), dtype=torch.float32, device=dev)
-    return chained(probes.probe_launch, x, k, dev)
+    eager = chained(probes.probe_launch, x, k, dev)
+    return {"eager_s": eager,
+            "graph_s": graph_launch(k, dev) if dev.type == "cuda" else None}
+
+
+def graph_launch(k=256, device="cuda", replays=20):
+    """Seconds per launch of a chain of k ``probe_launch`` calls captured
+    once in a ``torch.cuda.CUDAGraph`` and replayed `replays` times after
+    one warm-up replay, from a synchronize to a synchronize. The wrapper
+    launches (and counts) one warm-up call outside the capture and k calls
+    while capturing; a replay calls no wrapper. Card only."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"graph_launch: a CUDA graph needs a card, not "
+                           f"{dev}")
+    x = torch.ones((8, 128), dtype=torch.float32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        probes.probe_launch(x)              # loads the kernel
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = x
+        for _ in range(k):
+            y = probes.probe_launch(y)
+    graph.replay()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        graph.replay()
+    _sync(dev)
+    return (time.perf_counter() - t0) / (replays * k)
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +207,8 @@ OPS = {"pass1_sym": 38, "pass1_gradh": 26, "pass2": 40, "p2p": 38,
 def modeled_floor(cfg, w, vpu, hbm, launch):
     """The reference's per-step floor in seconds: every sweep's operations
     at the FMA rate, the gathers' bytes at the stream rate, three launches
-    and the amortized h-solve. Returns {part: seconds} with 'total'."""
+    at `launch` seconds each (the eager wrapper call's cost) and the
+    amortized h-solve. Returns {part: seconds} with 'total'."""
     p1 = OPS["pass1_gradh" if cfg.grad_p_mode == "grad_h"
              else "pass1_sym"]
     mono = OPS["mono"] + (OPS["quad_extra"]
@@ -221,11 +261,16 @@ def main(argv=None):
     disp = measure_dispatch(device=dev)
     hbm = measure_hbm(mb=64 if args.smoke else 512, device=dev)
     vpu = measure_vpu(reps=reps, device=dev)
-    launch = measure_launch(k=32 if args.smoke else 256, device=dev)
+    lat = measure_launch(k=32 if args.smoke else 256, device=dev)
+    launch = lat["eager_s"]
+    graphed = ("not measured (no CUDA graph on the CPU)"
+               if lat["graph_s"] is None
+               else f"{lat['graph_s'] * 1e6:8.2f} us")
     print(f"dispatch latency      {disp*1e6:8.2f} us/call")
     print(f"memory stream (r+w)   {hbm/1e9:8.1f} GB/s")
     print(f"f32 FMA-chain         {vpu/1e12:8.2f} Top/s (reps={reps})")
-    print(f"launch fixed          {launch*1e6:8.1f} us", flush=True)
+    print(f"launch fixed          {launch*1e6:8.2f} us (eager wrapper call)")
+    print(f"launch in a graph     {graphed}", flush=True)
 
     # --- operating-point work ---
     st = structure.build(state.pos, state.h, state.mass, cfg)
@@ -267,6 +312,7 @@ def main(argv=None):
         with open(args.json, "w") as f:
             json.dump({"device": name, "dispatch_s": disp, "hbm_Bps": hbm,
                        "vpu_ops": vpu, "vpu_reps": reps, "launch_s": launch,
+                       "launch_graph_s": lat["graph_s"],
                        "work": w, "floor": fl, "floor_s": fl["total"],
                        "measured_s": dt, "launches_per_step": per_step},
                       f, indent=1)

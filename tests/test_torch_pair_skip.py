@@ -4,8 +4,12 @@ keep exact when they visit only some pairs.
 The kernels visit only the live slots of a window (m != 0; padding and
 duplicates carry m = 0), pass 1 skips a pair with (r2 ih) ih >
 PSPH_Q2_SKIP before its square root, and pass 2 adds its SPH terms only
-where r ih_i < 2 or r ih_j < 2 (gravity still takes every live pair). The
-CUDA kernels run only on the card; here
+where r ih_i < 2 or r ih_j < 2 (gravity still takes every live pair).
+Neither leaves out a pair of a tile (PSPH_TILE slots) in which a live
+slot holds a non-finite staged value, nor one of a target with a
+non-finite column (``all_pairs``): in the plain versions a NaN or an
+infinity times a weight of 0 is NaN. The CUDA kernels run only on the
+card; here
 
 - the two tests are read from the sources as C expressions and evaluated
   on numpy float32 arrays (``_c_test``), and held, in numpy and as a
@@ -14,7 +18,12 @@ CUDA kernels run only on the card; here
 - the plain versions on inputs with dead slots and pairs at q = 2 +- 1 ulp
   are held against the same plain versions applied, target by target, to
   just the slots the kernels visit: counts bit-equal, sums within the
-  tolerances of tests/test_torch_groups2_modes.py.
+  tolerances of tests/test_torch_groups2_modes.py;
+- with a NaN (and an infinity) planted in each field the kernels stage,
+  one at a time, at a live slot outside the support of a target, or in a
+  target's own column, the pairs the kernels visit (their tests and the
+  all_pairs flags as the sources state them) give NaN exactly where the
+  plain version over every pair does.
 """
 
 import ast
@@ -50,8 +59,10 @@ def _skip_constant():
 
 Q2_SKIP = _skip_constant()
 
-# C's float functions with their NaN rules (fminf returns the other operand)
-_C_CALLS = {"fminf": np.fmin, "fmaxf": np.fmax, "sqrtf": np.sqrt}
+# C's float functions with their NaN rules (fminf returns the other
+# operand; psph_min, min.NaN.f32, returns NaN)
+_C_CALLS = {"fminf": np.fmin, "fmaxf": np.fmax, "sqrtf": np.sqrt,
+            "psph_min": np.minimum}
 
 
 def _c_test(expr):
@@ -103,19 +114,43 @@ def _c_test(expr):
 
 
 def _kernel_tests():
-    """pass1_gradh.cu's ih_skip and visit test, pass2.cu's SPH gate: the C
+    """pass1_gradh.cu's ih_skip and visit test, pass2.cu's SPH gate, the
+    all_pairs flag of both and pass2.cu's gravity softening: the C
     expressions as the sources have them."""
     p1, p2 = _source("pass1_gradh.cu"), _source("pass2.cu")
     ih_skip = re.search(r"const float ih_skip = ([^;]+);", p1)
     visit = re.search(r"if \((.*PSPH_Q2_SKIP.*)\) \{", p1)
     gate = re.search(r"if \((.*\br \* .*)\) \{\s*// inside the support",
                      p2)
-    assert ih_skip and visit and gate, "a kernel's pair test was not found"
-    return (_c_test(ih_skip.group(1)), _c_test(visit.group(1)),
-            _c_test(gate.group(1)))
+    flags = [re.search(r"const bool all_pairs = ([^;]+);", src)
+             for src in (p1, p2)]
+    ih_tile = re.search(r"const float ih_tile = ([^;]+);", p1)
+    ih_gate = re.search(r"const float ih_gate = ([^;]+);", p2)
+    soft = re.search(r"RECV \? ih : ([^,;]+\(ih, jh\))", p2)
+    assert ih_skip and visit and gate and all(flags) and ih_tile and \
+        ih_gate and soft, "a kernel's pair test was not found"
+    assert flags[0].group(1) == flags[1].group(1)
+    return (_c_test(ih_skip.group(1)), _c_test(ih_tile.group(1)),
+            _c_test(visit.group(1)), _c_test(ih_gate.group(1)),
+            _c_test(gate.group(1)), _c_test(flags[0].group(1)),
+            _c_test(soft.group(1)))
 
 
-IH_SKIP, P1_VISIT, P2_GATE = _kernel_tests()
+(IH_SKIP, IH_TILE, P1_TEST, IH_GATE, P2_TEST, ALL_PAIRS,
+ P2_SOFTENING) = _kernel_tests()
+
+
+def P1_VISIT(r2, ih_skip, PSPH_Q2_SKIP, all_pairs):
+    """pass1_gradh.cu's visit test: its skip on the tile's ih."""
+    return P1_TEST(r2=r2, PSPH_Q2_SKIP=PSPH_Q2_SKIP,
+                   ih_tile=IH_TILE(all_pairs=all_pairs, ih_skip=ih_skip))
+
+
+def P2_GATE(r, ih, jh, all_pairs):
+    """pass2.cu's SPH gate on the tile's ih."""
+    return P2_TEST(r=r, jh=jh, ih_gate=IH_GATE(all_pairs=all_pairs, ih=ih))
+TILE = int(re.search(r"#define\s+PSPH_TILE\s+(\d+)",
+                     _source("common.cuh")).group(1))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -127,10 +162,10 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _skipped(r2, ih):
+def _skipped(r2, ih, all_pairs=False):
     """pass1_gradh.cu's skip, in float32, as its source states it."""
-    return ~P1_VISIT(r2=r2, ih_skip=IH_SKIP(ih=ih),
-                     PSPH_Q2_SKIP=Q2_SKIP)
+    return ~P1_VISIT(r2=r2, ih_skip=IH_SKIP(ih=ih), PSPH_Q2_SKIP=Q2_SKIP,
+                     all_pairs=np.asarray(all_pairs))
 
 
 def _r2(dx, dy, dz):
@@ -162,12 +197,18 @@ def test_skip_constant_and_the_kernels_test():
          * (1 + k * 2.0 ** -24)).astype(np.float32)
     inside = r * np.minimum(ih, jh) < 2.0
     assert 0 < inside.sum() < n
-    np.testing.assert_array_equal(P2_GATE(r=r, ih=ih, jh=jh), inside)
+    off = np.zeros(n, bool)
+    np.testing.assert_array_equal(
+        P2_GATE(r=r, ih=ih, jh=jh, all_pairs=off), inside)
     far = np.float32(1e3)
     for r_, ih_, jh_ in ((far, 1.0, nan), (far, nan, 1.0), (nan, 1.0, 1.0),
                          (far, nan, nan)):
-        assert P2_GATE(r=r_, ih=ih_, jh=jh_), (r_, ih_, jh_)
-    assert not P2_GATE(r=far, ih=1.0, jh=1.0)
+        assert P2_GATE(r=r_, ih=ih_, jh=jh_, all_pairs=False), \
+            (r_, ih_, jh_)
+    assert not P2_GATE(r=far, ih=1.0, jh=1.0, all_pairs=False)
+    # the flag opens both tests for every pair
+    assert P2_GATE(r=far, ih=1.0, jh=1.0, all_pairs=True)
+    assert not _skipped(np.float32(1e6), np.float32(1.0), True)
 
 
 def _knife_edges(rng, n, rel):
@@ -279,7 +320,8 @@ def test_pass1_on_the_visited_pairs_matches(seed):
     rows = _t([src[0], src[1], src[2], src[4]])
     below, r2, tih = _geometry(nv, tgt, rows)
     live = below & (rows[3][:, None, :] != 0.0)
-    skip = torch.from_numpy(_skipped(r2.numpy(), tih.numpy()))
+    skip = torch.from_numpy(_skipped(r2.numpy(), tih.numpy(),
+                                     _all_pairs(nv, tgt, rows, 3).numpy()))
     keep = live & ~skip
     assert int((below & ~live).sum()) > 0 and int((live & skip).sum()) > 0
     # the knife edges are visited: q = 2 - 1 ulp counts, 2 and 2 + 1 ulp
@@ -296,13 +338,34 @@ def test_pass1_on_the_visited_pairs_matches(seed):
     _close(out[2], ref[2], 1e-5, 1e-6 * float(ref[2].abs().max()))
 
 
+def _all_pairs(nv, tgt, rows, m_row):
+    """[G, B, S] all_pairs as the kernels form it: ALL_PAIRS of the tile
+    flag (psph_compact: some live slot of the slot's tile, PSPH_TILE slots,
+    holds a non-finite value in one of the staged rows) and the target
+    flag (a non-finite value in one of the target's columns)."""
+    g, s = rows[0].shape
+    b = tgt[0].shape[0] // g
+    below = torch.arange(s)[None, :] < nv[:, None]
+    live = below & (rows[m_row] != 0.0)
+    bad = live & ~torch.stack([torch.isfinite(r) for r in rows]).all(0)
+    pad = -s % TILE
+    tiles = torch.nn.functional.pad(bad, (0, pad)).reshape(g, -1, TILE)
+    tile_bad = tiles.any(dim=2).repeat_interleave(TILE, dim=1)[:, :s]
+    target_bad = ~torch.stack([torch.isfinite(c.reshape(g, b))
+                               for c in tgt]).all(0)
+    return torch.from_numpy(np.asarray(ALL_PAIRS(
+        tile_bad=tile_bad[:, None, :].numpy(),
+        target_bad=target_bad[:, :, None].numpy()))).expand(g, b, s)
+
+
 def _gate(nv, tgt, src):
     """Live SPH pairs and those that pass pass2.cu's gate."""
     below, r2, tih = _geometry(nv, tgt, src)
     live = below & (src[4][:, None, :] != 0.0)
     r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
     gate = P2_GATE(r=r.numpy(), ih=tih.numpy(),
-                   jh=src[3][:, None, :].numpy())
+                   jh=src[3][:, None, :].numpy(),
+                   all_pairs=_all_pairs(nv, tgt, src, 4).numpy())
     inside = live & torch.from_numpy(np.asarray(gate))
     return live.expand(inside.shape), inside
 
@@ -341,33 +404,33 @@ def _live_window(nv, rows, b):
     return _visited(nv, rows, keep)
 
 
-@pytest.mark.parametrize("case", sorted(PASS2_CASES))
-def test_pass2_on_the_visited_pairs_matches(case):
-    f = PASS2_CASES[case]
-    nv, tgt, src, pkw = _pass2_inputs(3, f["mode"], f["av"], f["balsara"],
-                                      f["merged"], f["receiver"],
-                                      energy=f["energy"])
+def _pass2_case(f, seed=3):
+    """(nv, tgt, src, kw, tkw) of a pass-2 case with the knife edges."""
+    nv, tgt, src, pkw = _pass2_inputs(seed, f["mode"], f["av"],
+                                      f["balsara"], f["merged"],
+                                      f["receiver"], energy=f["energy"])
     _plant_knife_edges(nv, tgt, src)
-    gi = _plant_nans(nv, tgt, src)
-    nv, tgt, src = torch.from_numpy(nv), _t(tgt), _t(src)
     kw = dict(mode=f["mode"], av=f["av"], balsara=f["balsara"],
               energy=f["energy"], sign_bug=f["sign_bug"], av_alpha=1.0,
               av_beta=2.0, receiver_soft=f["receiver"], g_const=0.7)
+    return nv, tgt, src, kw, pkw
+
+
+def _pass2_visited(nv, tgt, src, kw, pkw, f):
+    """(the plain version over every pair, the plain version over the
+    pairs pass2.cu visits, live, inside): the SPH terms from the pairs
+    inside the gate, gravity and n_direct from every live slot of both
+    windows."""
+    nv, tgt, src = torch.from_numpy(nv), _t(tgt), _t(src)
     tkw = {}
     if f["merged"]:
         tkw = dict(nv_p2p=torch.from_numpy(pkw["nv_p2p"]),
                    p2p_rows=_t(pkw["p2p_rows"]))
     ref = tk.pass2_plain(nv, tgt, src, grav=f["grav"], **kw, **tkw)
     live, inside = _gate(nv, tgt, src)
-    assert int((live & ~inside).sum()) > 0          # the gate drops pairs
-    # the NaN source ih is visited by the target outside its support
-    assert bool(inside[gi, 0, 14])
-    assert torch.equal(inside[gi, 1], live[gi, 1])  # the NaN target's
-    # the SPH terms from the pairs inside the gate alone
     nv_s, rows_s = _visited(nv, src, inside)
     out = list(tk.pass2_plain(nv_s, tgt, rows_s, grav=False, **kw))
     if f["grav"]:
-        # gravity and n_direct from every live slot of both windows
         nv_g, rows_g = _visited(nv, src, live)
         gkw = {}
         if f["merged"]:
@@ -375,7 +438,154 @@ def test_pass2_on_the_visited_pairs_matches(case):
             gkw = dict(nv_p2p=nv_p, p2p_rows=rows_p)
         out += list(tk.pass2_plain(nv_g, tgt, rows_g, grav=True, **kw,
                                    **gkw))[-5:]
+    return ref, out, live, inside
+
+
+@pytest.mark.parametrize("case", sorted(PASS2_CASES))
+def test_pass2_on_the_visited_pairs_matches(case):
+    f = PASS2_CASES[case]
+    nv, tgt, src, kw, pkw = _pass2_case(f)
+    gi = _plant_nans(nv, tgt, src)
+    ref, out, live, inside = _pass2_visited(nv, tgt, src, kw, pkw, f)
+    assert int((live & ~inside).sum()) > 0          # the gate drops pairs
+    # the NaN source ih is visited by the target outside its support
+    assert bool(inside[gi, 0, 14])
+    assert torch.equal(inside[gi, 1], live[gi, 1])  # the NaN target's
     _check_pass2_nans(out, ref, f)
+
+
+def _check_non_finite(out, ref, check):
+    """NaN and infinities at the same places (same infinities), the rest
+    held by check(out, ref) with the non-finite places set to 0."""
+    fixed = [[], []]
+    for o, r in zip(out, ref):
+        if not r.is_floating_point():
+            fixed[0].append(o)
+            fixed[1].append(r)
+            continue
+        assert torch.equal(torch.isnan(o), torch.isnan(r))
+        inf = torch.isinf(r)
+        assert torch.equal(torch.isinf(o), inf)
+        assert torch.equal(o[inf], r[inf])
+        fin = torch.isfinite(r)
+        fixed[0].append(torch.where(fin, o, 0.0))
+        fixed[1].append(torch.where(fin, r, 0.0))
+    check(*fixed)
+
+
+SRC_NAMES = ("x", "y", "z", "ih", "m", "cc", "vx", "vy", "vz", "h", "cs",
+             "rho", "f")
+
+
+def _tgt_names(f):
+    names = ["x", "y", "z", "ih"] + (
+        [] if f["mode"] == "reference_asymmetric" else ["tc"])
+    if f["av"]:
+        names += ["vx", "vy", "vz", "h", "cs", "rho"] + (
+            ["f"] if f["balsara"] else [])
+    elif f["energy"]:
+        names += ["vx", "vy", "vz"]
+    return names
+
+
+# three forms that between them stage every row pass2.cu has: viscosity,
+# Balsara, energy and the merged gravity; the energy equation's velocities
+# without viscosity; the asymmetric form without a target coefficient
+NAN_CASES = ("grad_h+av+balsara+energy+merged", "symmetric+energy",
+             "asymmetric+sign_bug+av+balsara")
+NAN_FIELDS = [(c, side, k) for c in NAN_CASES
+              for side, n in (("source", len(SRC_NAMES) if "balsara" in c
+                               else 9), ("target", len(_tgt_names(
+                                   PASS2_CASES[c]))))
+              for k in range(n)]
+
+
+def _field_id(c, side, k):
+    names = SRC_NAMES if side == "source" else _tgt_names(PASS2_CASES[c])
+    return f"{c}-{side}-{names[k]}"
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf], ids=["nan", "inf"])
+@pytest.mark.parametrize("case,side,k", NAN_FIELDS,
+                         ids=[_field_id(*f) for f in NAN_FIELDS])
+def test_pass2_non_finite_field_reaches_as_in_the_plain_version(
+        case, side, k, value):
+    """One non-finite value in one staged row, at a live slot outside
+    both supports of target 0 (at the origin, ih = 2; the slot at r = 5
+    with ih 1), or in target 0's own column: the pairs pass2.cu visits
+    give non-finite outputs exactly where the plain version does."""
+    f = PASS2_CASES[case]
+    nv, tgt, src, kw, pkw = _pass2_case(f, seed=5)
+    g, b = src[0].shape[0], tgt[0].shape[0] // src[0].shape[0]
+    gi = int(np.nonzero(nv > 16)[0][-1])
+    src[0][gi, 14], src[1][gi, 14], src[2][gi, 14] = 5.0, 0.0, 0.0
+    src[3][gi, 14], src[4][gi, 14] = 1.0, 1.0
+    if side == "source":
+        src[k][gi, 14] = value
+    else:
+        tgt[k][gi * b] = value
+    ref, out, live, inside = _pass2_visited(nv, tgt, src, kw, pkw, f)
+    assert len(src) == (9 if case == "symmetric+energy" else 13)
+    if value is np.nan and side == "source" and SRC_NAMES[k] in ("m", "cc"):
+        assert any(bool(torch.isnan(r).any()) for r in ref)
+    _check_non_finite(out, ref, lambda o, r: _check_pass2(o, r, f))
+
+
+P1_FIELDS = {"x": ("source", 0), "y": ("source", 1), "z": ("source", 2),
+             "m": ("source", 3), "target x": ("target", 0),
+             "target ih": ("target", 3)}
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf], ids=["nan", "inf"])
+@pytest.mark.parametrize("field", sorted(P1_FIELDS))
+def test_pass1_non_finite_field_reaches_as_in_the_plain_version(field,
+                                                                 value):
+    """pass1_gradh the same way: a non-finite x, y, z or m at a live slot
+    far outside the support of target 0, or in target 0's x or ih."""
+    nv, tgt, src = _case(6)
+    _plant_knife_edges(nv, tgt, src)
+    gi = int(np.nonzero(nv > 16)[0][-1])
+    src[0][gi, 14], src[1][gi, 14], src[2][gi, 14] = 5.0, 0.0, 0.0
+    src[4][gi, 14] = 1.0
+    rows = [src[0], src[1], src[2], src[4]]
+    side, k = P1_FIELDS[field]
+    if side == "source":
+        rows[k][gi, 14] = value
+    else:
+        tgt[k][gi * B] = value
+    nv, tgt, rows = torch.from_numpy(nv), _t(_cols(tgt)), _t(rows)
+    below, r2, tih = _geometry(nv, tgt, rows)
+    live = below & (rows[3][:, None, :] != 0.0)
+    skip = torch.from_numpy(_skipped(r2.numpy(), tih.numpy(),
+                                     _all_pairs(nv, tgt, rows, 3).numpy()))
+    ref = tk.pass1_gradh_plain(nv, tgt, rows)
+    out = tk.pass1_gradh_plain(*_visited(nv, rows, live & ~skip)[:1], tgt,
+                               _visited(nv, rows, live & ~skip)[1])
+    if value is np.nan and field == "m":
+        assert bool(torch.isnan(ref[0]).any())
+
+    def check(o, r):
+        _close(o[1], r[1], 0)
+        _close(o[0], r[0], 2e-6)
+        _close(o[2], r[2], 1e-5, 1e-6 * float(r[2].abs().max()))
+    _check_non_finite(out, ref, check)
+
+
+def test_gravity_softening_propagates_a_nan_ih():
+    """pass2.cu softens with psph_min (min.NaN.f32), NaN when either ih
+    is, as the plain version's torch.minimum; common.cuh's P2P window
+    (p2p, gravity_fused) calls the same."""
+    nan = np.float32(np.nan)
+    got = P2_SOFTENING(ih=np.array([1.0, nan, 2.0], np.float32),
+                       jh=np.array([nan, 1.0, 3.0], np.float32))
+    assert np.isnan(got[:2]).all() and got[2] == 2.0
+    common = _source("common.cuh")
+    assert "RECV ? ih : psph_min(ih, c[3][j])" in common
+    assert 'asm("min.NaN.f32' in common
+    for name in ("common.cuh", "pass2.cu"):
+        assert "fminf(ih" not in _source(name), name
+    t = torch.tensor
+    assert torch.isnan(torch.minimum(t([1.0]), t([float("nan")]))).all()
 
 
 def test_visited_rows_keep_slot_order():
@@ -395,3 +605,23 @@ def test_cases_cover_both_windows_and_every_flag():
     for key in ("sign_bug", "av", "balsara", "energy", "grav", "merged",
                 "receiver"):
         assert any(f[key] for f in fs), key
+
+
+def test_standing_nan_differences_of_the_other_kernels():
+    """Recorded in ROADMAP Queue C: three kernels outside this repair still
+    drop a NaN where their plain versions keep it. filter_sph's cut takes
+    fmaxf (a NaN cut keeps the other operand; torch.maximum gives NaN and
+    the pair fails r2 < cut^2); pairwise_pass1 softens gravity with fminf
+    (torch.minimum gives NaN); both all-pairs kernels leave out a pair
+    with q_i, q_j >= 2 whatever its fields hold. When a kernel is repaired,
+    this test and the record change together."""
+    nan = np.float32(np.nan)
+    flt = _source("filter_sph.cu")
+    assert "fmaxf(tgt[3 * b + i], cc)" in flt
+    assert _c_test("fmaxf(a, c)")(a=nan, c=1.0) == 1.0
+    assert torch.isnan(torch.maximum(torch.tensor(nan), torch.tensor(1.0)))
+    pw1, pw2 = _source("pairwise_pass1.cu"), _source("pairwise_pass2.cu")
+    assert "receiver_soft ? ih : fminf(ih, jh)" in pw1
+    assert _c_test("fminf(ih, jh)")(ih=1.0, jh=nan) == 1.0
+    assert "if (qi < 2.0f || qj < 2.0f) {" in pw1
+    assert "if (!(qi < 2.0f || qj < 2.0f)) continue;" in pw2

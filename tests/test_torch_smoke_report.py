@@ -146,7 +146,12 @@ def test_nan_agreement_plants_nans_that_reach_the_outputs(pass1):
                   p2p_rows=_t(pkw["p2p_rows"]))
     name = "pass1_gradh" if pass1 else "pass2"
     a = (torch.from_numpy(nv), tuple(_t(tgt)), tuple(_t(rows)))
-    assert cs.nan_agreement(name, a, dict(kw, b=B)) is None
+    msg, reached = cs.nan_agreement(name, a, dict(kw, b=B))
+    assert msg is None
+    # every field the check plants (x with a target ih and m in pass 1;
+    # ih, m and cc in pass 2) reaches an output of the plain version
+    assert set(reached) == ({"x+ih", "m"} if pass1 else {"ih", "m", "cc"})
+    assert all(reached.values())
     # the inputs themselves are left as they were
     assert all(bool(torch.isfinite(t).all()) for t in a[1] + a[2])
 
