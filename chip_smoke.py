@@ -32,16 +32,23 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    are held against theirs on primed ``ics.jupiter`` particles at n = 3000
    and n = 32768: pass 1 with both softenings, pass 2 symmetric, asymmetric
    with the sign bug, and symmetric with viscosity and the Balsara limiter
-   on a rotating, contracting velocity field. For every case of the two
-   compacted sweeps (``pass1_gradh``, ``pass2``) it also prints the share
-   of slots below nv that are live and of live pairs inside the support,
-   the instance's registers, shared memory and spills from the build's
-   ``-Xptxas -v`` log (phase 2 prints every instance), and holds a second
-   launch on the same inputs to the same bits. In every case of
-   ``pass1_gradh``, ``pass2``, ``p2p`` and ``gravity_fused`` it plants
-   NaNs, one field at a time (m, cc, a velocity row, ih), where a sweep
-   leaves out work: each output must be NaN exactly where the plain
-   version's is. Every case prints its wrapper time ``ms`` (CUDA events
+   on a rotating, contracting velocity field. For every case of the four
+   redesigned kernels it also prints what the kernel visits (the two
+   compacted sweeps ``pass1_gradh`` and ``pass2``: the share of slots
+   below nv that are live and of live pairs inside the support;
+   ``gravity_fused``: the far entries accepted and live, the ring and blk
+   slots live; ``filter_sph``: the live slots kept and pre-rejected whole
+   by the bounding boxes, the boxes whose targets a live slot tests and
+   its exact tests beside the tests the bound charges), the instance's
+   registers, shared memory and spills from the build's ``-Xptxas -v``
+   log (phase 2 prints every instance), and holds a second launch on the
+   same inputs to the same bits. In every case of ``pass1_gradh``,
+   ``pass2``, ``p2p``, ``gravity_fused`` and ``filter_sph`` it plants
+   NaNs, one field at a time (m, cc, a velocity row, ih; for the filter x,
+   sc, ssk and m of a slot it keeps, tc and tsk of its group's targets),
+   where a kernel leaves out work: each output must be NaN exactly where
+   the plain version's is (the filter's mask equal to it). Every case
+   prints its wrapper time ``ms`` (CUDA events
    from before the wrapper's host work to after its kernel) beside
    ``device_ms`` (the kernel's own duration, torch.profiler), and the
    production ``pass1_gradh`` and ``pass2`` their host time a wrapper call
@@ -103,9 +110,10 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    calls;
 7. only with ``--parent DIR``, DIR a checkout of another commit (unpacked
    with ``git archive`` into a git-ignored directory): phase 2 also builds
-   DIR's ``pass1_gradh`` and ``pass2`` into DIR's own build directory,
-   phase 4 times them and this checkout's in turns (parent, this, this,
-   parent) on each case's inputs, and this phase times the two probes
+   DIR's ``pass1_gradh``, ``pass2``, ``gravity_fused`` and ``filter_sph``
+   into DIR's own build directory, phase 4 times them and this
+   checkout's in turns (parent, this, this, parent) on each case's
+   inputs, and this phase times the two probes
    (``probe_launch`` in a chain beside ``torch.mul``, ``probe_gather``
    beside ``packed[idx]``) and runs the production step from both
    checkouts, each in its own processes, in the same turns (``bench
@@ -330,6 +338,10 @@ PROBES = ("probe_fma", "probe_launch", "probe_gather", "probe_pass1_tile")
 # prints the share of slots they visit and of pairs inside the support,
 # and holds two launches on the same inputs to the same bits
 COMPACTED = ("pass1_gradh", "pass2")
+# the kernels redesigned for this card: phase 4 prints what each case
+# visits, each instance's registers and spills and holds two launches to
+# the same bits; with --parent it times the other checkout's in turns
+REDESIGNED = COMPACTED + ("gravity_fused", "filter_sph")
 
 # Tolerances, kernel against plain version, both f32 on the card. The two
 # sum the same terms in different orders (the kernel sequentially per
@@ -1255,11 +1267,17 @@ def ptxas_instances(log):
     return out
 
 
-def instance_key(name, kw):
+def instance_key(name, kw, a=None):
     """The template arguments of the instance a call launches (pass2: mode,
     sign bug, viscosity, Balsara, gravity 0/1/2, receiver softening,
-    energy, as pass2.cu orders them; pass1_gradh has none)."""
+    energy, as pass2.cu orders them; gravity_fused: its near tier 0/1/2
+    and the moment fields of the ring rows `a[2]`; pass1_gradh and
+    filter_sph have none)."""
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    if name == "gravity_fused":
+        near = (2 if kw.get("receiver_soft") else 1) \
+            if kw.get("p2p_rows") is not None else 0
+        return (name, (near, len(a[2])))
     if name != "pass2":
         return (name, ())
     grav = (2 if kw.get("p2p_rows") is not None else 1) if kw.get("grav") \
@@ -1271,12 +1289,135 @@ def instance_key(name, kw):
                    int(kw.get("energy", False))))
 
 
+def _cu_define(source, name):
+    """The value of ``#define name <number>[f]`` in csrc/<source>."""
+    import re
+    with open(os.path.join(ROOT, KERNELS[source][0])) as f:
+        m = re.search(rf"#define\s+{name}\s+([0-9.eE+-]+)f?\b", f.read())
+    if not m:
+        raise RuntimeError(f"{name} not found in {KERNELS[source][0]}")
+    return float(m.group(1))
+
+
+def _gravity_shares(a, kw):
+    """What gravity_fused evaluates: the far entries accepted with m > 0
+    among all (group, entry) slots, and the ring (and blk) slots below nv
+    with m > 0 among those below nv."""
+    import torch
+    nv, tgt, ring, far, acc = a
+
+    def window(nv_w, m):
+        slot = torch.arange(m.shape[1], device=nv_w.device)[None, :] \
+            < nv_w[:, None]
+        below, live = _n(slot), _n(slot & (m > 0.0))
+        return below, live, live / max(below, 1)
+
+    far_live = _n((acc > 0.5) & (far[0] > 0.0))
+    out = dict(far_entries=acc.numel(), far_live=far_live,
+               far_live_share=far_live / max(acc.numel(), 1))
+    (out["ring_slots_below_nv"], out["ring_live"],
+     out["ring_live_share"]) = window(nv, ring[0])
+    if kw.get("blk_rows") is not None:
+        (out["blk_slots_below_nv"], out["blk_live"],
+         out["blk_live_share"]) = window(kw["nv_blk"], kw["blk_rows"][0])
+    return out
+
+
+def _filter_shares(a, kw):
+    """What filter_sph visits, modelled as filter_sph.cu decides: of the
+    live slots (below nv, m > 0), the share kept, the share the bounding
+    boxes of PSPH_FILTER_BOX targets pre-reject whole, the boxes whose
+    targets a live slot tests (every box that does not pre-reject it) and
+    the exact tests it makes (each such box's targets in order, to the
+    first hit), beside the tests the bound charges (every target up to the
+    first hit)."""
+    import torch
+    nv, tgt, src = a
+    g, s = src[0].shape
+    b = tgt[0].shape[0] // g
+    size = int(_cu_define("filter_sph", "PSPH_FILTER_BOX"))
+    margin = _cu_define("filter_sph", "PSPH_FILTER_MARGIN")
+    nbox = -(-b // size)
+    pad = nbox * size - b
+    nan = float("nan")
+    live_n = kept = rejected = boxes = tests = charged = 0
+    for g0, g1 in _group_slices(g):
+        gs = g1 - g0
+        tx, ty, tz, tc, tsk = (c[g0 * b:g1 * b].reshape(gs, b, 1)
+                               for c in tgt)
+        sx, sy, sz, sc, ssk, sm = (r[g0:g1, None, :] for r in src)
+        live = _live(nv[g0:g1], sm)[:, 0, :]
+        dxx, dxy, dxz = tx - sx, ty - sy, tz - sz
+        r2 = dxx * dxx + dxy * dxy + dxz * dxz
+        cut = torch.maximum(tc, sc) + tsk + ssk
+        hit = (r2 < cut * cut) & live[:, None, :]           # [gs, b, S]
+        del dxx, dxy, dxz, r2, cut
+        first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1, b)
+        charged += int(torch.where(live, first, 0).sum())
+        # boxes of `size` targets in order (the last one shorter)
+        hitp = torch.nn.functional.pad(hit, (0, 0, 0, pad))
+        hitb = hitp.reshape(gs, nbox, size, s)
+        del hit, hitp
+        any_b = hitb.any(dim=2)                               # [gs, nbox, S]
+        first_b = hitb.int().argmax(dim=2) + 1
+        del hitb
+        bx, by, bz, bc, bk = (torch.nn.functional.pad(c[:, :, 0], (0, pad))
+                              .reshape(gs, nbox, size)
+                              for c in (tx, ty, tz, tc, tsk))
+        valid = (torch.arange(nbox * size, device=nv.device)
+                 < b).reshape(1, nbox, size)
+        big = torch.tensor(float("inf"), device=nv.device)
+        lo = [torch.where(valid, v, big).amin(dim=2)[..., None]
+              for v in (bx, by, bz)]
+        hi = [torch.where(valid, v, -big).amax(dim=2)[..., None]
+              for v in (bx, by, bz)]
+        fin = torch.ones_like(valid.expand(gs, -1, -1))
+        for v in (bx, by, bz, bc, bk):
+            fin = fin & (torch.isfinite(v) | ~valid)
+        fin = fin & (((bc >= 0.0) & (bk >= 0.0)) | ~valid)
+        cmax = torch.where(fin.all(dim=2),
+                           torch.where(valid, bc, -big).amax(dim=2),
+                           nan)[..., None]
+        kmax = torch.where(valid, bk, -big).amax(dim=2)[..., None]
+        sfin = (torch.isfinite(sx) & torch.isfinite(sy) & torch.isfinite(sz)
+                & torch.isfinite(sc) & torch.isfinite(ssk) & (sc >= 0.0)
+                & (ssk >= 0.0))
+        sc_pre = torch.where(sfin, sc, nan)
+        gap = [torch.clamp(torch.maximum(lo[k] - c, c - hi[k]), min=0.0)
+               for k, c in enumerate((sx, sy, sz))]
+        d2 = gap[0] * gap[0] + gap[1] * gap[1] + gap[2] * gap[2]
+        cut_max = torch.maximum(cmax, sc_pre) + kmax + ssk
+        met_ok = ~(d2 >= cut_max * cut_max * margin)          # [gs, nbox, S]
+        del gap, d2, cut_max
+        tested = met_ok & live[:, None, :]
+        sizes = torch.full((nbox,), size, device=nv.device)
+        sizes[-1] = b - (nbox - 1) * size
+        n_tests = torch.where(any_b, first_b, sizes[None, :, None])
+        live_n += _n(live)
+        kept += _n(live & any_b.any(dim=1))
+        rejected += _n(live & ~met_ok.any(dim=1))
+        boxes += _n(tested)
+        tests += int(torch.where(tested, n_tests, 0).sum())
+    return dict(live_slots=live_n, kept=kept, kept_share=kept / max(live_n, 1),
+                prerejected=rejected,
+                prereject_share=rejected / max(live_n, 1),
+                boxes_tested=boxes / max(live_n, 1),
+                tests=tests, tests_per_live=tests / max(live_n, 1),
+                charged_per_live=charged / max(live_n, 1))
+
+
 def window_shares(name, a, kw):
     """What the compacted sweeps visit: the share of window slots below nv
     that are live (m != 0), and of the live (target, slot) pairs the share
     inside the support (q < 2 for pass 1; r min(ih_i, ih_j) < 2, where
-    pass 2 adds its SPH terms); with a merged P2P window its live share."""
+    pass 2 adds its SPH terms); with a merged P2P window its live share.
+    gravity_fused and filter_sph: :func:`_gravity_shares`,
+    :func:`_filter_shares`."""
     import torch
+    if name == "gravity_fused":
+        return _gravity_shares(a, kw)
+    if name == "filter_sph":
+        return _filter_shares(a, kw)
     nv, tgt, src = a
     g, s = src[0].shape
     b = tgt[0].shape[0] // g
@@ -1319,7 +1460,7 @@ def same_bits(out, again) -> bool:
 
 
 # the kernels whose planted NaNs phase 4 holds against the plain versions
-NAN_CHECKED = ("pass1_gradh", "pass2", "p2p", "gravity_fused")
+NAN_CHECKED = ("pass1_gradh", "pass2", "p2p", "gravity_fused", "filter_sph")
 
 
 def _live_slot(nv, m_row, gi=None):
@@ -1334,6 +1475,45 @@ def _live_slot(nv, m_row, gi=None):
     return gi, int(torch.nonzero(live[gi])[-1])
 
 
+def _with_nan(seq, k, at):
+    """seq with a copy of its k-th tensor that holds a NaN at `at`."""
+    seq = list(seq)
+    seq[k] = seq[k].clone()
+    seq[k][at] = float("nan")
+    return seq
+
+
+def _filter_plantings(a, kw):
+    """filter_sph's plantings, as :func:`nan_plantings` gives them: a NaN
+    in the source x, sc, ssk or m of the last slot the plain version keeps
+    in the first group that keeps one, and in tc or tsk of every target of
+    that group. Each must drop what it touches: a NaN cut or r2 fails the
+    test (the planted slot, or every slot of the group), and a NaN m fails
+    m > 0."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    b = kw["b"]
+    nv, tgt, src = a
+    for g0, g1 in _group_slices(n_groups(a)):
+        keep = gk2.filter_sph_plain(*slice_args(a, kw, g0, g1)[0])
+        groups = torch.nonzero(keep.any(dim=1))
+        if len(groups):
+            gi = g0 + int(groups[0])
+            j = int(torch.nonzero(keep[gi - g0])[-1])
+            break
+    else:
+        raise RuntimeError("filter_sph: no slot kept to plant a NaN at")
+    out = []
+    for label, k in (("x", 0), ("sc", 3), ("ssk", 4), ("m", 5)):
+        out.append((label, (nv, type(tgt)(tgt),
+                            type(src)(_with_nan(src, k, (gi, j)))), kw, gi,
+                    True))
+    for label, k in (("tc", 3), ("tsk", 4)):
+        out.append((label, (nv, type(tgt)(_with_nan(
+            tgt, k, slice(gi * b, (gi + 1) * b))), src), kw, gi, True))
+    return out
+
+
 def nan_plantings(name, a, kw):
     """The NaNs phase 4 plants in one kernel call, one planting a launch:
     [(label, args, keywords, group, must_reach)]. Each puts a NaN in one
@@ -1346,8 +1526,10 @@ def nan_plantings(name, a, kw):
     and the near tier's). `must_reach`: the plain version's outputs hold a
     NaN for this planting whatever the inputs (a NaN m of the ring and far
     tiers is masked out by m > 0, a NaN velocity meets no viscosity where
-    no pair approaches)."""
+    no pair approaches). filter_sph: :func:`_filter_plantings`."""
     import torch
+    if name == "filter_sph":
+        return _filter_plantings(a, kw)
     b = kw["b"]
     nv, tgt = a[0], list(a[1])
     if name == "gravity_fused":
@@ -1368,14 +1550,8 @@ def nan_plantings(name, a, kw):
         prow = list(kw["p2p_rows"])
         _, jp = _live_slot(kw["nv_p2p"], prow[-1], gi)
 
-    def with_nan(seq, k, at):
-        seq = list(seq)
-        seq[k] = seq[k].clone()
-        seq[k][at] = float("nan")
-        return seq
-
     def target_ih():
-        return with_nan(tgt, 3, gi * b + min(1, b - 1))
+        return _with_nan(tgt, 3, gi * b + min(1, b - 1))
 
     out = []
     labels = list(fields) + (["ih"] if name == "gravity_fused" else [])
@@ -1384,12 +1560,12 @@ def nan_plantings(name, a, kw):
         if label in ("x", "ih"):
             t = target_ih()
         if label in fields:
-            r = with_nan(rows, fields[label], (gi, j))
+            r = _with_nan(rows, fields[label], (gi, j))
         if near and label == "m":
-            k2["p2p_rows"] = with_nan(prow, len(prow) - 1, (gi, jp))
+            k2["p2p_rows"] = _with_nan(prow, len(prow) - 1, (gi, jp))
         if near and label == "ih" and name == "gravity_fused" \
                 and not kw.get("receiver_soft", False):
-            k2["p2p_rows"] = with_nan(prow, 3, (gi, jp))
+            k2["p2p_rows"] = _with_nan(prow, 3, (gi, jp))
         reach = {"pass1_gradh": True, "pass2": label != "velocity",
                  "p2p": label == "m",
                  "gravity_fused": near and label == "m"}[name]
@@ -1402,15 +1578,19 @@ def nan_agreement(name, a, kw):
     """NaNs planted one field at a time (nan_plantings): for the planted
     group, the kernel's outputs must be NaN and infinite exactly where the
     plain version's are, counts equal, and the finite values within the
-    case's tolerances. Returns (message or None, {label: reached})."""
+    case's tolerances (filter_sph: its mask row equal, the planting
+    reaching it when the row differs from the unplanted one). Returns
+    (message or None, {label: reached})."""
     import torch
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
     b = kw["b"]
+    rows_out = name == "filter_sph"         # a [G, S] mask, not columns
     reached = {}
     for label, pa, pkw, gi, must in nan_plantings(name, a, kw):
         out = getattr(gk2, name)(*pa, **pkw)
         out = out if isinstance(out, tuple) else (out,)
-        out = tuple(o[gi * b:(gi + 1) * b] for o in out)
+        out = tuple(o[gi:gi + 1] if rows_out else o[gi * b:(gi + 1) * b]
+                    for o in out)
         sa, skw = slice_args(pa, pkw, gi, gi + 1)
         ref = getattr(gk2, name + "_plain")(*sa, **skw)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -1430,8 +1610,13 @@ def nan_agreement(name, a, kw):
                         f"{int(torch.isinf(o).sum())}, the plain version at "
                         f"{int(torch.isnan(r).sum())} and {int(inf.sum())}"
                         ), reached
-        reached[label] = any(bool(torch.isnan(r).any()) for r in ref
-                             if r.is_floating_point())
+        if rows_out:
+            base = getattr(gk2, name + "_plain")(
+                *slice_args(a, kw, gi, gi + 1)[0])
+            reached[label] = not torch.equal(ref[0], base)
+        else:
+            reached[label] = any(bool(torch.isnan(r).any()) for r in ref
+                                 if r.is_floating_point())
         if must and not reached[label]:
             return (f"{label}: the planted NaN reached no output of the "
                     "plain version"), reached
@@ -1459,7 +1644,7 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
     torch.cuda.synchronize()
     ok, err, msgs = compare(name, out, ref, kw)
     extra = {}
-    if name in COMPACTED:
+    if name in REDESIGNED:
         again = wrapper(*a, **kw)
         torch.cuda.synchronize()
         extra["same_bits"] = same_bits(out, again)
@@ -1468,7 +1653,7 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
             msgs.append("two launches on the same inputs differ")
         del again
         extra["shares"] = window_shares(name, a, kw)
-        extra["ptxas"] = (ptxas or {}).get(instance_key(name, kw))
+        extra["ptxas"] = (ptxas or {}).get(instance_key(name, kw, a))
     if name in NAN_CHECKED:
         nan_msg, extra["nan_reached"] = nan_agreement(name, a, kw)
         extra["nan_agrees"] = nan_msg is None
@@ -1509,18 +1694,8 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
           f"max_abs_err={err:.3e} ms={ms:.4f} device_ms={fmt_ms(dev_ms)}{hus} "
           f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
           f"shapes={shapes}", flush=True)
-    if name in COMPACTED:
-        sh, px = extra["shares"], extra["ptxas"] or {}
-        p2p = (f", P2P window live {sh['p2p_live_share']:.4f}"
-               if "p2p_live_share" in sh else "")
-        print(f"  {label}: live {sh['live_share']:.4f} of "
-              f"{sh['slots_below_nv']} slots below nv{p2p}, inside the "
-              f"support {sh['inside_share']:.4f} of {sh['live_pairs']} live "
-              f"pairs; {px.get('regs')} registers, {px.get('smem')} B "
-              f"shared, spills {px.get('spill_stores')}/"
-              f"{px.get('spill_loads')} B; two launches "
-              f"{'bit-identical' if extra['same_bits'] else 'DIFFER'}",
-              flush=True)
+    if name in REDESIGNED:
+        print(f"  {label}: {visits_line(name, extra)}", flush=True)
     if name in NAN_CHECKED:
         got = ", ".join(f"{k} {'reached' if v else 'masked'}"
                         for k, v in extra["nan_reached"].items())
@@ -1540,6 +1715,36 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, bytes=nbytes, ops=ops, shapes=shapes,
                 messages=msgs, **extra)
+
+
+def visits_line(name, extra):
+    """The per-case line of a redesigned kernel: what it visits (its
+    window_shares), its instance's registers, shared memory and spills,
+    and whether two launches gave the same bits."""
+    sh, px = extra["shares"], extra["ptxas"] or {}
+    if name == "gravity_fused":
+        blk = (f", blk live {sh['blk_live_share']:.4f} of "
+               f"{sh['blk_slots_below_nv']}" if "blk_live" in sh else "")
+        what = (f"far accepted and live {sh['far_live_share']:.4f} of "
+                f"{sh['far_entries']} (group, entry) slots, ring live "
+                f"{sh['ring_live_share']:.4f} of {sh['ring_slots_below_nv']}"
+                f" slots below nv{blk}")
+    elif name == "filter_sph":
+        what = (f"kept {sh['kept_share']:.4f} of {sh['live_slots']} live "
+                f"slots, pre-rejected whole {sh['prereject_share']:.4f}; a "
+                f"live slot tests the targets of {sh['boxes_tested']:.3f} "
+                f"boxes, {sh['tests_per_live']:.3f} exact tests (the bound "
+                f"charges {sh['charged_per_live']:.3f})")
+    else:
+        p2p = (f", P2P window live {sh['p2p_live_share']:.4f}"
+               if "p2p_live_share" in sh else "")
+        what = (f"live {sh['live_share']:.4f} of {sh['slots_below_nv']} "
+                f"slots below nv{p2p}, inside the support "
+                f"{sh['inside_share']:.4f} of {sh['live_pairs']} live pairs")
+    return (f"{what}; {px.get('regs')} registers, {px.get('smem')} B "
+            f"shared, spills {px.get('spill_stores')}/"
+            f"{px.get('spill_loads')} B; two launches "
+            f"{'bit-identical' if extra['same_bits'] else 'DIFFER'}")
 
 
 def stream_checks(seen):
@@ -2552,9 +2757,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="a checkout of another commit (e.g. unpacked with "
                     "git archive into a git-ignored directory): its "
-                    "pass1_gradh and pass2 are timed in turns with this "
-                    "one's in phase 4, and phase 7 compares the two "
-                    "checkouts' production steps")
+                    "pass1_gradh, pass2, gravity_fused and filter_sph are "
+                    "timed in turns with this one's in phase 4, and phase "
+                    "7 compares the two checkouts' production steps")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2622,16 +2827,16 @@ def main(argv=None) -> int:
         pout = os.path.join(pkg, "build")
         t0 = time.perf_counter()
         try:
-            build.build_all(COMPACTED, force=True,
+            build.build_all(REDESIGNED, force=True,
                             src=os.path.join(pkg, "csrc"), out=pout)
         except RuntimeError as e:
             return fail(f"the parent's kernels: {e}")
-        parent_libs = {n: build.lib_path(n, pout) for n in COMPACTED}
-        print(f"build of the parent's {', '.join(COMPACTED)}: "
+        parent_libs = {n: build.lib_path(n, pout) for n in REDESIGNED}
+        print(f"build of the parent's {', '.join(REDESIGNED)}: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = {}
-    for n in COMPACTED:
-        # every instance of the compacted sweeps, by template arguments
+    for n in REDESIGNED:
+        # every instance of the redesigned kernels, by template arguments
         for inst in ptxas_instances(logs[n][1]):
             ptxas[(n, inst["args"])] = inst
             print(f"  ptxas {n}{list(inst['args']) if inst['args'] else ''}"

@@ -25,6 +25,14 @@ __device__ __forceinline__ float psph_min(float a, float b) {
   return r;
 }
 
+// max(a, b), NaN when either operand is NaN, as torch.maximum and
+// jnp.maximum are (fmaxf returns the other operand)
+__device__ __forceinline__ float psph_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Dyer-Ip softened point-mass term, accumulated into (phi, g). Finite at
 // r = 0 (x = 0 takes the inner branch, dx = 0 kills the force); phi then
 // holds the -2.4 m/a self term that the caller removes.
@@ -55,7 +63,10 @@ __device__ __forceinline__ void psph_dyer_ip(
 // 1/a = ih_i (RECV: receiver softening, the ih row is not read) or
 // min(ih_i, ih_j) (NaN when either is). Adds into (phi, g) and counts the
 // slots with m > 0 into nd; the self pair is one of them (dx = 0: no
-// force, the finite inner potential -2.4 m/a). `c` is the block's staging buffer, at least 5 rows.
+// force, the finite inner potential -2.4 m/a). `c` is the block's staging
+// buffer, at least 5 rows. A block that splits the window into ns slot
+// slices calls it with each thread's slice k: the thread then visits the
+// slots k, k + ns, ... of every tile (the caller adds the slices' sums).
 // Every thread of the block must call it (it synchronises).
 template <bool RECV>
 __device__ __forceinline__ void psph_p2p_window(
@@ -63,7 +74,7 @@ __device__ __forceinline__ void psph_p2p_window(
     const float* __restrict__ pz, const float* __restrict__ pih,
     const float* __restrict__ pm, size_t row, int n, float x, float y,
     float z, float ih, float (*c)[PSPH_TILE], float& phi, float& gx,
-    float& gy, float& gz, int& nd) {
+    float& gy, float& gz, int& nd, int k = 0, int ns = 1) {
   const int i = threadIdx.x;
   for (int base = 0; base < n; base += PSPH_TILE) {
     const int cnt = min(PSPH_TILE, n - base);
@@ -75,7 +86,7 @@ __device__ __forceinline__ void psph_p2p_window(
       c[4][j] = pm[row + base + j];
     }
     __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
+    for (int j = k; j < cnt; j += ns) {
       const float dxx = x - c[0][j];
       const float dxy = y - c[1][j];
       const float dxz = z - c[2][j];
@@ -170,6 +181,40 @@ __device__ __forceinline__ int psph_compact(const float* mrow, int cnt,
     any_bad |= __syncthreads_or(mine) != 0;
   }
   bad = any_bad;
+  return kept;
+}
+
+// Stable compaction of the staged slots [0, cnt) for which live(j) holds:
+// put(j, k) stores slot j at compacted position k, k counting the kept
+// slots before j. Returns the number kept, the same in every thread.
+// Every thread of the block calls it; it ends with a barrier, after which
+// the compacted slots are visible to the whole block. wtab: 32 ints of
+// shared memory.
+template <typename Live, typename Put>
+__device__ __forceinline__ int psph_compact_if(int cnt, int* wtab,
+                                               Live live, Put put) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  const int here = blockDim.x - (warp << 5);        // threads of this warp
+  const unsigned mask = here >= 32 ? 0xffffffffu : (1u << here) - 1u;
+  const unsigned below = (1u << lane) - 1u;
+  int kept = 0;
+  for (int base = 0; base < cnt; base += blockDim.x) {
+    const int j = base + tid;
+    const bool mine = j < cnt && live(j);
+    const unsigned ballot = __ballot_sync(mask, mine);
+    if (lane == 0) wtab[warp] = __popc(ballot);
+    __syncthreads();
+    int at = kept + __popc(ballot & below), all = 0;
+    for (int w = 0; w < nw; ++w) {
+      const int c = wtab[w];
+      at += w < warp ? c : 0;
+      all += c;
+    }
+    if (mine) put(j, at);
+    kept += all;
+    __syncthreads();
+  }
   return kept;
 }
 

@@ -28,141 +28,195 @@
 //   count of ring, blk and far entries used (n_approx) and n_direct (0 without
 //   the near tier): two counters, where the TPU kernel reuses one.
 //
-// Bound on the H100: per group the [NBpad] accept row (22.5 KB at 100k)
-// is read once and the accepted far entries cost about 60 f32 operations
-// per target; the far moment rows (10 x NBpad floats) are shared by all
-// groups and stay in L2. Design: one thread block per target group, one
-// thread per target; ring entries and far entries (with the group's accept
-// slice) are staged PSPH_TILE at a time in shared memory. Entries with
-// accept == 0 or m == 0 are skipped, which is exact: their terms are 0 in
-// the reference (its live mask multiplies the quadrupole powers first so
-// that an entry at r ~ 0 cannot produce inf * 0). The accept test is the
-// same for every thread of the block, so the skip does not diverge.
+// Bound on the H100: f32 operations. Per group the [NBpad] accept row
+// (10 KB at 100k) is read once and every accepted live far entry costs
+// about 64 f32 operations per target (23 monopole, 41 quadrupole); the
+// far moment rows (nm x NBpad floats) are shared by all groups and stay
+// in L2. What held the first design back: one block of 64 threads per
+// group, each thread walking the whole ring and far scan alone (two warps
+// a block; at parity3k's 55 groups 77 of the 132 SMs idle); ten scalar
+// shared loads an evaluation; and every staged entry tested inside the
+// loop, where about a third of the far entries are not accepted or carry
+// m = 0. This design (common.cuh):
+// - b targets x ns slot slices (psph_slices: 64 x 4 = 256 threads a
+//   group); thread t serves target t % b and slice t / b, and slice k
+//   visits the entries k, k + ns, ... of every compacted tile; the near
+//   tier's window is split the same way (psph_p2p_window's slice);
+// - tiles of PSPH_TILE entries are copied asynchronously (psph_window:
+//   cp.async, 16 bytes a copy where the rows allow), the copy of tile
+//   t + 1 in flight while tile t is swept;
+// - each staged tile is compacted to its live entries before the sweep
+//   (psph_compact_if): far entries with accept > 0.5 and m > 0, ring and
+//   blk slots below nv with m > 0, exactly the entries the reference's
+//   live mask keeps. An entry's fields go to three float4s (one for
+//   monopoles), so an evaluation takes wide broadcast loads and no test;
+//   n_approx is the number kept, the same in every thread;
+// - the slices' sums are added in slice order at the end (psph_combine),
+//   with no atomics, so a second launch gives the same bits.
+// Entries that are not kept add exactly 0 in the reference: its live mask
+// multiplies the quadrupole powers first, so that an entry at r ~ 0 cannot
+// produce inf * 0; a compacted entry is live, so the rule holds here
+// without a multiply.
 #include "common.cuh"
 
-struct Acc {
-  float phi, gx, gy, gz;
-  int n;
+struct Rows {
+  const float* f[11];
+
+  // the first N row pointers, as the staging takes them
+  template <int N>
+  __device__ __forceinline__ const float* const (&first() const)[N] {
+    return *reinterpret_cast<const float* const(*)[N]>(f);
+  }
+  // these rows after the row `r`
+  __device__ __forceinline__ Rows after(const float* r) const {
+    Rows out;
+    out.f[0] = r;
+    for (int k = 0; k < 10; ++k) out.f[k + 1] = f[k];
+    return out;
+  }
 };
 
-__device__ __forceinline__ void mono_quad(float (*c)[PSPH_TILE], int j,
-                                          int nm, float x, float y, float z,
-                                          Acc& a) {
-  const float m = c[0][j];
-  const float dxx = x - c[1][j];
-  const float dxy = y - c[2][j];
-  const float dxz = z - c[3][j];
+struct GravArgs {
+  const float *tx, *ty, *tz, *tih;
+  Rows p2p, ring, blk, far;
+  const int *nv_p2p, *nv_ring, *nv_blk;   // nv_blk null without the blk tier
+  const float* accept;
+  float *phi, *gx, *gy, *gz;
+  int *nd, *na;
+  int b, sp, sr, sb, nbpad, ns;
+  int vec_ring, vec_blk, vec_far;          // psph_stage may copy 16 bytes
+  float g_const;
+};
+
+// One moment entry's terms for target (x, y, z), added into acc (phi, gx,
+// gy, gz): e[0] = (m, cmx, cmy, cmz), then for NM = 10 (Qxx, Qxy, Qxz,
+// Qyy) and (Qyz, Qzz, -, -). The terms are the reference's, each added
+// with a multiply-add: phi -= m/r + (d.Q.d)/(2 r^5), g += d (m/r^3
+// + (5/2)(d.Q.d)/r^7) - (Q d)/r^5.
+template <int NM>
+__device__ __forceinline__ void mono_quad(float4 (*e)[PSPH_TILE], int j,
+                                          float x, float y, float z,
+                                          float (&acc)[4]) {
+  const float4 p = e[0][j];
+  const float m = p.x;
+  const float dxx = x - p.y;
+  const float dxy = y - p.z;
+  const float dxz = z - p.w;
   const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
   const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
-  const float mag = m * inv_r * inv_r * inv_r;
-  float phi_c = -m * inv_r;
-  float gx_c = dxx * mag;
-  float gy_c = dxy * mag;
-  float gz_c = dxz * mag;
-  if (nm == 10) {
-    const float qxx = c[4][j], qxy = c[5][j], qxz = c[6][j];
-    const float qyy = c[7][j], qyz = c[8][j], qzz = c[9][j];
+  const float ir2 = inv_r * inv_r;
+  const float ir3 = ir2 * inv_r;
+  float radial = m * ir3;                  // g's factor along d
+  acc[0] = fmaf(-m, inv_r, acc[0]);
+  if constexpr (NM == 10) {
+    const float4 q0 = e[1][j], q1 = e[2][j];
+    const float qxx = q0.x, qxy = q0.y, qxz = q0.z;
+    const float qyy = q0.w, qyz = q1.x, qzz = q1.y;
     const float qdx = qxx * dxx + qxy * dxy + qxz * dxz;
     const float qdy = qxy * dxx + qyy * dxy + qyz * dxz;
     const float qdz = qxz * dxx + qyz * dxy + qzz * dxz;
     const float dqd = dxx * qdx + dxy * qdy + dxz * qdz;
-    const float ir2 = inv_r * inv_r;
-    const float ir5 = ir2 * ir2 * inv_r;
-    const float ir7dqd = 2.5f * dqd * ir5 * ir2;
-    phi_c = phi_c - 0.5f * dqd * ir5;
-    gx_c = gx_c - qdx * ir5 + dxx * ir7dqd;
-    gy_c = gy_c - qdy * ir5 + dxy * ir7dqd;
-    gz_c = gz_c - qdz * ir5 + dxz * ir7dqd;
+    const float ir5 = ir3 * ir2;
+    const float dqd5 = dqd * ir5;
+    acc[0] = fmaf(-0.5f, dqd5, acc[0]);
+    radial = fmaf(2.5f, dqd5 * ir2, radial);
+    acc[1] = fmaf(-qdx, ir5, acc[1]);
+    acc[2] = fmaf(-qdy, ir5, acc[2]);
+    acc[3] = fmaf(-qdz, ir5, acc[3]);
   }
-  a.phi += phi_c;
-  a.gx += gx_c;
-  a.gy += gy_c;
-  a.gz += gz_c;
-  a.n += 1;
+  acc[1] = fmaf(dxx, radial, acc[1]);
+  acc[2] = fmaf(dxy, radial, acc[2]);
+  acc[3] = fmaf(dxz, radial, acc[3]);
 }
 
-struct Rows {
-  const float* f[10];
-};
-
-// One windowed moment tier: the first n entries of the rows starting at
-// `row`, staged PSPH_TILE at a time; entries with m > 0 are evaluated.
-// Every thread of the block must call it (it synchronises).
-__device__ __forceinline__ void moment_window(const Rows& rows, size_t row,
-                                              int n, int nm,
-                                              float (*c)[PSPH_TILE], float x,
-                                              float y, float z, Acc& a) {
-  const int i = threadIdx.x;
-  for (int base = 0; base < n; base += PSPH_TILE) {
-    const int cnt = min(PSPH_TILE, n - base);
-    for (int j = i; j < cnt; j += blockDim.x)
-      for (int k = 0; k < nm; ++k) c[k][j] = rows.f[k][row + base + j];
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j)
-      if (c[0][j] > 0.0f) mono_quad(c, j, nm, x, y, z, a);
-    __syncthreads();
-  }
+// One moment tier: the first n entries of NR staged rows starting at
+// `row`, of which the last NM hold the moment fields (far: the accept row
+// first). Each tile is compacted to the entries for which live(st, j)
+// holds, and the thread's slice of them is evaluated. Adds the number
+// kept to na. Every thread of the block calls it.
+template <int NM, int NR, typename Live>
+__device__ __forceinline__ void moment_tier(
+    const float* const (&rows)[NR], size_t row, int n, bool vec,
+    float (*raw)[NR][PSPH_TILE], float4 (*e)[PSPH_TILE], int* wtab,
+    float x, float y, float z, int k, int ns, float (&acc)[4], int& na,
+    Live live) {
+  constexpr int F = NR - NM;                // the first moment row
+  psph_window<NR>(rows, row, n, vec, raw,
+                  [&](float (*st)[PSPH_TILE], int c) {
+    const int kept = psph_compact_if(c, wtab,
+                                     [&](int j) { return live(st, j); },
+                                     [&](int j, int at) {
+      e[0][at] = make_float4(st[F][j], st[F + 1][j], st[F + 2][j],
+                             st[F + 3][j]);
+      if constexpr (NM == 10) {
+        e[1][at] = make_float4(st[F + 4][j], st[F + 5][j], st[F + 6][j],
+                               st[F + 7][j]);
+        e[2][at] = make_float4(st[F + 8][j], st[F + 9][j], 0.0f, 0.0f);
+      }
+    });
+    na += kept;
+#pragma unroll 1
+    for (int j = k; j < kept; j += ns) mono_quad<NM>(e, j, x, y, z, acc);
+  });
 }
 
-// HAS_P2P: 0 no near tier, 1 min-h softening, 2 receiver softening
-template <int HAS_P2P>
-__global__ void gravity_fused_kernel(
-    const float* __restrict__ tx, const float* __restrict__ ty,
-    const float* __restrict__ tz, const float* __restrict__ tih, Rows p2p,
-    const int* __restrict__ nv_p2p, Rows ring,
-    const int* __restrict__ nv_ring, Rows blk,
-    const int* __restrict__ nv_blk, Rows far,
-    const float* __restrict__ accept, float* __restrict__ phi_out,
-    float* __restrict__ gx_out, float* __restrict__ gy_out,
-    float* __restrict__ gz_out, int* __restrict__ nd_out,
-    int* __restrict__ na_out, int b, int sp, int sr, int sb, int nbpad,
-    int nm, float g_const) {
-  __shared__ float c[10][PSPH_TILE];
-  __shared__ float acc[PSPH_TILE];
+// HAS_P2P: 0 no near tier, 1 min-h softening, 2 receiver softening;
+// NM: 4 (monopoles) or 10 (+ traceless quadrupoles) moment fields
+template <int HAS_P2P, int NM>
+__global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
+    gravity_fused_kernel(const GravArgs a) {
+  constexpr int NQ = NM == 10 ? 3 : 1;       // float4s an entry
+  __shared__ __align__(16) float raw[2][NM + 1][PSPH_TILE];
+  __shared__ __align__(16) float4 e[NQ][PSPH_TILE];
+  __shared__ int wtab[32];
   const int g = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t t = (size_t)g * b + i;
-  const float x = tx[t], y = ty[t], z = tz[t];
-  Acc a = {0.0f, 0.0f, 0.0f, 0.0f, 0};
-  int nd = 0;
+  const int i = threadIdx.x % a.b, k = threadIdx.x / a.b;
+  const size_t t = (size_t)g * a.b + i;
+  const float x = a.tx[t], y = a.ty[t], z = a.tz[t];
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};    // phi, gx, gy, gz
+  int nd[1] = {0};
+  int na = 0;
 
   // near tier: P2P over the sub-block window
   if (HAS_P2P)
-    psph_p2p_window<HAS_P2P == 2>(p2p.f[0], p2p.f[1], p2p.f[2], p2p.f[3],
-                                  p2p.f[4], (size_t)g * sp,
-                                  min(nv_p2p[g], sp), x, y, z, tih[t], c,
-                                  a.phi, a.gx, a.gy, a.gz, nd);
+    psph_p2p_window<HAS_P2P == 2>(
+        a.p2p.f[0], a.p2p.f[1], a.p2p.f[2], a.p2p.f[3], a.p2p.f[4],
+        (size_t)g * a.sp, min(a.nv_p2p[g], a.sp), x, y, z, a.tih[t],
+        &raw[0][0], acc[0], acc[1], acc[2], acc[3], nd[0], k, a.ns);
 
-  // ring tier: windowed sub-block moments
-  moment_window(ring, (size_t)g * sr, min(nv_ring[g], sr), nm, c, x, y, z,
-                a);
-  // blk tier: windowed block moments (null without the supergroup tier;
-  // the same test for every thread of the grid)
-  if (nv_blk != nullptr)
-    moment_window(blk, (size_t)g * sb, min(nv_blk[g], sb), nm, c, x, y, z,
-                  a);
+  // ring tier, then the blk tier (the same test for every thread of the
+  // grid): windowed moments, slots below nv with m > 0
+  const auto m_pos = [](float (*st)[PSPH_TILE], int j) {
+    return st[0][j] > 0.0f;
+  };
+  auto wraw = reinterpret_cast<float (*)[NM][PSPH_TILE]>(&raw[0][0][0]);
+  moment_tier<NM, NM>(a.ring.first<NM>(), (size_t)g * a.sr,
+                      min(a.nv_ring[g], a.sr), a.vec_ring != 0, wraw, e,
+                      wtab, x, y, z, k, a.ns, acc, na, m_pos);
+  if (a.nv_blk != nullptr)
+    moment_tier<NM, NM>(a.blk.first<NM>(), (size_t)g * a.sb,
+                        min(a.nv_blk[g], a.sb), a.vec_blk != 0, wraw, e,
+                        wtab, x, y, z, k, a.ns, acc, na, m_pos);
 
-  // far tier: dense scan over block (or supergroup) moments under the
-  // frozen mask
-  const size_t row = (size_t)g * nbpad;
-  for (int base = 0; base < nbpad; base += PSPH_TILE) {
-    const int cnt = min(PSPH_TILE, nbpad - base);
-    for (int j = i; j < cnt; j += blockDim.x) {
-      acc[j] = accept[row + base + j];
-      for (int k = 0; k < nm; ++k) c[k][j] = far.f[k][base + j];
-    }
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j)
-      if (acc[j] > 0.5f && c[0][j] > 0.0f) mono_quad(c, j, nm, x, y, z, a);
-    __syncthreads();
-  }
+  // far tier: the shared block (or supergroup) moments under the group's
+  // frozen mask, staged beside the mask
+  const Rows far = a.far.after(a.accept + (size_t)g * a.nbpad);
+  moment_tier<NM, NM + 1>(far.first<NM + 1>(), 0, a.nbpad, a.vec_far != 0,
+                          raw, e, wtab, x,
+                          y, z, k, a.ns, acc, na,
+                          [](float (*st)[PSPH_TILE], int j) {
+                            return st[0][j] > 0.5f && st[1][j] > 0.0f;
+                          });
 
-  phi_out[t] = g_const * a.phi;
-  gx_out[t] = g_const * a.gx;
-  gy_out[t] = g_const * a.gy;
-  gz_out[t] = g_const * a.gz;
-  nd_out[t] = nd;
-  na_out[t] = a.n;
+  psph_combine(acc, &raw[0][0][0], a.b, a.ns);
+  psph_combine(nd, reinterpret_cast<int*>(&raw[1][0][0]), a.b, a.ns);
+  if (k != 0) return;
+  a.phi[t] = a.g_const * acc[0];
+  a.gx[t] = a.g_const * acc[1];
+  a.gy[t] = a.g_const * acc[2];
+  a.gz[t] = a.g_const * acc[3];
+  a.nd[t] = nd[0];
+  a.na[t] = na;
 }
 
 // The P2P rows and nv_p2p are null when has_p2p == 0, pih also under
@@ -183,22 +237,34 @@ extern "C" int psph_gravity_fused(
     float* phi, float* gx, float* gy, float* gz, int* nd, int* na, int g,
     int b, int sp, int sr, int sb, int nbpad, int nm, int has_p2p,
     int receiver_soft, float g_const, void* stream) {
-  Rows p2p = {{px, py, pz, pih, pm, 0, 0, 0, 0, 0}};
-  Rows ring = {{r0, r1, r2, r3, r4, r5, r6, r7, r8, r9}};
-  Rows blk = {{b0, b1, b2, b3, b4, b5, b6, b7, b8, b9}};
-  Rows far = {{f0, f1, f2, f3, f4, f5, f6, f7, f8, f9}};
+  const int ns = psph_slices(b);
+  if (g > 0 && (ns == 0 || (nm != 4 && nm != 10)))
+    return (int)cudaErrorInvalidValue;
+  GravArgs a = {tx, ty, tz, tih,
+                {{px, py, pz, pih, pm, 0, 0, 0, 0, 0}},
+                {{r0, r1, r2, r3, r4, r5, r6, r7, r8, r9}},
+                {{b0, b1, b2, b3, b4, b5, b6, b7, b8, b9}},
+                {{f0, f1, f2, f3, f4, f5, f6, f7, f8, f9}},
+                nv_p2p, nv_ring, nv_blk, accept,
+                phi, gx, gy, gz, nd, na,
+                b, sp, sr, sb, nbpad, ns, 0, 0, 0, g_const};
+  a.vec_ring = psph_vec_rows(a.ring.f, nm, sr) ? 1 : 0;
+  a.vec_blk = nv_blk != nullptr && psph_vec_rows(a.blk.f, nm, sb) ? 1 : 0;
+  a.vec_far = psph_vec_rows(a.far.f, nm, nbpad) &&
+                      psph_vec_rows(&accept, 1, nbpad) ? 1 : 0;
   cudaStream_t st = (cudaStream_t)stream;
-#define PSPH_GF(P)                                                        \
-  gravity_fused_kernel<P><<<g, b, 0, st>>>(                               \
-      tx, ty, tz, tih, p2p, nv_p2p, ring, nv_ring, blk, nv_blk, far,      \
-      accept, phi, gx, gy, gz, nd, na, b, sp, sr, sb, nbpad, nm, g_const)
+#define PSPH_GF(P, M) gravity_fused_kernel<P, M><<<g, b * ns, 0, st>>>(a)
   if (g > 0) {
-    if (!has_p2p)
-      PSPH_GF(0);
-    else if (!receiver_soft)
-      PSPH_GF(1);
-    else
-      PSPH_GF(2);
+    const int p = !has_p2p ? 0 : (!receiver_soft ? 1 : 2);
+    if (nm == 10) {
+      if (p == 0) PSPH_GF(0, 10);
+      else if (p == 1) PSPH_GF(1, 10);
+      else PSPH_GF(2, 10);
+    } else {
+      if (p == 0) PSPH_GF(0, 4);
+      else if (p == 1) PSPH_GF(1, 4);
+      else PSPH_GF(2, 4);
+    }
   }
 #undef PSPH_GF
   return (int)cudaGetLastError();

@@ -268,7 +268,7 @@ def test_nan_plantings_cover_p2p_and_gravity_fused():
     assert msg is None and set(reached) == {"m", "ih"}
     assert not any(reached.values())
     assert set(cs.NAN_CHECKED) == {"pass1_gradh", "pass2", "p2p",
-                                   "gravity_fused"}
+                                   "gravity_fused", "filter_sph"}
 
 
 def test_probe_turn_is_a_program_of_the_two_probes():

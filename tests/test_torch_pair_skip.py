@@ -59,10 +59,12 @@ def _skip_constant():
 
 Q2_SKIP = _skip_constant()
 
-# C's float functions with their NaN rules (fminf returns the other
-# operand; psph_min, min.NaN.f32, returns NaN)
+# C's float functions with their NaN rules (fminf and fmaxf return the
+# other operand; psph_min and psph_max, min.NaN.f32 and max.NaN.f32,
+# return NaN)
 _C_CALLS = {"fminf": np.fmin, "fmaxf": np.fmax, "sqrtf": np.sqrt,
-            "psph_min": np.minimum}
+            "psph_min": np.minimum, "psph_max": np.maximum,
+            "isfinite": np.isfinite}
 
 
 def _c_test(expr):
@@ -608,18 +610,13 @@ def test_cases_cover_both_windows_and_every_flag():
 
 
 def test_standing_nan_differences_of_the_other_kernels():
-    """Recorded in ROADMAP Queue C: three kernels outside this repair still
-    drop a NaN where their plain versions keep it. filter_sph's cut takes
-    fmaxf (a NaN cut keeps the other operand; torch.maximum gives NaN and
-    the pair fails r2 < cut^2); pairwise_pass1 softens gravity with fminf
-    (torch.minimum gives NaN); both all-pairs kernels leave out a pair
-    with q_i, q_j >= 2 whatever its fields hold. When a kernel is repaired,
-    this test and the record change together."""
+    """Recorded in ROADMAP Queue C: the two all-pairs kernels still drop a
+    NaN where their plain versions keep it. pairwise_pass1 softens gravity
+    with fminf (torch.minimum gives NaN); both leave out a pair with q_i,
+    q_j >= 2 whatever its fields hold. When a kernel is repaired, this test
+    and the record change together (filter_sph's cut: repaired,
+    tests/test_torch_filter_prereject.py)."""
     nan = np.float32(np.nan)
-    flt = _source("filter_sph.cu")
-    assert "fmaxf(tgt[3 * b + i], cc)" in flt
-    assert _c_test("fmaxf(a, c)")(a=nan, c=1.0) == 1.0
-    assert torch.isnan(torch.maximum(torch.tensor(nan), torch.tensor(1.0)))
     pw1, pw2 = _source("pairwise_pass1.cu"), _source("pairwise_pass2.cu")
     assert "receiver_soft ? ih : fminf(ih, jh)" in pw1
     assert _c_test("fminf(ih, jh)")(ih=1.0, jh=nan) == 1.0

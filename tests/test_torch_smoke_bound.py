@@ -117,6 +117,29 @@ def test_filter_ops_stop_at_first_hit_and_bytes_skip_past_nv():
     assert nbytes == 5 * b * 4 + 4 + 4 * 6 * 4 + 6 * 4
 
 
+def test_filter_shares_beside_the_bound_by_hand():
+    """The same window as the filter's bound test: targets at x = 0, 10,
+    20 (one box, cut 1), live slots at x = 20.5, 0.5 and 50. The bound
+    charges 3 + 1 + 3 tests; the kernel tests the box's targets for each of
+    the slots it keeps, to the first hit (3 and 1 tests), and pre-rejects
+    the slot at 50 whole (its gap to the box, 30, is far beyond the
+    cut)."""
+    b = 3
+    tgt = [_col([0.0, 10.0, 20.0]), _col([0.0] * b), _col([0.0] * b),
+           _col([1.0] * b), _col([0.0] * b)]
+    x = [20.5, 0.5, 50.0, 0.0, 0.0, 0.0]
+    src = [_row(x), _row([0.0] * 6), _row([0.0] * 6), _row([1.0] * 6),
+           _row([0.0] * 6), _row([1.0, 1.0, 1.0, 0.0, 1.0, 1.0])]
+    sh = cs.window_shares("filter_sph", (_nv(4), tgt, src), {"b": b})
+    assert (sh["live_slots"], sh["kept"], sh["prerejected"]) == (3, 2, 1)
+    assert (sh["tests"], sh["boxes_tested"]) == (4, 2 / 3)
+    assert sh["charged_per_live"] == pytest.approx(7 / 3)
+    _, _, _, ops = cs.bound("filter_sph", (_nv(4), tgt, src), {"b": b},
+                            gk2.filter_sph(_nv(4), tgt, src, b=b))
+    assert ops == cs.OPS_FILTER * sh["charged_per_live"] * 3 \
+        + 4 * cs.OPS_SLOT_TEST
+
+
 # ---- the all-pairs kernels -------------------------------------------------
 
 def _four_particles():

@@ -1,9 +1,11 @@
-"""What chip_smoke.py reports of the two compacted sweeps, checked on the
-CPU: the per-instance ``-Xptxas -v`` parse, the instance a pass-2 call
-launches, the shares of live slots and of pairs inside the support, and
-the bit comparison of two launches, the planted-NaN check, the agreement
-ratios, and the routing of a kernel to another build; and the script
-refuses to run without a card, with or without --parent."""
+"""What chip_smoke.py reports of the redesigned kernels, checked on the
+CPU: the per-instance ``-Xptxas -v`` parse, the instance a pass-2 or
+gravity_fused call launches, the shares of live slots and of pairs inside
+the support, of far entries accepted and live, of filter slots kept and
+pre-rejected with the boxes met and tests made, the bit comparison of two
+launches, the planted-NaN check, the agreement ratios, the set of kernels
+timed in turns and the routing of a kernel to another build; and the
+script refuses to run without a card, with or without --parent."""
 
 import importlib.util
 import os
@@ -15,7 +17,8 @@ import torch
 
 from planetmodel_sph_tpu_torch.ops.cuda import build
 from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
-from test_torch_groups2 import B, _case, _cols, _t
+from test_torch_filter_prereject import _model, seeded_window
+from test_torch_groups2 import B, _case, _cols, _grav_inputs, _t
 from test_torch_groups2_modes import _pass2_inputs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -172,6 +175,119 @@ def test_agreement_ratios_are_over_the_limit():
     r = cs.agreement_ratios(a, b)
     assert r["n_neighbors"] == 3.0 and r["vel"] == 0.0
     assert r["pos"] == pytest.approx((float(a.pos[2]) - 1.0) / (1e-6 + 2e-5))
+
+
+def test_the_redesigned_kernels_are_timed_in_turns():
+    """--parent builds and times these in turns with this checkout's; each
+    case of them prints what it visits and holds two launches to the same
+    bits; the filter's planted NaNs are checked with the others."""
+    assert cs.REDESIGNED == ("pass1_gradh", "pass2", "gravity_fused",
+                             "filter_sph")
+    assert set(cs.REDESIGNED) <= set(gk2.KERNELS)
+    assert {"gravity_fused", "filter_sph"} <= set(cs.NAN_CHECKED)
+
+
+def test_instance_key_of_gravity_fused():
+    """gravity_fused.cu's template parameters are HAS_P2P (0 none, 1 min-h,
+    2 receiver softening) and NM, the moment fields of the rows."""
+    src = open(os.path.join(ROOT, "planetmodel_sph_tpu_torch", "csrc",
+                            "gravity_fused.cu")).read()
+    assert "template <int HAS_P2P, int NM>" in src
+    a4, a10 = (None, None, [0] * 4), (None, None, [0] * 10)
+    assert cs.instance_key("gravity_fused", {}, a10) == \
+        ("gravity_fused", (0, 10))
+    assert cs.instance_key("gravity_fused", dict(p2p_rows=[0]), a4) == \
+        ("gravity_fused", (1, 4))
+    assert cs.instance_key("gravity_fused", dict(
+        p2p_rows=[0], receiver_soft=True), a10) == ("gravity_fused", (2, 10))
+    assert cs.instance_key("filter_sph", {}, None) == ("filter_sph", ())
+
+
+@pytest.mark.parametrize("blk", [False, True], ids=["far_only", "blk"])
+def test_gravity_shares_count_live_entries(blk):
+    """Far entries with accept > 0.5 and m > 0 among all (group, entry)
+    slots; ring (and blk) slots below nv with m > 0: counted by hand."""
+    nv, tgt, ring, far, acc = _grav_inputs(1, 10)
+    kw = {"b": B}
+    if blk:
+        nv_blk = np.maximum(nv - 5, 0).astype(np.int32)
+        kw.update(nv_blk=torch.from_numpy(nv_blk), blk_rows=_t(ring))
+    a = (torch.from_numpy(nv), _t(tgt), _t(ring), _t(far),
+         torch.from_numpy(acc))
+    sh = cs.window_shares("gravity_fused", a, kw)
+    g, nbpad = acc.shape
+    far_live = sum(int(acc[gi, e] > 0.5 and far[0][0, e] > 0.0)
+                   for gi in range(g) for e in range(nbpad))
+    assert (sh["far_entries"], sh["far_live"]) == (g * nbpad, far_live)
+    assert sh["far_live_share"] == pytest.approx(far_live / (g * nbpad))
+    for key, n_w in (("ring", nv), ("blk", nv_blk if blk else None)):
+        if n_w is None:
+            assert "blk_live" not in sh
+            continue
+        below = sum(min(int(n), ring[0].shape[1]) for n in n_w)
+        live = sum(int(ring[0][gi, j] > 0.0) for gi in range(g)
+                   for j in range(min(int(n_w[gi]), ring[0].shape[1])))
+        assert (sh[f"{key}_slots_below_nv"], sh[f"{key}_live"]) == \
+            (below, live)
+    assert 0 < sh["far_live_share"] < 1 and sh["ring_live_share"] < 1
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_filter_shares_follow_the_kernels_decision(seed):
+    """chip_smoke's model of filter_sph.cu's decision (what phase 4 prints)
+    against the numpy model that evaluates the source's own expressions:
+    live slots, kept, pre-rejected whole, boxes whose targets are tested
+    and exact tests made, summed over the window; and the tests the bound
+    charges (each live slot tests every target up to its first hit),
+    counted slot by slot."""
+    b = 64
+    nv, tgt, src, _ = seeded_window(seed, b=b)
+    keep, pre, live, boxes, tests = _model(nv, tgt, src, b)
+    sh = cs.window_shares("filter_sph", (torch.from_numpy(nv), _t(tgt),
+                                         _t(src)), {"b": b})
+    assert (sh["live_slots"], sh["kept"], sh["prerejected"], sh["tests"]) \
+        == (live.sum(), keep.sum(), pre.sum(), tests.sum())
+    assert sh["boxes_tested"] == pytest.approx(boxes.sum() / live.sum())
+    charged = 0
+    g, s = src[0].shape
+    for gi in range(g):
+        for j in np.nonzero(live[gi])[0]:
+            for i in range(b):
+                t = [c[gi * b + i, 0] for c in tgt]
+                d = [np.float32(t[k] - src[k][gi, j]) for k in range(3)]
+                r2 = np.float32(np.float32(d[0] * d[0] + d[1] * d[1])
+                                + d[2] * d[2])
+                cut = np.float32(np.float32(max(t[3], src[3][gi, j])
+                                            + t[4]) + src[4][gi, j])
+                if r2 < np.float32(cut * cut):
+                    charged += i + 1
+                    break
+            else:
+                charged += b
+    assert sh["charged_per_live"] == pytest.approx(charged / live.sum())
+    assert sh["tests"] < 0.5 * charged
+    line = cs.visits_line("filter_sph", dict(shares=sh, ptxas=None,
+                                             same_bits=True))
+    assert "pre-rejected whole" in line and "bit-identical" in line
+
+
+def test_nan_agreement_of_the_filter_and_gravity():
+    """On the CPU the wrappers run their plain versions, so the checks must
+    pass: every filter planting (x, sc, ssk, m at a kept slot; tc, tsk in
+    every target of its group) changes the planted group's mask, and
+    gravity_fused plants m and ih."""
+    nv, tgt, src, _ = seeded_window(0, b=64)
+    a = (torch.from_numpy(nv), tuple(_t(tgt)), tuple(_t(src)))
+    msg, reached = cs.nan_agreement("filter_sph", a, {"b": 64})
+    assert msg is None
+    assert reached == dict.fromkeys(("x", "sc", "ssk", "m", "tc", "tsk"),
+                                    True)
+    assert all(bool(torch.isfinite(t).all()) for t in a[1] + a[2])
+    nv, tgt, ring, far, acc = _grav_inputs(2, 10)
+    a = (torch.from_numpy(nv), tuple(_t(tgt)), tuple(_t(ring)),
+         tuple(_t(far)), torch.from_numpy(acc))
+    msg, reached = cs.nan_agreement("gravity_fused", a, {"b": B})
+    assert msg is None and set(reached) == {"m", "ih"}
 
 
 def test_library_routes_a_kernel_and_restores_it(monkeypatch):
