@@ -32,10 +32,14 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    are held against theirs on primed ``ics.jupiter`` particles at n = 3000
    and n = 32768: pass 1 with both softenings, pass 2 symmetric, asymmetric
    with the sign bug, and symmetric with viscosity and the Balsara limiter
-   on a rotating, contracting velocity field. For every case of the four
-   redesigned kernels it also prints what the kernel visits (the two
-   compacted sweeps ``pass1_gradh`` and ``pass2``: the share of slots
-   below nv that are live and of live pairs inside the support;
+   on a rotating, contracting velocity field, each also with a NaN planted
+   in one field of one particle at a time (x, m; for pass 2 the pressure
+   and the velocity), the outputs NaN exactly where the plain version's
+   are. For every case of the six redesigned kernels it also prints what
+   the kernel visits (the three compacted sweeps ``pass1_gradh``,
+   ``pass1_sym`` and ``pass2``: the share of slots below nv that are live
+   and of live pairs inside the support, and the share ``pass1_sym``'s
+   skip leaves out; ``p2p``: the live share, every live pair evaluated;
    ``gravity_fused``: the far entries accepted and live, the ring and blk
    slots live; ``filter_sph``: the live slots kept and pre-rejected whole
    by the bounding boxes, the boxes whose targets a live slot tests and
@@ -43,11 +47,13 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    registers, shared memory and spills from the build's ``-Xptxas -v``
    log (phase 2 prints every instance), and holds a second launch on the
    same inputs to the same bits. In every case of ``pass1_gradh``,
-   ``pass2``, ``p2p``, ``gravity_fused`` and ``filter_sph`` it plants
-   NaNs, one field at a time (m, cc, a velocity row, ih; for the filter x,
-   sc, ssk and m of a slot it keeps, tc and tsk of its group's targets),
-   where a kernel leaves out work: each output must be NaN exactly where
-   the plain version's is (the filter's mask equal to it). Every case
+   ``pass1_sym``, ``pass2``, ``p2p``, ``gravity_fused`` and ``filter_sph``
+   it plants NaNs, one field at a time (m, cc, a velocity row, ih; for
+   ``pass1_sym`` and ``p2p`` also a dead slot, m = 0, with a NaN x or ih;
+   for the filter x, sc, ssk and m of a slot it keeps, tc and tsk of its
+   group's targets), where a kernel leaves out work: each output must be
+   NaN exactly where the plain version's is (the filter's mask equal to
+   it). Every case
    prints its wrapper time ``ms`` (CUDA events
    from before the wrapper's host work to after its kernel) beside
    ``device_ms`` (the kernel's own duration, torch.profiler), and the
@@ -110,13 +116,15 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    calls;
 7. only with ``--parent DIR``, DIR a checkout of another commit (unpacked
    with ``git archive`` into a git-ignored directory): phase 2 also builds
-   DIR's ``pass1_gradh``, ``pass2``, ``gravity_fused`` and ``filter_sph``
-   into DIR's own build directory, phase 4 times them and this
-   checkout's in turns (parent, this, this, parent) on each case's
-   inputs, and this phase times the two probes
-   (``probe_launch`` in a chain beside ``torch.mul``, ``probe_gather``
-   beside ``packed[idx]``) and runs the production step from both
-   checkouts, each in its own processes, in the same turns (``bench
+   DIR's six redesigned kernels (``pass1_gradh``, ``pass1_sym``,
+   ``pass2``, ``gravity_fused``, ``filter_sph``, ``p2p``) and its two
+   all-pairs kernels into DIR's own build directory, phase 4 times them
+   and this checkout's in turns (parent, this, this, parent) on each
+   case's inputs, and this phase times the two probes (``probe_launch`` in
+   a chain beside ``torch.mul``, ``probe_gather`` beside ``packed[idx]``)
+   and runs the production step, `sym100k` and `sg100k` (README's
+   commands) from both checkouts, each in its own processes, in the same
+   turns (``bench
    --repeat 3``), and each checkout's sorted and unsorted chunks against
    each other.
 
@@ -242,10 +250,12 @@ OPS_MONO = 23             # dx(3) r2(5) fmax rsqrt mag(3) phi(2) g(3)
 OPS_QUAD = 41             # Q.d(15) d.Q.d(5) r^-2 r^-5(2) r^-7 term(3)
 #                           phi(3) g(12)
 OPS_FILTER = 13           # dx(3) r2(5) fmax cut(2) cut^2 compare
-# pass1_sym, per live pair: the geometry and the count, then each side's
-# spline by the branch of its q
+# pass1_sym, per live pair inside either support: the geometry and the
+# count, then each side's spline by the branch of its q; per live pair
+# outside both supports only the geometry and the skip test
 OPS_P1S_GEOM = 16         # dx(3) r2(5) sqrt q_i q_j h_j^-3(2); q_i<2 m>0
 #                           count
+OPS_P1S_SKIP = 12         # dx(3) r2(5) min(ih_i, ih_j) (r2 ihm) ihm; >
 OPS_P1S_W = dict(inner=7,  # q<1; q2 (1.5 q2) (0.75 q2) *q - +
                  outer=6,  # q<1 q<2; t t^2 t^3 *0.25
                  none=2)   # q<1 q<2
@@ -337,11 +347,15 @@ PROBES = ("probe_fma", "probe_launch", "probe_gather", "probe_pass1_tile")
 # the sweeps that visit only the live slots of their windows: phase 4
 # prints the share of slots they visit and of pairs inside the support,
 # and holds two launches on the same inputs to the same bits
-COMPACTED = ("pass1_gradh", "pass2")
+COMPACTED = ("pass1_gradh", "pass1_sym", "pass2")
 # the kernels redesigned for this card: phase 4 prints what each case
 # visits, each instance's registers and spills and holds two launches to
 # the same bits; with --parent it times the other checkout's in turns
-REDESIGNED = COMPACTED + ("gravity_fused", "filter_sph")
+REDESIGNED = COMPACTED + ("gravity_fused", "filter_sph", "p2p")
+# the all-pairs kernels, whose non-finite inputs reach the outputs as in
+# their plain versions: with --parent phase 4 times the other checkout's
+# in turns too
+ALL_PAIRS = ("pairwise_pass1", "pairwise_pass2")
 
 # Tolerances, kernel against plain version, both f32 on the card. The two
 # sum the same terms in different orders (the kernel sequentially per
@@ -893,8 +907,10 @@ def _by_branch(table, live, q):
 
 
 def _pass1_sym_ops(a):
-    """pass1_sym's operations: on each live pair the geometry and the
-    count, and each side's spline and sum by the branch of its q."""
+    """pass1_sym's operations: on each live pair outside both supports
+    (r min(ih_i, ih_j) >= 2, where neither spline adds anything) the
+    geometry and the skip test; on each other live pair the geometry and
+    the count, and each side's spline and sum by the branch of its q."""
     import torch
     nv, tgt, src = a
     g, s = src[0].shape
@@ -907,9 +923,12 @@ def _pass1_sym_ops(a):
         live = _live(nv[g0:g1], sm)
         dxx, dxy, dxz = tx - sx, ty - sy, tz - sz
         r = torch.sqrt(dxx * dxx + dxy * dxy + dxz * dxz)
-        ops += ((OPS_P1S_GEOM + OPS_P1S_SUM_I + OPS_P1S_SUM_J) * b
-                * _n(live) + _by_branch(OPS_P1S_W, live, r * tih)
-                + _by_branch(OPS_P1S_W, live, r * sih))
+        qi, qj = r * tih, r * sih
+        inside = live & ~((qi >= 2.0) & (qj >= 2.0))
+        ops += (OPS_P1S_SKIP * _n(live & ~inside)
+                + (OPS_P1S_GEOM + OPS_P1S_SUM_I + OPS_P1S_SUM_J)
+                * _n(inside) + _by_branch(OPS_P1S_W, inside, qi)
+                + _by_branch(OPS_P1S_W, inside, qj))
     return ops
 
 
@@ -1271,13 +1290,15 @@ def instance_key(name, kw, a=None):
     """The template arguments of the instance a call launches (pass2: mode,
     sign bug, viscosity, Balsara, gravity 0/1/2, receiver softening,
     energy, as pass2.cu orders them; gravity_fused: its near tier 0/1/2
-    and the moment fields of the ring rows `a[2]`; pass1_gradh and
-    filter_sph have none)."""
+    and the moment fields of the ring rows `a[2]`; p2p: receiver softening
+    0/1; pass1_gradh, pass1_sym and filter_sph have none)."""
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
     if name == "gravity_fused":
         near = (2 if kw.get("receiver_soft") else 1) \
             if kw.get("p2p_rows") is not None else 0
         return (name, (near, len(a[2])))
+    if name == "p2p":
+        return (name, (int(bool(kw.get("receiver_soft"))),))
     if name != "pass2":
         return (name, ())
     grav = (2 if kw.get("p2p_rows") is not None else 1) if kw.get("grav") \
@@ -1289,13 +1310,17 @@ def instance_key(name, kw, a=None):
                    int(kw.get("energy", False))))
 
 
-def _cu_define(source, name):
-    """The value of ``#define name <number>[f]`` in csrc/<source>."""
+def _cu_define(source, name, header=None):
+    """The value of ``#define name <number>[f]`` in csrc/<source> (or in
+    the `header` beside it)."""
     import re
-    with open(os.path.join(ROOT, KERNELS[source][0])) as f:
+    path = os.path.join(ROOT, KERNELS[source][0])
+    if header:
+        path = os.path.join(os.path.dirname(path), header)
+    with open(path) as f:
         m = re.search(rf"#define\s+{name}\s+([0-9.eE+-]+)f?\b", f.read())
     if not m:
-        raise RuntimeError(f"{name} not found in {KERNELS[source][0]}")
+        raise RuntimeError(f"{name} not found in {path}")
     return float(m.group(1))
 
 
@@ -1407,11 +1432,13 @@ def _filter_shares(a, kw):
 
 
 def window_shares(name, a, kw):
-    """What the compacted sweeps visit: the share of window slots below nv
+    """What the windowed sweeps visit: the share of window slots below nv
     that are live (m != 0), and of the live (target, slot) pairs the share
-    inside the support (q < 2 for pass 1; r min(ih_i, ih_j) < 2, where
-    pass 2 adds its SPH terms); with a merged P2P window its live share.
-    gravity_fused and filter_sph: :func:`_gravity_shares`,
+    inside the support (q < 2 for pass 1; r min(ih_i, ih_j) < 2 for
+    pass1_sym, where either spline adds, and for pass 2, where it adds its
+    SPH terms; p2p evaluates every live pair) and, for pass1_sym, the
+    share its skip test leaves out; with a merged P2P window its live
+    share. gravity_fused and filter_sph: :func:`_gravity_shares`,
     :func:`_filter_shares`."""
     import torch
     if name == "gravity_fused":
@@ -1421,10 +1448,15 @@ def window_shares(name, a, kw):
     nv, tgt, src = a
     g, s = src[0].shape
     b = tgt[0].shape[0] // g
-    m_row = src[3] if name == "pass1_gradh" else src[4]
+    m_row = src[3] if name == "pass1_gradh" else src[-1]
     slot = torch.arange(s, device=nv.device)[None, :] < nv[:, None]
     below, live = _n(slot), _n(slot & (m_row != 0.0))
-    inside = 0
+    out = dict(slots_below_nv=below, live_slots=live,
+               live_share=live / max(below, 1), live_pairs=b * live)
+    if name == "p2p":
+        return out
+    inside = skipped = 0
+    q2_skip = _cu_define("pass1_gradh", "PSPH_Q2_SKIP", "common.cuh")
     for g0, g1 in _group_slices(g, slice_groups(a, kw)):
         tx, ty, tz, tih = (c[g0 * b:g1 * b].reshape(g1 - g0, b, 1)
                            for c in tgt[:4])
@@ -1432,16 +1464,26 @@ def window_shares(name, a, kw):
         lv = slot[g0:g1, None, :] & (m_row[g0:g1, None, :] != 0.0)
         dxx, dxy, dxz = tx - sx, ty - sy, tz - sz
         r2 = dxx * dxx + dxy * dxy + dxz * dxz
+        sih = src[3][g0:g1, None, :]
         if name == "pass1_gradh":
             sup = torch.sqrt(r2) * tih < 2.0
+        elif name == "pass1_sym":
+            sup = torch.sqrt(r2) * torch.minimum(tih, sih) < 2.0
+            # pass1_sym.cu's skip: (r2 ihm) ihm > PSPH_Q2_SKIP, ihm the
+            # smaller of the positive ih (a NaN or non-positive ih: 0)
+            ihm = torch.minimum(torch.where(tih > 0, tih, 0.0),
+                                torch.where(sih > 0, sih, 0.0))
+            skipped += _n(lv & ((r2 * ihm) * ihm > q2_skip))
+            del ihm
         else:
             r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
-            sup = r * torch.minimum(tih, src[3][g0:g1, None, :]) < 2.0
+            sup = r * torch.minimum(tih, sih) < 2.0
         inside += _n(lv & sup)
         del lv, dxx, dxy, dxz, r2, sup
-    out = dict(slots_below_nv=below, live_slots=live,
-               live_share=live / max(below, 1), live_pairs=b * live,
-               pairs_inside=inside, inside_share=inside / max(b * live, 1))
+    out.update(pairs_inside=inside, inside_share=inside / max(b * live, 1))
+    if name == "pass1_sym":
+        out.update(pairs_skipped=skipped,
+                   skipped_share=skipped / max(b * live, 1))
     if kw.get("p2p_rows") is not None:
         nvp, pm = kw["nv_p2p"], kw["p2p_rows"][-1]
         ps = torch.arange(pm.shape[1], device=nv.device)[None, :] \
@@ -1460,7 +1502,9 @@ def same_bits(out, again) -> bool:
 
 
 # the kernels whose planted NaNs phase 4 holds against the plain versions
-NAN_CHECKED = ("pass1_gradh", "pass2", "p2p", "gravity_fused", "filter_sph")
+# (the all-pairs kernels: pairwise_plantings)
+NAN_CHECKED = ("pass1_gradh", "pass1_sym", "pass2", "p2p", "gravity_fused",
+               "filter_sph")
 
 
 def _live_slot(nv, m_row, gi=None):
@@ -1475,11 +1519,12 @@ def _live_slot(nv, m_row, gi=None):
     return gi, int(torch.nonzero(live[gi])[-1])
 
 
-def _with_nan(seq, k, at):
-    """seq with a copy of its k-th tensor that holds a NaN at `at`."""
+def _with_nan(seq, k, at, value=float("nan")):
+    """seq with a copy of its k-th tensor that holds a NaN (or `value`) at
+    `at`."""
     seq = list(seq)
     seq[k] = seq[k].clone()
-    seq[k][at] = float("nan")
+    seq[k][at] = value
     return seq
 
 
@@ -1520,13 +1565,19 @@ def nan_plantings(name, a, kw):
     field at the last live slot of a group (a pair outside the support
     for most of its targets: where a sweep leaves out work) or, for ih, in
     target 1's column too. pass1_gradh: x with a target ih, and m;
+    pass1_sym: x with a target ih, the source and target ih, and m;
     pass2: the source and target ih, m, cc and a velocity row (when the
     form stages one); p2p: ih (source ih under min-h softening) and m;
     gravity_fused: ih (the near tier's source ih too) and m (the ring's,
-    and the near tier's). `must_reach`: the plain version's outputs hold a
-    NaN for this planting whatever the inputs (a NaN m of the ring and far
-    tiers is masked out by m > 0, a NaN velocity meets no viscosity where
-    no pair approaches). filter_sph: :func:`_filter_plantings`."""
+    and the near tier's). Dead-slot plantings, pass1_sym and p2p: the same
+    slot with m = 0 and a NaN ih ("dead ih", under min-h softening for
+    p2p) or x ("dead x"), which the compaction must keep where the plain
+    version forms NaN from it. `must_reach`: the plain version's outputs
+    hold a NaN for this planting whatever the inputs (a NaN m of the ring
+    and far tiers is masked out by m > 0, a NaN velocity meets no
+    viscosity where no pair approaches, a dead slot's NaN x meets pass1_sym
+    only inside a spline of a NaN q, which is 0).
+    filter_sph: :func:`_filter_plantings`."""
     import torch
     if name == "filter_sph":
         return _filter_plantings(a, kw)
@@ -1537,6 +1588,7 @@ def nan_plantings(name, a, kw):
     else:
         rows = list(a[2])
         fields = {"pass1_gradh": {"x": 0, "m": 3},
+                  "pass1_sym": {"x": 0, "ih": 3, "m": 4},
                   "pass2": {"ih": 3, "m": 4, "cc": 5},
                   "p2p": {"m": len(rows) - 1}}[name]
         if name == "pass2" and len(rows) > 6:
@@ -1566,11 +1618,20 @@ def nan_plantings(name, a, kw):
         if near and label == "ih" and name == "gravity_fused" \
                 and not kw.get("receiver_soft", False):
             k2["p2p_rows"] = _with_nan(prow, 3, (gi, jp))
-        reach = {"pass1_gradh": True, "pass2": label != "velocity",
-                 "p2p": label == "m",
+        reach = {"pass1_gradh": True, "pass1_sym": True,
+                 "pass2": label != "velocity", "p2p": label == "m",
                  "gravity_fused": near and label == "m"}[name]
         args = (nv, type(a[1])(t), type(a[2])(r), *a[3:])
         out.append(("x+ih" if label == "x" else label, args, k2, gi, reach))
+    if name in ("pass1_sym", "p2p"):
+        # the slot made dead (m = 0), then a NaN x or ih there
+        dead = _with_nan(rows, fields["m"], (gi, j), 0.0)
+        for label, k in (("x", 0), ("ih", fields.get("ih"))):
+            if k is None:
+                continue
+            args = (nv, a[1], type(a[2])(_with_nan(dead, k, (gi, j))))
+            reach = label == ("ih" if name == "pass1_sym" else "x")
+            out.append((f"dead {label}", args, kw, gi, reach))
     return out
 
 
@@ -1594,22 +1655,9 @@ def nan_agreement(name, a, kw):
         sa, skw = slice_args(pa, pkw, gi, gi + 1)
         ref = getattr(gk2, name + "_plain")(*sa, **skw)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        for k, (o, r) in enumerate(zip(out, ref)):
-            if not r.is_floating_point():
-                if not torch.equal(o, r):
-                    return (f"{label}: output {k}: counts differ with NaN "
-                            "inputs"), reached
-                continue
-            same_nan = torch.equal(torch.isnan(o), torch.isnan(r))
-            inf = torch.isinf(r)
-            same_inf = torch.equal(torch.isinf(o), inf) and \
-                torch.equal(o[inf], r[inf])
-            if not (same_nan and same_inf):
-                return (f"{label}: output {k}: NaN at "
-                        f"{int(torch.isnan(o).sum())} targets, infinite at "
-                        f"{int(torch.isinf(o).sum())}, the plain version at "
-                        f"{int(torch.isnan(r).sum())} and {int(inf.sum())}"
-                        ), reached
+        msg = non_finite_agree(out, ref)
+        if msg:
+            return f"{label}: {msg}", reached
         if rows_out:
             base = getattr(gk2, name + "_plain")(
                 *slice_args(a, kw, gi, gi + 1)[0])
@@ -1620,14 +1668,44 @@ def nan_agreement(name, a, kw):
         if must and not reached[label]:
             return (f"{label}: the planted NaN reached no output of the "
                     "plain version"), reached
-        fin = lambda t, r: torch.where(torch.isfinite(r), t, 0.0) \
-            if r.is_floating_point() else t  # noqa: E731
-        ok, _, msgs = compare(name, tuple(fin(o, r) for o, r in
-                                          zip(out, ref)),
-                              tuple(fin(r, r) for r in ref), kw)
-        if not ok:
-            return f"{label}: finite outputs: {msgs}", reached
+        msg = finite_parts_agree(name, out, ref, kw)
+        if msg:
+            return f"{label}: {msg}", reached
     return None, reached
+
+
+def non_finite_agree(out, ref):
+    """None when the outputs are NaN and infinite (the same infinities)
+    exactly where the plain version's are and their counts are equal, else
+    what differs."""
+    import torch
+    for k, (o, r) in enumerate(zip(out, ref)):
+        if not r.is_floating_point():
+            if not torch.equal(o, r):
+                return f"output {k}: counts differ with NaN inputs"
+            continue
+        same_nan = torch.equal(torch.isnan(o), torch.isnan(r))
+        inf = torch.isinf(r)
+        same_inf = torch.equal(torch.isinf(o), inf) and \
+            torch.equal(o[inf], r[inf])
+        if not (same_nan and same_inf):
+            return (f"output {k}: NaN at {int(torch.isnan(o).sum())} "
+                    f"targets, infinite at {int(torch.isinf(o).sum())}, the "
+                    f"plain version at {int(torch.isnan(r).sum())} and "
+                    f"{int(inf.sum())}")
+    return None
+
+
+def finite_parts_agree(name, out, ref, kw=None):
+    """None when the outputs agree with the plain version's within the
+    kernel's tolerances where the plain version's are finite, else what
+    differs."""
+    import torch
+    fin = lambda t, r: torch.where(torch.isfinite(r), t, 0.0) \
+        if r.is_floating_point() else t  # noqa: E731
+    ok, _, msgs = compare(name, tuple(fin(o, r) for o, r in zip(out, ref)),
+                          tuple(fin(r, r) for r in ref), kw)
+    return None if ok else f"finite outputs: {msgs}"
 
 
 def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
@@ -1735,12 +1813,20 @@ def visits_line(name, extra):
                 f"live slot tests the targets of {sh['boxes_tested']:.3f} "
                 f"boxes, {sh['tests_per_live']:.3f} exact tests (the bound "
                 f"charges {sh['charged_per_live']:.3f})")
+    elif name == "p2p":
+        what = (f"live {sh['live_share']:.4f} of {sh['slots_below_nv']} "
+                f"slots below nv, every one of {sh['live_pairs']} live pairs "
+                "evaluated")
     else:
         p2p = (f", P2P window live {sh['p2p_live_share']:.4f}"
                if "p2p_live_share" in sh else "")
+        support = "either support" if name == "pass1_sym" else "the support"
+        skip = (f", skipped {sh['skipped_share']:.4f}"
+                if "skipped_share" in sh else "")
         what = (f"live {sh['live_share']:.4f} of {sh['slots_below_nv']} "
-                f"slots below nv{p2p}, inside the support "
-                f"{sh['inside_share']:.4f} of {sh['live_pairs']} live pairs")
+                f"slots below nv{p2p}, inside {support} "
+                f"{sh['inside_share']:.4f} of {sh['live_pairs']} live "
+                f"pairs{skip}")
     return (f"{what}; {px.get('regs')} registers, {px.get('smem')} B "
             f"shared, spills {px.get('spill_stores')}/"
             f"{px.get('spill_loads')} B; two launches "
@@ -1909,10 +1995,62 @@ def pairwise_cases(n):
     return cases
 
 
-def check_pairwise(n):
-    """Phase 4 for the all-pairs kernels at n particles. Returns ({name:
+def pairwise_plantings(name, args, kw, cfg):
+    """The NaNs phase 4 plants in one all-pairs call, one planting a
+    launch: [(label, args, keywords, must_reach)], each in one field of the
+    last particle, which lies outside the supports of most targets: its x
+    and m, and for pass 2 its pressure and (with viscosity) its velocity.
+    `must_reach`: the plain version's outputs hold a NaN for it whatever
+    the inputs (a NaN x meets pass 1 only inside a spline of a NaN q,
+    which is 0, unless direct gravity reads it; a NaN velocity meets the
+    viscosity of no pair that approaches, but the Balsara sums of
+    every pair)."""
+    j = args[0].shape[0] - 1
+    grav = name == "pairwise_pass1" and cfg.gravity_solver == "direct"
+    out = [("x", tuple(_with_nan(args, 0, (j, 0))), kw, grav or
+            name == "pairwise_pass2"),
+           ("m", tuple(_with_nan(args, 2, j)), kw, True)]
+    if name == "pairwise_pass2":
+        out.append(("P", tuple(_with_nan(args, 4, j)), kw, True))
+        if kw.get("vel") is not None:
+            vel = _with_nan([kw["vel"]], 0, (j, 0))[0]
+            out.append(("velocity", args, dict(kw, vel=vel),
+                        kw.get("fbal") is not None and cfg.av_balsara))
+    return out
+
+
+def pairwise_nan_agreement(name, kernel, plain, args, kw, cfg):
+    """NaNs planted one field at a time (pairwise_plantings): the kernel's
+    outputs must be NaN and infinite exactly where the plain version's
+    are, counts equal, and the finite values within the tolerances.
+    Returns (message or None, {label: reached})."""
+    import torch
+    reached = {}
+    as_tuple = lambda o: tuple(o) if isinstance(o, tuple) else (o,)
+    for label, pa, pkw, must in pairwise_plantings(name, args, kw, cfg):
+        out = as_tuple(kernel(*pa, cfg, **pkw))
+        ref = as_tuple(plain(*pa, cfg, **pkw))
+        msg = non_finite_agree(out, ref)
+        if msg:
+            return f"{label}: {msg}", reached
+        reached[label] = any(bool(torch.isnan(r).any()) for r in ref
+                             if r.is_floating_point())
+        if must and not reached[label]:
+            return (f"{label}: the planted NaN reached no output of the "
+                    "plain version"), reached
+        msg = finite_parts_agree(name, out, ref)
+        if msg:
+            return f"{label}: {msg}", reached
+    return None, reached
+
+
+def check_pairwise(n, parent_libs=None):
+    """Phase 4 for the all-pairs kernels at n particles, with planted NaNs;
+    with `parent_libs` ({kernel: library} of another checkout's build)
+    each case is also timed in turns with that build. Returns ({name:
     report of the main path's case, "cases": [...]}, failures)."""
     import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import build
     from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
     wrappers = {"pairwise_pass1": (pw.pass1, pw.pass1_plain),
                 "pairwise_pass2": (pw.pass2, pw.pass2_plain)}
@@ -1925,8 +2063,22 @@ def check_pairwise(n):
         torch.cuda.synchronize()
         as_tuple = lambda o: tuple(o) if isinstance(o, tuple) else (o,)
         ok, err, msgs = compare(name, as_tuple(out), as_tuple(ref))
+        nan_msg, reached = pairwise_nan_agreement(name, kernel, plain, args,
+                                                  kw, cfg)
+        if nan_msg:
+            ok = False
+            msgs.append(f"planted NaNs: {nan_msg}")
         ms = cuda_ms(lambda: kernel(*args, cfg, **kw), KERNEL_REPS)
         dev_ms = device_ms(lambda: kernel(*args, cfg, **kw))
+        turns = None
+        if parent_libs and name in parent_libs:
+            # the parent's kernel and this one in turns, as check_one
+            turns = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                with (build.library(name, parent_libs[name])
+                      if who == "parent" else contextlib.nullcontext()):
+                    turns[who].append(cuda_ms(
+                        lambda: kernel(*args, cfg, **kw), KERNEL_REPS))
         plain_ms = cuda_ms(lambda: plain(*args, cfg, **kw), PLAIN_REPS)
         b_ms, b_by, nbytes, ops = pairwise_bound(name, args, kw, cfg,
                                                  as_tuple(out))
@@ -1934,15 +2086,30 @@ def check_pairwise(n):
                    device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by,
                    bytes=nbytes, ops=ops, splits=pw.splits_for(n),
+                   nan_agrees=nan_msg is None, nan_reached=reached,
                    messages=msgs)
+        if turns:
+            rep["parent_ms"], rep["ms_in_turns"] = turns["parent"], \
+                turns["this"]
         reports["cases"].append(rep)
         if on_main:
             reports[name] = rep
-        print(f"kernel {name} [{case}, n={n}]: "
+        label = f"{name} [{case}, n={n}]"
+        print(f"kernel {label}: "
               f"{'ok' if ok else 'MISMATCH'} max_abs_err={err:.3e} "
               f"ms={ms:.4f} device_ms={fmt_ms(dev_ms)} "
               f"plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+        got = ", ".join(f"{k} {'reached' if v else 'masked'}"
+                        for k, v in reached.items())
+        print(f"  {label}: planted NaNs "
+              f"{'agree' if nan_msg is None else 'DIFFER'} ({got})",
+              flush=True)
+        if turns:
+            p, t = turns["parent"], turns["this"]
+            print(f"  {label}: in turns, parent {p[0]:.4f}, this "
+                  f"{t[0]:.4f}, this {t[1]:.4f}, parent {p[1]:.4f} ms "
+                  f"({sum(p) / sum(t):.2f}x)", flush=True)
         for m in msgs:
             print(f"  {name} [{case}]: {m}", flush=True)
         if not ok:
@@ -2255,49 +2422,72 @@ def probe_turns(trees):
     return rows
 
 
-def parent_phase(parent, state, cfg):
-    """Phase 7, with --parent DIR: the two probes (probe_turns) and the
-    production step from DIR's checkout and from this one in turns, each
-    whole (its kernels, its Python): `bench --repeat 3` in the order
-    parent, this, this, parent,
-    the first of each with --profile (busy time, idle share); then each
-    checkout's sorted and unsorted chunks (the CLI's 64 steps of the
-    settled state, restored from npz checkpoints that differ only in
-    sorted_chunks) against each other, as phase 5f holds them. Returns
-    (report, failures)."""
-    from planetmodel_sph_tpu_torch.utils import checkpoint
-    trees = {"parent": os.path.abspath(parent), "this": ROOT}
-    rep, failures = {"steps": [], "unsorted": {}}, []
-    rep["probes"] = probe_turns(trees)
+# `sym100k` as README.md runs it: the settled state under the unfused
+# symmetric step (pass1_sym, pass2 symmetric, p2p, the far-only
+# gravity_fused and filter_sph)
+SYM_BENCH = ["--set", "grad_p_mode=symmetric", "--set", "h_mode=relax",
+             "--set", "fuse_p2p_sph=false", "--set",
+             "fuse_p2p_residual=false", "--set", "p2p_window=256", "--set",
+             "m2p_window=256"]
+# `sg100k`: `sym100k` with the supergroup far tier
+SG_BENCH = SYM_BENCH + ["--set", "sg_blocks=4", "--set", "blk_window=768"]
+
+
+def bench_turns(trees, label, extra=()):
+    """`bench --repeat 3 [extra]` from each checkout in its own process, in
+    the order parent, this, this, parent, the first of each with --profile
+    (busy time, idle share): ([row], {tree: median steps/s over every
+    repeat of its two runs}; the profiled runs, which the trace slows, are
+    left out of the medians)."""
+    rows = []
     for k, who in enumerate(("parent", "this", "this", "parent")):
         out = _tree_run(trees[who], ["planetmodel_sph_tpu_torch.bench",
-                                     "--repeat", "3"]
+                                     "--repeat", "3", *extra]
                         + (["--profile"] if k < 2 else []))
         for ln in out.splitlines():
             if ln.startswith("{"):
                 r = json.loads(ln)
                 row = dict(tree=who, steps_per_s=r["steps_per_sec"],
                            overflow=r["overflow"],
+                           profiled=bool(r.get("profiled")),
                            device_busy_s=r.get("device_busy_s"),
                            device_idle_share=r.get("device_idle_share"),
                            device_s_by_kernel=r.get("device_s_by_kernel"))
-                rep["steps"].append(row)
+                rows.append(row)
                 busy = (f" (profiled: busy {row['device_busy_s']:.5f} s, "
                         f"idle {row['device_idle_share']:.4f})"
                         if r.get("profiled") else "")
-                print(f"  production step, {who}: {r['steps_per_sec']:.3f} "
+                print(f"  {label}, {who}: {r['steps_per_sec']} "
                       f"steps/s{busy}", flush=True)
     med = {}
     for who in trees:
-        # every repeat of the two runs of each checkout
-        sps = sorted(x for r in rep["steps"] if r["tree"] == who
-                     for x in (r["steps_per_s"] if isinstance(
-                         r["steps_per_s"], list) else [r["steps_per_s"]]))
+        sps = sorted(r["steps_per_s"] for r in rows
+                     if r["tree"] == who and not r["profiled"])
         med[who] = sps[len(sps) // 2] if sps else float("nan")
-    rep["median_steps_per_s"] = med
-    print(f"  production step medians: this {med['this']:.3f}, parent "
+    print(f"  {label} medians: this {med['this']:.3f}, parent "
           f"{med['parent']:.3f} steps/s ({med['this'] / med['parent']:.3f}x)",
           flush=True)
+    return rows, med
+
+
+def parent_phase(parent, state, cfg):
+    """Phase 7, with --parent DIR: the two probes (probe_turns), the
+    production step, `sym100k` and `sg100k` from DIR's checkout and from
+    this one in turns, each whole (its kernels, its Python; bench_turns);
+    then each
+    checkout's sorted and unsorted chunks (the CLI's 64 steps of the
+    settled state, restored from npz checkpoints that differ only in
+    sorted_chunks) against each other, as phase 5f holds them. Returns
+    (report, failures)."""
+    from planetmodel_sph_tpu_torch.utils import checkpoint
+    trees = {"parent": os.path.abspath(parent), "this": ROOT}
+    rep, failures = {"unsorted": {}}, []
+    rep["probes"] = probe_turns(trees)
+    rep["steps"], rep["median_steps_per_s"] = bench_turns(
+        trees, "production step")
+    for leg, extra in (("sym100k", SYM_BENCH), ("sg100k", SG_BENCH)):
+        rep[f"{leg}_steps"], rep[f"{leg}_median_steps_per_s"] = bench_turns(
+            trees, leg, extra)
     work = os.path.join(OUT_DIR, "parent_phase")
     os.makedirs(work, exist_ok=True)
     starts = {}
@@ -2757,9 +2947,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="a checkout of another commit (e.g. unpacked with "
                     "git archive into a git-ignored directory): its "
-                    "pass1_gradh, pass2, gravity_fused and filter_sph are "
-                    "timed in turns with this one's in phase 4, and phase "
-                    "7 compares the two checkouts' production steps")
+                    "redesigned and all-pairs kernels are timed in turns "
+                    "with this one's in phase 4, and phase 7 compares the "
+                    "two checkouts' production, sym100k and sg100k steps")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2826,13 +3016,14 @@ def main(argv=None) -> int:
                            "planetmodel_sph_tpu_torch")
         pout = os.path.join(pkg, "build")
         t0 = time.perf_counter()
+        in_turns = REDESIGNED + ALL_PAIRS
         try:
-            build.build_all(REDESIGNED, force=True,
+            build.build_all(in_turns, force=True,
                             src=os.path.join(pkg, "csrc"), out=pout)
         except RuntimeError as e:
             return fail(f"the parent's kernels: {e}")
-        parent_libs = {n: build.lib_path(n, pout) for n in REDESIGNED}
-        print(f"build of the parent's {', '.join(REDESIGNED)}: "
+        parent_libs = {n: build.lib_path(n, pout) for n in in_turns}
+        print(f"build of the parent's {', '.join(in_turns)}: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = {}
     for n in REDESIGNED:
@@ -2898,7 +3089,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pw_reports = {}
     for n, _ in DENSE_RUNS:
-        pw_reports[n], fails = check_pairwise(n)
+        pw_reports[n], fails = check_pairwise(n, parent_libs)
         failures += fails
     # the kernels line carries the all-pairs kernels at the default
     # preset's size; the larger size rides along under its own key

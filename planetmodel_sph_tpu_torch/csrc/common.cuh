@@ -92,7 +92,7 @@ __device__ __forceinline__ void psph_p2p_window(
       const float dxz = z - c[2][j];
       const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
       const float m = c[4][j];
-      const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
+      const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
       const float inv_a = RECV ? ih : psph_min(ih, c[3][j]);
       psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r, inv_a, phi, gx, gy, gz);
       nd += (m > 0.0f) ? 1 : 0;
@@ -135,21 +135,22 @@ __device__ __forceinline__ void psph_stage(float (*dst)[PSPH_TILE],
   __pipeline_commit();
 }
 
-// Stable compaction of the staged slots [0, cnt) whose mass mrow[j] is
-// not 0 (padding and duplicates carry m = 0 and add exactly 0 to every
-// sum): put(j, k) stores slot j at compacted position k, k counting the
-// kept slots before j, and returns true when one of the slot's staged
-// fields is not finite. Returns the number kept, adds the number with
-// m > 0 to npos and sets `bad` when some kept slot reported a non-finite
-// field (a sweep that leaves out pairs then visits every pair of the
-// tile: in the plain versions a NaN or an infinity times a weight of 0 is
-// NaN), all the same in every thread. Every thread of the block calls
-// it; it ends with a barrier, after which the compacted slots are visible
-// to the whole block. wtab: 64 ints of shared memory.
-template <typename Put>
-__device__ __forceinline__ int psph_compact(const float* mrow, int cnt,
-                                            int* wtab, int& npos, bool& bad,
-                                            Put put) {
+// Stable compaction of the staged slots [0, cnt) for which keep(j, m)
+// holds, m = mrow[j] (keep must hold wherever m != 0): put(j, k) stores
+// slot j at compacted position k, k counting the kept slots before j, and
+// returns true when one of the slot's staged fields is not finite.
+// Returns the number kept, adds the number with m > 0 to npos and sets
+// `bad` when some kept slot reported a non-finite field (a sweep that
+// leaves out pairs then visits every pair of the tile: in the plain
+// versions a NaN or an infinity times a weight of 0 is NaN), all the same
+// in every thread. Every thread of the block calls it; it ends with a
+// barrier, after which the compacted slots are visible to the whole
+// block. wtab: 64 ints of shared memory.
+template <typename Keep, typename Put>
+__device__ __forceinline__ int psph_compact_where(const float* mrow, int cnt,
+                                                  int* wtab, int& npos,
+                                                  bool& bad, Keep keep,
+                                                  Put put) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = (blockDim.x + 31) >> 5;
   const int here = blockDim.x - (warp << 5);        // threads of this warp
@@ -160,7 +161,8 @@ __device__ __forceinline__ int psph_compact(const float* mrow, int cnt,
   for (int base = 0; base < cnt; base += blockDim.x) {
     const int j = base + tid;
     const float m = j < cnt ? mrow[j] : 0.0f;
-    const unsigned live = __ballot_sync(mask, m != 0.0f);
+    const bool take = j < cnt && keep(j, m);
+    const unsigned live = __ballot_sync(mask, take);
     const unsigned pos = __ballot_sync(mask, m > 0.0f);
     if (lane == 0) {
       wtab[warp] = __popc(live);
@@ -175,13 +177,24 @@ __device__ __forceinline__ int psph_compact(const float* mrow, int cnt,
       all_pos += wtab[32 + w];
     }
     bool mine = false;
-    if (m != 0.0f) mine = put(j, at);
+    if (take) mine = put(j, at);
     kept += all;
     npos += all_pos;
     any_bad |= __syncthreads_or(mine) != 0;
   }
   bad = any_bad;
   return kept;
+}
+
+// psph_compact_where keeping the live slots (m != 0): padding and
+// duplicates carry m = 0 and add exactly 0 to every sum of the grad-h
+// sweeps, whatever their other fields hold.
+template <typename Put>
+__device__ __forceinline__ int psph_compact(const float* mrow, int cnt,
+                                            int* wtab, int& npos, bool& bad,
+                                            Put put) {
+  return psph_compact_where(mrow, cnt, wtab, npos, bad,
+                            [](int, float m) { return m != 0.0f; }, put);
 }
 
 // Stable compaction of the staged slots [0, cnt) for which live(j) holds:
@@ -272,6 +285,11 @@ __device__ __forceinline__ void psph_combine(T (&acc)[N], T* red, int b,
       for (int k = 1; k < ns; ++k) acc[q] += red[q * nt + k * b + tid];
   }
 }
+
+// 4 (1 + 2^-12): r2 ih^2 above this means sqrtf(r2) ih >= 2 in f32 (the
+// margin lies far above the rounding of either product), so a pair the
+// skip leaves out is outside the support of that ih
+#define PSPH_Q2_SKIP 4.0009765625f
 
 // Slot slices a group's window is split into (a power of 2): with 4 both
 // windowed sweeps ran faster than with 2 on the H100 (PERF.md).

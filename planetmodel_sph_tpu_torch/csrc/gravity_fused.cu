@@ -103,7 +103,7 @@ __device__ __forceinline__ void mono_quad(float4 (*e)[PSPH_TILE], int j,
   const float dxy = y - p.z;
   const float dxz = z - p.w;
   const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
-  const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
+  const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
   const float ir2 = inv_r * inv_r;
   const float ir3 = ir2 * inv_r;
   float radial = m * ir3;                  // g's factor along d

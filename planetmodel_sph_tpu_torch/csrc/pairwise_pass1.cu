@@ -22,9 +22,20 @@
 // writes its partial sums to a [splits, 7, n] scratch and a second small
 // kernel adds them in split order, so the sums are repeatable and the
 // counts exact (no float atomics). Pairs outside both supports skip the
-// spline math. The library is built with -fmad=false so r2 rounds as the
-// plain version's separate multiplies and adds do and the q < 2 count
-// matches it exactly.
+// spline math, unless a NaN or an infinity could reach rho through them:
+// the plain version multiplies such a pair by a weight of 0, and a
+// non-finite field times 0 is NaN. So a tile in which a staged field is
+// not finite, and a target whose own x, y, z or 1/h is not finite, skip
+// nothing (all_pairs: set once a tile at the staging and once a target;
+// it zeroes the gate's 1/h_i, so that the gate costs what it did), and
+// the gate "not (r/h_i >= 2 and r/h_j >= 2)" visits a pair with a NaN in
+// r or either 1/h; the self pair, which the plain version weighs with
+// m = 0, is visited so (and not counted) for a flagged target, where 0
+// times its own non-finite value is NaN. Gravity softens with psph_min,
+// NaN when either 1/h is, as torch.minimum, and guards r = 0 with
+// psph_max, which keeps a NaN r2 as torch.clamp does. The library is
+// built with -fmad=false so r2 rounds as the plain version's separate
+// multiplies and adds do and the q < 2 count matches it exactly.
 #include "common.cuh"
 
 #define PW_TILE 128
@@ -59,44 +70,61 @@ __global__ void pairwise_pass1_kernel(
     z = pos[3 * (size_t)i + 2];
     ih = inv_h[i];
   }
+  const float own[4] = {x, y, z, ih};
+  const bool target_bad = !psph_all_finite(own);
   const float ci = PSPH_INV_PI * (ih * ih * ih);
   float s_rho = 0.0f, s_phi = 0.0f, s_gx = 0.0f, s_gy = 0.0f, s_gz = 0.0f;
   int s_nn = 0, s_nd = 0;
   for (int base = j0; base < j1; base += PW_TILE) {
     const int cnt = min(PW_TILE, j1 - base);
+    bool bad = false;
     for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
       const size_t j = (size_t)base + k;
-      cx[k] = pos[3 * j];
-      cy[k] = pos[3 * j + 1];
-      cz[k] = pos[3 * j + 2];
-      cih[k] = inv_h[j];
-      cm[k] = mass[j];
+      const float v[5] = {pos[3 * j], pos[3 * j + 1], pos[3 * j + 2],
+                          inv_h[j], mass[j]};
+      cx[k] = v[0];
+      cy[k] = v[1];
+      cz[k] = v[2];
+      cih[k] = v[3];
+      cm[k] = v[4];
+      bad = bad || !psph_all_finite(v);
     }
-    __syncthreads();
+    const bool tile_bad = __syncthreads_or(bad) != 0;
+    const bool all_pairs = tile_bad || target_bad;
+    // the gate's 1/h_i for this tile: 0 gates out nothing
+    const float ih_gate = all_pairs ? 0.0f : ih;
     if (live) {
-      for (int k = 0; k < cnt; ++k) {
-        if (base + k == i) continue;
+      // one pair's terms with mass m; `other`: 1, or 0 for the self pair,
+      // which the plain version weighs with m = 0 and does not count
+      auto pair = [&](int k, float m, int other) {
         const float dxx = x - cx[k];
         const float dxy = y - cy[k];
         const float dxz = z - cz[k];
         const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
-        const float m = cm[k];
         const float jh = cih[k];
         const float r = sqrtf(r2);
         const float qi = r * ih;
         const float qj = r * jh;
-        if (qi < 2.0f || qj < 2.0f) {
+        if (!(r * ih_gate >= 2.0f && qj >= 2.0f)) {
           const float cj = PSPH_INV_PI * (jh * jh * jh);
           s_rho += m * 0.5f * (pw_spline_w(qi, ci) + pw_spline_w(qj, cj));
-          s_nn += qi < 2.0f ? 1 : 0;
+          s_nn += qi < 2.0f ? other : 0;
         }
         if (do_gravity) {
-          const float inv_a = receiver_soft ? ih : fminf(ih, jh);
-          const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
+          const float inv_a = receiver_soft ? ih : psph_min(ih, jh);
+          const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
           psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r, inv_a, s_phi, s_gx, s_gy,
                        s_gz);
-          s_nd += 1;
+          s_nd += other;
         }
+      };
+      for (int k = 0; k < cnt; ++k) {
+        if (base + k == i) {
+          // 0 times a non-finite value of the target's own is NaN
+          if (target_bad) pair(k, 0.0f, 0);
+          continue;
+        }
+        pair(k, cm[k], 1);
       }
     }
     __syncthreads();

@@ -20,8 +20,18 @@
 // split over blockIdx.y and the partial sums added in split order by a
 // second kernel). Every term of a pair carries a kernel-gradient factor,
 // so a pair outside both supports adds exactly 0 and is skipped before any
-// of the pressure or viscosity math. The per-source factor P_j/rho_j (or
-// P_j/rho_j^2) is formed once when the tile is staged. This kernel decides
+// of the pressure or viscosity math, unless a NaN or an infinity could
+// reach the sums through it: the plain version multiplies it by a gradient
+// of 0, and a non-finite field times 0 is NaN. So a tile in which a staged
+// field (or the factor formed from them) is not finite, and a target with
+// a non-finite value in what it reads of itself, skip nothing (all_pairs:
+// set once a tile at the staging and once a target; it zeroes the gate's
+// 1/h_i, so that the gate costs what it did), and the gate "r/h_i >= 2 and
+// r/h_j >= 2" leaves out no pair with a NaN in r or either 1/h. A flagged
+// target also visits its self pair with m = 0, as the plain version
+// weighs it: 0 times its own non-finite value is NaN there. The
+// per-source factor P_j/rho_j (or P_j/rho_j^2) is formed once when the
+// tile is staged. This kernel decides
 // only through q < 1, q < 2 inside continuous functions and v.x < 0, its
 // sums are held to a tolerance, and it keeps multiply-add contraction.
 #include "common.cuh"
@@ -77,34 +87,45 @@ __global__ void pairwise_pass2_kernel(
     }
     if constexpr (BAL) fbi = fb[i];
   }
+  const float own[12] = {x, y, z, ih, ri, pi_i, vx, vy, vz, hi, csi, fbi};
+  const bool target_bad = !psph_all_finite(own);
   float acc[NOUT];
 #pragma unroll
   for (int k = 0; k < NOUT; ++k) acc[k] = 0.0f;
   for (int base = j0; base < j1; base += PW_TILE) {
     const int cnt = min(PW_TILE, j1 - base);
+    bool bad = false;
     for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
       const size_t j = (size_t)base + k;
-      cx[k] = pos[3 * j];
-      cy[k] = pos[3 * j + 1];
-      cz[k] = pos[3 * j + 2];
-      cih[k] = inv_h[j];
-      cm[k] = mass[j];
       const float rj = rho[j];
-      cp[k] = asymmetric ? prs[j] / rj : prs[j] / (rj * rj);
+      float v[13] = {pos[3 * j], pos[3 * j + 1], pos[3 * j + 2], inv_h[j],
+                     mass[j], asymmetric ? prs[j] / rj : prs[j] / (rj * rj),
+                     rj, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      cx[k] = v[0];
+      cy[k] = v[1];
+      cz[k] = v[2];
+      cih[k] = v[3];
+      cm[k] = v[4];
+      cp[k] = v[5];
       if constexpr (AV) {
-        cvx[k] = vel[3 * j];
-        cvy[k] = vel[3 * j + 1];
-        cvz[k] = vel[3 * j + 2];
-        chh[k] = hh[j];
-        ccs[k] = cs[j];
+        v[7] = cvx[k] = vel[3 * j];
+        v[8] = cvy[k] = vel[3 * j + 1];
+        v[9] = cvz[k] = vel[3 * j + 2];
+        v[10] = chh[k] = hh[j];
+        v[11] = ccs[k] = cs[j];
         crho[k] = rj;
       }
-      if constexpr (BAL) cfb[k] = fb[j];
+      if constexpr (BAL) v[12] = cfb[k] = fb[j];
+      bad = bad || !psph_all_finite(v);
     }
-    __syncthreads();
+    const bool tile_bad = __syncthreads_or(bad) != 0;
+    const bool all_pairs = tile_bad || target_bad;
+    // the gate's 1/h_i for this tile: 0 gates out nothing
+    const float ih_gate = all_pairs ? 0.0f : ih;
     if (live) {
-      for (int k = 0; k < cnt; ++k) {
-        if (base + k == i) continue;
+      // one pair's terms with mass m (0 for the self pair, as the plain
+      // version weighs it)
+      auto pair = [&](int k, float m) {
         const float dxx = x - cx[k];
         const float dxy = y - cy[k];
         const float dxz = z - cz[k];
@@ -113,8 +134,7 @@ __global__ void pairwise_pass2_kernel(
         const float r = sqrtf(r2);
         const float qi = r * ih;
         const float qj = r * jh;
-        if (!(qi < 2.0f || qj < 2.0f)) continue;
-        const float m = cm[k];
+        if (r * ih_gate >= 2.0f && qj >= 2.0f) return;
         const float gw =
             0.5f * (pw_gw(r, qi, ih, lin) + pw_gw(r, qj, jh, lin));
         float coef = asymmetric ? m * cp[k] * gw
@@ -148,6 +168,14 @@ __global__ void pairwise_pass2_kernel(
         acc[0] += dxx * coef;
         acc[1] += dxy * coef;
         acc[2] += dxz * coef;
+      };
+      for (int k = 0; k < cnt; ++k) {
+        if (base + k == i) {
+          // 0 times a non-finite value of the target's own is NaN
+          if (target_bad) pair(k, 0.0f);
+          continue;
+        }
+        pair(k, cm[k]);
       }
     }
     __syncthreads();

@@ -41,9 +41,6 @@
 //   the same on every run.
 #include "common.cuh"
 
-// 4 (1 + 2^-12): r2 ih^2 above this means sqrtf(r2) ih >= 2 in f32
-#define PSPH_Q2_SKIP 4.0009765625f
-
 __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_gradh_kernel(
     const float* __restrict__ tx, const float* __restrict__ ty,
     const float* __restrict__ tz, const float* __restrict__ tih,

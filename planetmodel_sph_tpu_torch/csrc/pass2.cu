@@ -57,7 +57,7 @@
 //   ballot per warp, into a slot-major layout of float4s (x, y, z, m),
 //   (ih, cc, vx, vy), (vz, h, cs, rho), (f): two 16-byte shared loads a
 //   pair outside the support, all of them inside;
-// - per live pair the geometry and one rsqrtf(fmaxf(r2, 1e-30f)) as
+// - per live pair the geometry and one rsqrtf(psph_max(r2, 1e-30f)) as
 //   before, the Dyer-Ip term with gravity, and the SPH block only when
 //   r ih_i < 2 or r ih_j < 2, or either product is NaN: outside it both
 //   gw are 0, and with them every pressure, viscosity, Balsara and energy
@@ -211,7 +211,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
       const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
       const float m = q0.w;
       const float jh = q1.x;
-      const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
+      const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
       const float r = r2 * inv_r;
       if (!(r * ih_gate >= 2.0f && r * jh >= 2.0f)) {
         // inside the support of i or j, or a NaN in r, ih or jh: the SPH
@@ -311,7 +311,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
         const float dxy = y - q0.y;
         const float dxz = z - q0.z;
         const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
-        const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
+        const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
         const float inv_a = RECV ? ih : psph_min(ih, comp[1][j].x);
         psph_dyer_ip(q0.w, dxx, dxy, dxz, r2, inv_r, inv_a, acc[I_GR],
                      acc[I_GR + 1], acc[I_GR + 2], acc[I_GR + 3]);

@@ -255,20 +255,22 @@ def test_graphed_launch_refuses_without_a_card(monkeypatch):
 
 def test_nan_plantings_cover_p2p_and_gravity_fused():
     """On the CPU the wrappers run their plain versions, so the check
-    passes; p2p's planted m reaches an output, gravity's ring m is masked
-    out by m > 0 in the plain version as in the kernel."""
+    passes; p2p's planted m and a dead slot's x reach an output, gravity's
+    ring m is masked out by m > 0 in the plain version as in the kernel."""
     nvp, ptgt, psrc = _case(4)
     a = (torch.from_numpy(nvp), tuple(_t(_cols(ptgt))), tuple(_t(psrc)))
     msg, reached = cs.nan_agreement("p2p", a, dict(b=B, receiver_soft=False))
-    assert msg is None and reached == {"m": True, "ih": reached["ih"]}
+    assert msg is None and reached == {"m": True, "ih": reached["ih"],
+                                       "dead x": True,
+                                       "dead ih": reached["dead ih"]}
     nv, tgt, ring, far, accept = _grav_inputs(2, 10)
     a = (torch.from_numpy(nv), _t(tgt), _t(ring), _t(far),
          torch.from_numpy(accept))
     msg, reached = cs.nan_agreement("gravity_fused", a, dict(b=B))
     assert msg is None and set(reached) == {"m", "ih"}
     assert not any(reached.values())
-    assert set(cs.NAN_CHECKED) == {"pass1_gradh", "pass2", "p2p",
-                                   "gravity_fused", "filter_sph"}
+    assert set(cs.NAN_CHECKED) == {"pass1_gradh", "pass1_sym", "pass2",
+                                   "p2p", "gravity_fused", "filter_sph"}
 
 
 def test_probe_turn_is_a_program_of_the_two_probes():

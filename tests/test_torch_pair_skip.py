@@ -1,15 +1,19 @@
-"""What the compacted sweeps ``csrc/pass1_gradh.cu`` and ``csrc/pass2.cu``
-keep exact when they visit only some pairs.
+"""What the compacted sweeps ``csrc/pass1_gradh.cu``, ``csrc/pass1_sym.cu``,
+``csrc/pass2.cu`` and ``csrc/p2p.cu`` keep exact when they visit only some
+pairs, and what the all-pairs kernels keep when they gate pairs out.
 
 The kernels visit only the live slots of a window (m != 0; padding and
 duplicates carry m = 0), pass 1 skips a pair with (r2 ih) ih >
-PSPH_Q2_SKIP before its square root, and pass 2 adds its SPH terms only
-where r ih_i < 2 or r ih_j < 2 (gravity still takes every live pair).
-Neither leaves out a pair of a tile (PSPH_TILE slots) in which a live
-slot holds a non-finite staged value, nor one of a target with a
-non-finite column (``all_pairs``): in the plain versions a NaN or an
-infinity times a weight of 0 is NaN. The CUDA kernels run only on the
-card; here
+PSPH_Q2_SKIP before its square root, pass1_sym one with (r2 ihm) ihm >
+PSPH_Q2_SKIP, ihm the smaller ih (the larger support: the either-support
+skip), and pass 2 adds its SPH terms only where r ih_i < 2 or r ih_j < 2
+(gravity still takes every live pair). None leaves out a pair of a tile
+(PSPH_TILE slots) in which a kept slot holds a non-finite staged value,
+nor one of a target with a non-finite column (``all_pairs``): in the
+plain versions a NaN or an infinity times a weight of 0 is NaN. pass1_sym
+and p2p also keep a dead slot (m = 0) with a non-finite field, from which
+their plain versions form NaN, and p2p every slot of a block with a
+non-finite target. The CUDA kernels run only on the card; here
 
 - the two tests are read from the sources as C expressions and evaluated
   on numpy float32 arrays (``_c_test``), and held, in numpy and as a
@@ -52,8 +56,8 @@ def _source(name):
 
 def _skip_constant():
     m = re.search(r"#define\s+PSPH_Q2_SKIP\s+([0-9.eE+-]+)f",
-                  _source("pass1_gradh.cu"))
-    assert m, "PSPH_Q2_SKIP not found in pass1_gradh.cu"
+                  _source("common.cuh"))
+    assert m, "PSPH_Q2_SKIP not found in common.cuh"
     return np.float32(m.group(1))
 
 
@@ -64,7 +68,8 @@ Q2_SKIP = _skip_constant()
 # return NaN)
 _C_CALLS = {"fminf": np.fmin, "fmaxf": np.fmax, "sqrtf": np.sqrt,
             "psph_min": np.minimum, "psph_max": np.maximum,
-            "isfinite": np.isfinite}
+            "isfinite": np.isfinite,
+            "psph_all_finite": lambda v: np.isfinite(v).all(axis=0)}
 
 
 def _c_test(expr):
@@ -80,7 +85,7 @@ def _c_test(expr):
     tree = ast.parse(py.strip(), mode="eval").body
     ops = {ast.Mult: np.multiply, ast.Add: np.add, ast.Sub: np.subtract,
            ast.Gt: np.greater, ast.GtE: np.greater_equal, ast.Lt: np.less,
-           ast.LtE: np.less_equal}
+           ast.LtE: np.less_equal, ast.NotEq: np.not_equal}
 
     def ev(n, env):
         if isinstance(n, ast.Constant):
@@ -153,6 +158,52 @@ def P2_GATE(r, ih, jh, all_pairs):
     return P2_TEST(r=r, jh=jh, ih_gate=IH_GATE(all_pairs=all_pairs, ih=ih))
 TILE = int(re.search(r"#define\s+PSPH_TILE\s+(\d+)",
                      _source("common.cuh")).group(1))
+
+
+def _sym_and_p2p_tests():
+    """pass1_sym.cu's target and source skip ih, pair ih, visit test and
+    flag, and the compaction predicates of pass1_sym.cu and p2p.cu: the
+    C expressions as the sources have them."""
+    sym, p2p = _source("pass1_sym.cu"), _source("p2p.cu")
+    ih_skip = re.search(r"const float ih_skip = ([^;]+);", sym)
+    jh_skip = re.search(r"geo\[at\] = make_float4\(v\[0\], v\[1\], "
+                        r"v\[2\], ([^;]+)\);", sym)
+    ih_tile = re.search(r"const float ih_tile = ([^;]+);", sym)
+    ihm = re.search(r"const float ihm = ([^;]+);", sym)
+    visit = re.search(r"if \((.*PSPH_Q2_SKIP.*)\) \{", sym)
+    flag = re.search(r"const bool all_pairs = ([^;]+);", sym)
+    keeps = [re.search(r"return (m != 0\.0f[^;]*);", src)
+             for src in (sym, p2p)]
+    assert ih_skip and jh_skip and ih_tile and ihm and visit and flag \
+        and all(keeps), "a pair test of pass1_sym.cu or p2p.cu was not found"
+    # the source's skip ih rides in the slot's float4 as p.w
+    return (_c_test(ih_skip.group(1)), _c_test(jh_skip.group(1)),
+            _c_test(ih_tile.group(1)),
+            _c_test(ihm.group(1).replace("p.w", "jh_skip")),
+            _c_test(visit.group(1)), _c_test(flag.group(1)),
+            _c_test(keeps[0].group(1)), _c_test(keeps[1].group(1)))
+
+
+(S_IH_SKIP, S_JH_SKIP, S_IH_TILE, S_IHM, S_TEST, S_ALL_PAIRS, SYM_KEEP,
+ P2P_KEEP) = _sym_and_p2p_tests()
+
+
+def _sym_skipped(r2, ih, jh, all_pairs=False):
+    """pass1_sym.cu's either-support skip, in float32, as its source
+    states it."""
+    ih_tile = S_IH_TILE(all_pairs=np.asarray(all_pairs),
+                        ih_skip=S_IH_SKIP(ih=ih))
+    ihm = S_IHM(ih_tile=ih_tile, jh_skip=S_JH_SKIP(jh=jh))
+    return ~np.asarray(S_TEST(r2=r2, ihm=ihm, PSPH_Q2_SKIP=Q2_SKIP))
+
+
+def _sym_fields(x, y, z, jh, m):
+    """The staged fields pass1_sym.cu tests for finiteness (its `fields`):
+    x, y, z, ih^3 formed as the kernel forms it, m."""
+    jh = np.asarray(jh, np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        return np.stack([np.asarray(v, np.float32) for v in
+                         (x, y, z, jh * jh * jh, m)])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -590,6 +641,29 @@ def test_gravity_softening_propagates_a_nan_ih():
     assert torch.isnan(torch.minimum(t([1.0]), t([float("nan")]))).all()
 
 
+def test_the_r_guard_keeps_a_nan_r2():
+    """Every gravity sweep guards r = 0 with rsqrtf(psph_max(r2, 1e-30f)):
+    max.NaN.f32 keeps a NaN r2 (a NaN position) as the plain versions'
+    torch.clamp does, where fmaxf would return 1e-30 and a finite
+    potential; for every other r2 the two give the same bits."""
+    srcs = {n: _source(n) for n in sorted(os.listdir(CSRC))
+            if n.endswith((".cu", ".cuh"))}
+    for name, src in srcs.items():
+        assert "fmaxf(r2" not in src, name
+    for name in ("common.cuh", "p2p.cu", "pass2.cu", "gravity_fused.cu",
+                 "pairwise_pass1.cu"):
+        assert "rsqrtf(psph_max(r2, 1e-30f))" in srcs[name], name
+    nan = np.float32(np.nan)
+    guard = _c_test("psph_max(r2, floor)")
+    floor = np.float32(1e-30)
+    assert np.isnan(guard(r2=nan, floor=floor))
+    r2 = np.array([0.0, 1e-31, 1e-30, 2.5, np.inf], np.float32)
+    np.testing.assert_array_equal(guard(r2=r2, floor=floor),
+                                  np.fmax(r2, floor))
+    t = torch.tensor([float("nan")])
+    assert torch.isnan(torch.clamp(t, min=1e-30)).all()
+
+
 def test_visited_rows_keep_slot_order():
     rows = [torch.arange(12, dtype=torch.float32).reshape(2, 6)]
     keep = torch.tensor([[[1, 0, 1, 0, 0, 1]], [[0, 0, 0, 0, 0, 0]]],
@@ -610,15 +684,304 @@ def test_cases_cover_both_windows_and_every_flag():
 
 
 def test_standing_nan_differences_of_the_other_kernels():
-    """Recorded in ROADMAP Queue C: the two all-pairs kernels still drop a
-    NaN where their plain versions keep it. pairwise_pass1 softens gravity
-    with fminf (torch.minimum gives NaN); both leave out a pair with q_i,
-    q_j >= 2 whatever its fields hold. When a kernel is repaired, this test
-    and the record change together (filter_sph's cut: repaired,
-    tests/test_torch_filter_prereject.py)."""
+    """The all-pairs kernels keep a NaN where their plain versions do:
+    pairwise_pass1 softens gravity with psph_min (NaN when either 1/h is,
+    as torch.minimum), and both gate out a pair only when r/h_i >= 2 and
+    r/h_j >= 2 on the tile's gate ih, which the non-finite flags of the
+    staged tile and of the target zero (then nothing is gated out), so a
+    NaN in r or either 1/h is never gated out."""
     nan = np.float32(np.nan)
     pw1, pw2 = _source("pairwise_pass1.cu"), _source("pairwise_pass2.cu")
-    assert "receiver_soft ? ih : fminf(ih, jh)" in pw1
-    assert _c_test("fminf(ih, jh)")(ih=1.0, jh=nan) == 1.0
-    assert "if (qi < 2.0f || qj < 2.0f) {" in pw1
-    assert "if (!(qi < 2.0f || qj < 2.0f)) continue;" in pw2
+    assert "receiver_soft ? ih : psph_min(ih, jh)" in pw1
+    assert "fminf(ih" not in pw1 and "fminf(ih" not in pw2
+    gates = [re.search(r"if \(!\((r \* ih_gate >= 2\.0f && qj >= 2\.0f)\)"
+                       r"\) \{", pw1),
+             re.search(r"if \((r \* ih_gate >= 2\.0f && qj >= 2\.0f)\) "
+                       r"return;", pw2)]
+    assert all(gates)
+    for src in (pw1, pw2):
+        assert "const bool tile_bad = __syncthreads_or(bad) != 0;" in src
+        assert "bad = bad || !psph_all_finite(v);" in src
+        assert "const bool target_bad = !psph_all_finite(own);" in src
+        assert re.search(r"const bool all_pairs = tile_bad \|\| "
+                         r"target_bad;", src)
+        assert "const float ih_gate = all_pairs ? 0.0f : ih;" in src
+    # pass 2 stages its factor P/rho (P/rho^2) and tests it with the rows
+    assert "mass[j], asymmetric ? prs[j] / rj : prs[j] / (rj * rj)," in pw2
+    # a flagged target visits its self pair with m = 0, as the plain
+    # version weighs it, and counts it nowhere
+    assert "if (target_bad) pair(k, 0.0f, 0);" in pw1
+    assert "if (target_bad) pair(k, 0.0f);" in pw2
+    assert "s_nn += qi < 2.0f ? other : 0;" in pw1
+    assert "s_nd += other;" in pw1
+    gated_out = _c_test(gates[0].group(1))
+    ih_gate = _c_test("all_pairs ? 0.0f : ih")
+    far = np.float32(1e3)
+    for r, ih, jh in ((far, 1.0, nan), (far, nan, 1.0), (nan, 1.0, 1.0)):
+        assert not gated_out(r=r, qj=np.float32(r) * np.float32(jh),
+                             ih_gate=ih_gate(all_pairs=False, ih=ih))
+    assert gated_out(r=far, qj=far, ih_gate=ih_gate(all_pairs=False,
+                                                    ih=1.0))
+    assert not gated_out(r=far, qj=far, ih_gate=ih_gate(all_pairs=True,
+                                                        ih=1.0))
+    assert np.isnan(_c_test("psph_min(ih, jh)")(ih=1.0, jh=nan))
+
+
+# ---------------------------------------------------------------------------
+# pass1_sym: the either-support skip and the compaction of dead slots
+# ---------------------------------------------------------------------------
+
+def test_sym_skip_takes_the_larger_support():
+    """pass1_sym.cu's skip compares with the smaller of the two ih (the
+    larger h), its operands made >= 0 and not NaN, and the pair that is
+    visited takes q = sqrtf(r2) ih and forms ih^3 once a slot."""
+    src = _source("pass1_sym.cu")
+    assert "const float ihm = fminf(ih_tile, p.w);" in src
+    assert "const float q = r * ih;" in src and "sqrtf(r2)" in src
+    assert "v[3] = jh * jh * jh;" in src
+    # a pair inside only the larger support is never skipped
+    r2 = np.float32(9.0)                    # r = 3
+    assert not _sym_skipped(r2, np.float32(2.0), np.float32(0.5))
+    assert not _sym_skipped(r2, np.float32(0.5), np.float32(2.0))
+    assert _sym_skipped(r2, np.float32(2.0), np.float32(2.0))
+
+
+def _sym_knife_edges(rng, n, rel, log_lo, log_hi):
+    """n pairs at |r| = (2 / min(ih, jh)) rel (1 + k 2^-24), k in
+    [-256, 256], in random directions; ih over [log_lo, log_hi] decades,
+    jh within a decade of it either way."""
+    ih = (10.0 ** rng.uniform(log_lo, log_hi, n)).astype(np.float32)
+    jh = (ih * 10.0 ** rng.uniform(-1, 1, n)).astype(np.float32)
+    u = rng.normal(size=(3, n))
+    u /= np.linalg.norm(u, axis=0)
+    k = rng.integers(-256, 257, n)
+    r = (2.0 / np.minimum(ih, jh).astype(np.float64)) * rel \
+        * (1 + k * 2.0 ** -24)
+    dx, dy, dz = ((r * c).astype(np.float32) for c in u)
+    return _r2(dx, dy, dz), ih, jh
+
+
+@pytest.mark.parametrize("scale", [(-3.0, 3.0), (-9.0, -6.0)],
+                         ids=["code_units", "cgs"])
+@pytest.mark.parametrize("rel", [1.0, float(np.sqrt(Q2_SKIP / 4.0))],
+                         ids=["q_at_2", "at_the_skip_threshold"])
+def test_sym_skipped_pair_is_outside_both_supports_numpy(rel, scale):
+    """A skipped pair has sqrtf(r2) ih >= 2 for both ih, on knife edges of
+    the larger support, in code units and at cgs scale (h ~ 1e6-1e9)."""
+    rng = np.random.default_rng(11)
+    r2, ih, jh = _sym_knife_edges(rng, 400_000, rel, *scale)
+    skip = _sym_skipped(r2, ih, jh)
+    assert not np.any(skip & (_q(r2, ih) < 2.0))
+    assert not np.any(skip & (_q(r2, jh) < 2.0))
+    if rel == 1.0:
+        assert not skip.any()          # q within 256 ulps of 2: all kept
+    else:
+        assert 0 < skip.sum() < skip.size   # both sides of the threshold
+
+
+@settings(max_examples=300, deadline=None)
+@given(log_ih=st.floats(-9.0, 3.0), log_ratio=st.floats(-2.0, 2.0),
+       k=st.integers(-4096, 4096), ux=st.floats(-1.0, 1.0),
+       uy=st.floats(-1.0, 1.0), uz=st.floats(-1.0, 1.0))
+def test_sym_skipped_pair_is_outside_both_supports_property(
+        log_ih, log_ratio, k, ux, uy, uz):
+    norm = np.sqrt(ux * ux + uy * uy + uz * uz)
+    if norm < 1e-3:
+        ux, uy, uz, norm = 1.0, 0.0, 0.0, 1.0
+    ih = np.float32(10.0 ** log_ih)
+    jh = np.float32(10.0 ** (log_ih + log_ratio))
+    r = (2.0 / float(min(ih, jh))) * (1 + k * 2.0 ** -24)
+    dx, dy, dz = (np.float32(r * c / norm) for c in (ux, uy, uz))
+    r2 = _r2(dx, dy, dz)
+    if _sym_skipped(np.float32(r2), ih, jh):
+        assert _q(r2, ih) >= 2.0 and _q(r2, jh) >= 2.0
+
+
+def test_sym_nan_and_non_positive_ih_are_never_skipped():
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    far = np.float32(1e6)
+    r2 = np.array([nan, far, far, far, far, far, far, inf, inf],
+                  np.float32)
+    ih = np.array([1.0, nan, 1.0, 0.0, 1.0, -5.0, 1.0, 0.0, 1.0],
+                  np.float32)
+    jh = np.array([1.0, 1.0, nan, 1.0, 0.0, 1.0, -5.0, 1.0, nan],
+                  np.float32)
+    assert not _sym_skipped(r2, ih, jh).any()
+    # far pairs of positive ih are skipped, an infinite r2 too
+    assert _sym_skipped(np.array([far, inf], np.float32),
+                        np.array([1.0, 1.0], np.float32),
+                        np.array([2.0, 1.0], np.float32)).all()
+    # the flag skips nothing
+    assert not _sym_skipped(far, np.float32(1.0), np.float32(1.0), True)
+
+
+def test_compaction_keeps_a_dead_slot_with_a_non_finite_field():
+    """pass1_sym.cu and p2p.cu keep every live slot, and a dead one (m = 0)
+    only where a staged field (pass1_sym: or ih^3) is not finite, or, in
+    p2p, where some target of the block has a non-finite column."""
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    m = np.array([1.0, -1.0, nan, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+                 np.float32)
+    x = np.array([0.5, 0.5, 0.5, 0.5, nan, inf, 0.5, 0.5, 0.5, 0.5],
+                 np.float32)
+    jh = np.array([2.0, 2.0, 2.0, 2.0, 2.0, 2.0, nan, -inf, 1e13, -1.0],
+                  np.float32)
+    y = z = np.zeros_like(x)
+    sym = SYM_KEEP(m=m, v=_sym_fields(x, y, z, jh, m))
+    # ih = 1e13 is finite, its cube is not: 0 * 0 * inf is NaN
+    assert sym.tolist() == [True] * 3 + [False] + [True] * 5 + [False]
+    for keep_all in (False, True):
+        p2p = P2P_KEEP(m=m, keep_all=np.asarray(keep_all),
+                       v=np.stack([x, y, z, jh]))
+        assert p2p.tolist() == (
+            [True] * 10 if keep_all
+            else [True] * 3 + [False] + [True] * 4 + [False] * 2)
+    # under receiver softening p2p stages no ih (the source has 0 there)
+    assert "RECV ? 0.0f : st[3][j]" in _source("p2p.cu")
+
+
+def _sym_visits(nv, tgt, rows):
+    """[G, B, S] pairs pass1_sym.cu visits: slots below nv its compaction
+    keeps (SYM_KEEP on its fields), not skipped unless the slot's tile
+    (PSPH_TILE slots) holds a kept slot with a non-finite field or the
+    target has a non-finite column (S_ALL_PAIRS)."""
+    g, s = rows[0].shape
+    b = tgt[0].shape[0] // g
+    f = _sym_fields(*(r.numpy() for r in rows))
+    below = (np.arange(s)[None, :] < nv.numpy()[:, None])
+    kept = below & SYM_KEEP(m=rows[4].numpy(), v=f)
+    bad = kept & ~np.isfinite(f).all(axis=0)
+    pad = -s % TILE
+    tile_bad = np.pad(bad, ((0, 0), (0, pad))).reshape(g, -1, TILE) \
+        .any(axis=2).repeat(TILE, axis=1)[:, :s]
+    target_bad = ~np.isfinite(np.stack([c.numpy().reshape(g, b)
+                                        for c in tgt])).all(axis=0)
+    flag = S_ALL_PAIRS(tile_bad=tile_bad[:, None, :],
+                       target_bad=target_bad[:, :, None])
+    _, r2, tih = _geometry(nv, tgt, rows)
+    skip = _sym_skipped(r2.numpy(), tih.numpy(),
+                        rows[3][:, None, :].numpy(), flag)
+    return torch.from_numpy(kept[:, None, :] & ~skip), \
+        torch.from_numpy(np.broadcast_to(below[:, None, :] &
+                                         (rows[4].numpy() != 0)[:, None, :],
+                                         skip.shape).copy())
+
+
+def _check_sym(o, r):
+    _close(o[1], r[1], 0)
+    _close(o[0], r[0], 2e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pass1_sym_on_the_visited_pairs_matches(seed):
+    nv, tgt, src = _case(seed)
+    _plant_knife_edges(nv, tgt, src)
+    nv, tgt, rows = torch.from_numpy(nv), _t(_cols(tgt)), _t(src)
+    keep, live = _sym_visits(nv, tgt, rows)
+    assert int((live & ~keep).sum()) > 0          # the skip leaves pairs out
+    assert not bool((keep & ~live).any())         # no dead slot is kept
+    ref = tk.pass1_sym_plain(nv, tgt, rows)
+    out = tk.pass1_sym_plain(*_visited(nv, rows, keep)[:1], tgt,
+                             _visited(nv, rows, keep)[1])
+    _check_sym(out, ref)
+
+
+# the plantings of the pass1_sym and p2p tests: name -> (where, row)
+FAR_FIELDS = {"x": ("source", 0), "ih": ("source", 3), "m": ("source", 4),
+              "dead x": ("dead", 0), "dead ih": ("dead", 3),
+              "target x": ("target", 0), "target ih": ("target", 3)}
+
+
+def _plant_far_slot(nv, tgt, src, field, value, fields, dead_m=0.0):
+    """Slot 14 of the last group with more than 16 slots at r = 5 from
+    target 0 (at the origin, ih = 2), ih 1, m 1 (dead: dead_m); then
+    `value` in the named field (fields: name -> (side, row))."""
+    gi = int(np.nonzero(nv > 16)[0][-1])
+    b = tgt[0].shape[0] // src[0].shape[0]
+    src[0][gi, 14], src[1][gi, 14], src[2][gi, 14] = 5.0, 0.0, 0.0
+    src[3][gi, 14], src[-1][gi, 14] = 1.0, 1.0
+    side, k = fields[field]
+    if side == "dead":
+        src[-1][gi, 14] = dead_m
+    if side == "target":
+        tgt[k][gi * b] = value
+    else:
+        src[k][gi, 14] = value
+    return gi
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf], ids=["nan", "inf"])
+@pytest.mark.parametrize("field", sorted(FAR_FIELDS))
+def test_pass1_sym_non_finite_field_reaches_as_in_the_plain_version(
+        field, value):
+    """pass1_sym the way pass1_gradh is held: a non-finite x, ih or m at a
+    live slot far outside both supports of target 0, the same in x or ih
+    of a dead slot there, or in target 0's x or ih: the pairs pass1_sym.cu
+    visits give non-finite outputs exactly where the plain version does."""
+    nv, tgt, src = _case(6)
+    _plant_knife_edges(nv, tgt, src)
+    _plant_far_slot(nv, tgt, src, field, value, FAR_FIELDS)
+    nv, tgt, rows = torch.from_numpy(nv), _t(_cols(tgt)), _t(src)
+    keep, _ = _sym_visits(nv, tgt, rows)
+    ref = tk.pass1_sym_plain(nv, tgt, rows)
+    nv1, rows1 = _visited(nv, rows, keep)
+    out = tk.pass1_sym_plain(nv1, tgt, rows1)
+    if field in ("m", "ih", "dead ih") and value is np.nan:
+        assert bool(torch.isnan(ref[0]).any())
+    _check_non_finite(out, ref, _check_sym)
+
+
+def _p2p_visits(nv, tgt, rows, receiver):
+    """[G, B, S] pairs p2p.cu visits: every pair of a slot below nv that
+    its compaction keeps (P2P_KEEP on x, y, z[, ih]), with keep_all where
+    some target of the group has a non-finite column."""
+    g, s = rows[0].shape
+    b = tgt[0].shape[0] // g
+    below = np.arange(s)[None, :] < nv.numpy()[:, None]
+    ih = np.zeros((g, s), np.float32) if receiver else rows[3].numpy()
+    keep_all = ~np.isfinite(np.stack([c.numpy().reshape(g, b)
+                                      for c in tgt])).all(axis=(0, 2))
+    kept = below & P2P_KEEP(
+        m=rows[-1].numpy(), keep_all=keep_all[:, None],
+        v=np.stack([rows[0].numpy(), rows[1].numpy(), rows[2].numpy(), ih]))
+    return torch.from_numpy(np.broadcast_to(kept[:, None, :],
+                                            (g, b, s)).copy())
+
+
+def _check_p2p(o, r):
+    for k in range(4):
+        _close(o[k], r[k], 1e-5, 1e-6 * float(r[k].abs().max()))
+    _close(o[4], r[4], 0)
+
+
+# receiver softening stages no source ih
+P2P_PLANTINGS = [(f, r) for f in sorted(FAR_FIELDS) for r in (False, True)
+                 if not (r and f in ("ih", "dead ih"))]
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf], ids=["nan", "inf"])
+@pytest.mark.parametrize("field,receiver", P2P_PLANTINGS,
+                         ids=[f"{f}-{'receiver_h' if r else 'min_h'}"
+                              for f, r in P2P_PLANTINGS])
+def test_p2p_non_finite_field_reaches_as_in_the_plain_version(
+        field, receiver, value):
+    """p2p.cu evaluates every pair of the slots it keeps: a non-finite
+    value at a live slot, at a dead one (m = 0) or in target 0's own
+    column gives non-finite outputs exactly where the plain version over
+    every slot below nv does."""
+    nv, tgt, src = _case(7)
+    _plant_far_slot(nv, tgt, src, field, value, FAR_FIELDS)
+    if receiver:
+        del src[3]
+    nv, tgt, rows = torch.from_numpy(nv), _t(_cols(tgt)), _t(src)
+    kw = dict(receiver_soft=receiver, g_const=0.7)
+    keep = _p2p_visits(nv, tgt, rows, receiver)
+    below = torch.arange(rows[0].shape[1])[None, :] < nv[:, None]
+    assert bool((below & ~keep[:, 0, :]).any()) or field.startswith(
+        "target")                                # dead slots left out
+    ref = tk.p2p_plain(nv, tgt, rows, **kw)
+    nv1, rows1 = _visited(nv, rows, keep)
+    out = tk.p2p_plain(nv1, tgt, rows1, **kw)
+    if field in ("dead x", "m") and value is np.nan:
+        assert bool(torch.isnan(ref[0]).any())
+    _check_non_finite(out, ref, _check_p2p)

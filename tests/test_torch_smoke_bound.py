@@ -233,21 +233,34 @@ def test_pairwise_pass2_viscosity_ops_count_approaching_pairs(sign,
 
 # ---- the other modes of the windowed kernels -------------------------------
 
-def test_pass1_sym_ops_and_bytes_by_branch():
+@pytest.mark.parametrize("skipped", [0, 1, 2], ids=["in_support",
+                                                   "one_skipped",
+                                                   "two_skipped"])
+def test_pass1_sym_ops_and_bytes_by_branch(skipped):
+    """In-support pairs: the geometry, the count, both splines by branch
+    and the sums; pairs outside both supports (r min(ih_i, ih_j) >= 2):
+    only the geometry and the skip test."""
     b = 2
     zero, one = _col([0.0] * b), _col([1.0] * b)
     # r = 0.5: q_i inner, q_j (h_j = 0.25) at 2 -> none; r = 1.5: q_i outer,
-    # q_j (h_j = 2) inner; an m = 0 slot; one past nv
-    src = [_row([0.5, 1.5, 0.2, 0.1]), _row([0.0] * 4), _row([0.0] * 4),
-           _row([4.0, 0.5, 1.0, 1.0]), _row([1.0, 1.0, 0.0, 1.0])]
-    a = (_nv(3), [zero, zero, zero, one], src)
+    # q_j (h_j = 2) inner; `skipped` slots outside both supports (r = 3 and
+    # 5, h_j = 1); an m = 0 slot; one past nv
+    far = [3.0, 5.0][:skipped]
+    n = 2 + skipped
+    src = [_row([0.5, 1.5, *far, 0.2, 0.1]), _row([0.0] * (n + 2)),
+           _row([0.0] * (n + 2)), _row([4.0, 0.5] + [1.0] * skipped
+                                       + [1.0, 1.0]),
+           _row([1.0] * n + [0.0, 1.0])]
+    a = (_nv(n + 1), [zero, zero, zero, one], src)
     out = gk2.pass1_sym(*a, b=b)
     _, _, nbytes, ops = cs.bound("pass1_sym", a, {"b": b}, out)
     w = cs.OPS_P1S_W
     per_pair = cs.OPS_P1S_GEOM + cs.OPS_P1S_SUM_I + cs.OPS_P1S_SUM_J
+    assert cs.OPS_P1S_SKIP < per_pair + 2 * w["none"]   # the bound falls
     assert ops == b * (2 * per_pair + 2 * w["inner"] + w["outer"]
-                       + w["none"]) + 3 * cs.OPS_SLOT_TEST
-    assert nbytes == 4 * b * 4 + 4 + 3 * 5 * 4 + 2 * b * 4
+                       + w["none"] + skipped * cs.OPS_P1S_SKIP) \
+        + (n + 1) * cs.OPS_SLOT_TEST
+    assert nbytes == 4 * b * 4 + 4 + (n + 1) * 5 * 4 + 2 * b * 4
 
 
 @pytest.mark.parametrize("receiver", [False, True])

@@ -77,6 +77,13 @@ def test_instance_key_follows_the_template_order():
                              grav=True, receiver_soft=True)) == \
         ("pass2", (1, 1, 0, 0, 1, 1, 0))
     assert key("pass1_gradh", {}) == ("pass1_gradh", ())
+    assert key("pass1_sym", {}) == ("pass1_sym", ())
+    assert key("p2p", dict(receiver_soft=True)) == ("p2p", (1,))
+    assert key("p2p", dict(receiver_soft=False)) == ("p2p", (0,))
+    # p2p.cu's one template parameter is RECV
+    src = open(os.path.join(ROOT, "planetmodel_sph_tpu_torch", "csrc",
+                            "p2p.cu")).read()
+    assert "template <bool RECV>" in src
 
 
 def _direct_shares(nv, tgt, src, pass1):
@@ -129,7 +136,7 @@ def test_same_bits_tells_negative_zero_and_nan_apart():
 
 
 def test_compacted_sweeps_are_the_redesigned_pair():
-    assert set(cs.COMPACTED) == {"pass1_gradh", "pass2"}
+    assert set(cs.COMPACTED) == {"pass1_gradh", "pass1_sym", "pass2"}
     assert set(cs.COMPACTED) <= set(gk2.KERNELS)
 
 
@@ -181,10 +188,12 @@ def test_the_redesigned_kernels_are_timed_in_turns():
     """--parent builds and times these in turns with this checkout's; each
     case of them prints what it visits and holds two launches to the same
     bits; the filter's planted NaNs are checked with the others."""
-    assert cs.REDESIGNED == ("pass1_gradh", "pass2", "gravity_fused",
-                             "filter_sph")
+    assert cs.REDESIGNED == ("pass1_gradh", "pass1_sym", "pass2",
+                             "gravity_fused", "filter_sph", "p2p")
     assert set(cs.REDESIGNED) <= set(gk2.KERNELS)
-    assert {"gravity_fused", "filter_sph"} <= set(cs.NAN_CHECKED)
+    assert set(cs.REDESIGNED) == set(cs.NAN_CHECKED)
+    # the all-pairs kernels are timed in turns too (their NaN repair)
+    assert cs.ALL_PAIRS == ("pairwise_pass1", "pairwise_pass2")
 
 
 def test_instance_key_of_gravity_fused():
@@ -309,3 +318,102 @@ def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cs.main(argv) != 0
     assert capsys.readouterr().out == ""
+
+
+def test_window_shares_of_pass1_sym_and_p2p():
+    """pass1_sym: live slots, pairs inside either support (r min(ih_i,
+    ih_j) < 2) and pairs its skip leaves out, counted pair by pair; p2p:
+    the live share, every live pair evaluated."""
+    nv, tgt, src = _case(4)
+    tgt = _cols(tgt)
+    a = (torch.from_numpy(nv), _t(tgt), _t(src))
+    sh = cs.window_shares("pass1_sym", a, {"b": B})
+    below, live, live_pairs, inside = _direct_shares(nv, tgt, src, False)
+    q2 = np.float32(cs._cu_define("pass1_gradh", "PSPH_Q2_SKIP",
+                                  "common.cuh"))
+    skipped = 0
+    for gi in range(src[0].shape[0]):
+        for j in range(min(int(nv[gi]), src[0].shape[1])):
+            if src[4][gi, j] == 0:
+                continue
+            for i in range(gi * B, gi * B + B):
+                d = [np.float32(tgt[k][i, 0] - src[k][gi, j])
+                     for k in range(3)]
+                r2 = np.float32(np.float32(d[0] * d[0] + d[1] * d[1])
+                                + d[2] * d[2])
+                ihm = np.float32(min(tgt[3][i, 0], src[3][gi, j]))
+                skipped += int(np.float32(r2 * ihm) * ihm > q2)
+    assert (sh["slots_below_nv"], sh["live_slots"], sh["live_pairs"]) == \
+        (below, live, live_pairs)
+    assert abs(sh["pairs_inside"] - inside) <= 2    # sqrt here, rsqrt there
+    assert sh["pairs_skipped"] == skipped
+    assert 0 < skipped <= live_pairs - sh["pairs_inside"]
+    line = cs.visits_line("pass1_sym", dict(shares=sh, ptxas=None,
+                                            same_bits=True))
+    assert "either support" in line and "skipped" in line
+    p = cs.window_shares("p2p", a, {"b": B, "receiver_soft": False})
+    assert (p["slots_below_nv"], p["live_slots"], p["live_pairs"]) == \
+        (below, live, live_pairs) and "pairs_inside" not in p
+    assert "every one of" in cs.visits_line(
+        "p2p", dict(shares=p, ptxas=None, same_bits=True))
+
+
+@pytest.mark.parametrize("name,receiver", [("pass1_sym", False),
+                                           ("p2p", False), ("p2p", True)],
+                         ids=["pass1_sym", "p2p-min_h", "p2p-receiver_h"])
+def test_nan_agreement_of_pass1_sym_and_p2p(name, receiver):
+    """On the CPU the wrappers run their plain versions, so the check must
+    pass; pass1_sym's plantings (x with a target ih, ih, m, a dead slot's
+    x and ih) and p2p's (m, ih under min-h softening, a dead slot's x and,
+    under min-h, ih) reach an output where they must."""
+    nv, tgt, src = _case(5)
+    rows = list(src)
+    kw = {"b": B}
+    if name == "p2p":
+        kw.update(receiver_soft=receiver, g_const=0.7)
+        if receiver:
+            del rows[3]
+    a = (torch.from_numpy(nv), tuple(_t(_cols(tgt))), tuple(_t(rows)))
+    msg, reached = cs.nan_agreement(name, a, kw)
+    assert msg is None
+    if name == "pass1_sym":
+        assert reached == {"x+ih": True, "ih": True, "m": True,
+                           "dead x": False, "dead ih": True}
+    else:
+        # a NaN ih meets the plain version's far branch, where only a pair
+        # at r = 0 (inv_r = 1e15, cubed to inf) turns it into NaN
+        labels = {"m", "dead x"} | ({"ih", "dead ih"} if not receiver
+                                    else set())
+        assert set(reached) == labels
+        assert reached["m"] and reached["dead x"]
+    assert all(bool(torch.isfinite(t).all()) for t in a[1] + a[2])
+
+
+@pytest.mark.parametrize("name", ["pairwise_pass1", "pairwise_pass2"])
+def test_pairwise_nan_agreement_plants_nans_that_reach(name):
+    """The all-pairs plantings (x, m; pass 2 also P and, with viscosity
+    and the Balsara sums, the velocity) on 64 particles: on the CPU the
+    wrappers run their plain versions, so the check passes, and each
+    planting reaches an output where it must."""
+    from planetmodel_sph_tpu_torch import config as tc
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    rng = np.random.default_rng(3)
+    n = 64
+    pos = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+    h = torch.full((n,), 0.3)
+    mass = torch.full((n,), 1.0 / n)
+    kernel, plain = ((pw.pass1, pw.pass1_plain) if name == "pairwise_pass1"
+                     else (pw.pass2, pw.pass2_plain))
+    if name == "pairwise_pass1":
+        cfg = tc.jupiter_3k(n=n)
+        args, kw = (pos, h, mass), {}
+        want = {"x": True, "m": True}
+    else:
+        cfg = tc.jupiter_3k(n=n, av_alpha=1.0, av_beta=2.0, av_balsara=True)
+        args = (pos, h, mass, torch.full((n,), 2.0), torch.full((n,), 0.5))
+        kw = dict(vel=-0.1 * pos, fbal=torch.ones(n))
+        want = {"x": True, "m": True, "P": True, "velocity": True}
+    msg, reached = cs.pairwise_nan_agreement(name, kernel, plain, args, kw,
+                                             cfg)
+    assert msg is None and reached == want
+    assert all(bool(torch.isfinite(t).all()) for t in args)
