@@ -30,12 +30,17 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    with fused gravity under receiver softening, and `settle100k`'s
    Balsara inputs with the energy column. The two all-pairs kernels
    are held against theirs on primed ``ics.jupiter`` particles at n = 3000
-   and n = 32768: pass 1 with both softenings, pass 2 symmetric, asymmetric
-   with the sign bug, and symmetric with viscosity and the Balsara limiter
-   on a rotating, contracting velocity field, each also with a NaN planted
-   in one field of one particle at a time (x, m; for pass 2 the pressure
-   and the velocity), the outputs NaN exactly where the plain version's
-   are. For every case of the six redesigned kernels it also prints what
+   and n = 32768, every case at both sizes: pass 1 with both softenings
+   and without gravity, pass 2 symmetric, asymmetric with the sign bug,
+   and symmetric with viscosity and the Balsara limiter on a rotating,
+   contracting velocity field, each also with a non-finite value planted
+   in one field of one particle at a time, at two particles (a NaN and a
+   +inf x, a NaN h and m; for pass 2 the pressure and the velocity), the
+   outputs NaN exactly where the plain version's are, and a second launch
+   held to the same bits; each case prints the share of pairs inside
+   either support and the share the q^2 test skips, and its instance's
+   registers and spills. For every case of the six redesigned kernels it
+   also prints what
    the kernel visits (the three compacted sweeps ``pass1_gradh``,
    ``pass1_sym`` and ``pass2``: the share of slots below nv that are live
    and of live pairs inside the support, and the share ``pass1_sym``'s
@@ -120,13 +125,13 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    ``pass2``, ``gravity_fused``, ``filter_sph``, ``p2p``) and its two
    all-pairs kernels into DIR's own build directory, phase 4 times them
    and this checkout's in turns (parent, this, this, parent) on each
-   case's inputs, and this phase times the two probes (``probe_launch`` in
-   a chain beside ``torch.mul``, ``probe_gather`` beside ``packed[idx]``)
-   and runs the production step, `sym100k` and `sg100k` (README's
-   commands) from both checkouts, each in its own processes, in the same
-   turns (``bench
-   --repeat 3``), and each checkout's sorted and unsorted chunks against
-   each other.
+   case's inputs (the all-pairs kernels each with the source splits of
+   its own checkout's wrapper), and this phase times the two probes
+   (``probe_launch`` in a chain beside ``torch.mul``, ``probe_gather``
+   beside ``packed[idx]``) and runs the production step, `sym100k`,
+   `sg100k` and `dense32k` (README's commands) from both checkouts, each
+   in its own processes, in the same turns (``bench --repeat 3``), and
+   each checkout's sorted and unsorted chunks against each other.
 
 The second-to-last line of standard output is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. A full
@@ -136,6 +141,7 @@ report goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -278,17 +284,23 @@ OPS_EN = dict(grad_h=4,   # m gw_i, tc *, * v.d, +=  (where gw_i != 0)
               symmetric=3)  # coef / 2, * v.d, +=  (inside either support)
 OPS_EN_AV = 3             # cav / 2, * v.d, +  (approaching pairs)
 
-# The all-pairs kernels, per pair j != i of the n particles (the self test
-# is charged to all n^2). Per-source and per-target factors (1/h^3, P/rho^2,
-# the sound speed) are O(n) and not counted.
-OPS_PW_SELF = 1           # j == i
-OPS_PW_GEOM = 13          # dx(3) r2(5) sqrt q_i q_j; q_i<2 q_j<2
+# The all-pairs kernels, per pair j != i of the n particles: every pair
+# its q^2 test, a pair the test keeps (r2 ihm^2 <= PSPH_Q2_SKIP) the rest
+# of its geometry, and a pair inside either support its spline or
+# gradient terms. Per-source and per-target factors (1/h^3, P/rho^2, the
+# sound speed) and the self test of the diagonal tiles are O(n) and not
+# counted.
+OPS_PW_SKIP = 12          # dx(3) r2(5) min(ih_i, ih_j) (r2 ihm) ihm; >
+OPS_PW_NEAR = 5           # sqrt q_i q_j; q_i<2 q_j<2
 OPS_PW_W = dict(inner=8,  # q<1; q2 q3 poly(4) *c
                 outer=7,  # q<1 q<2; t t^2 t^3 *0.25 *c
                 none=2)   # q<1 q<2
 OPS_PW_RHO = 9            # c_j(3); m/2 W_i+W_j * +=; q_i<2 count
-OPS_PW_GRAV = 3           # fmax rsqrt; n_direct add (then OPS_DYER_IP,
-#                           less its fmin under receiver softening)
+OPS_PW_GRAV_FAR = 11      # a pair the test skips: the outer Dyer-Ip branch,
+#                           rsqrt m/r mag(2) sums(7)
+OPS_PW_GRAV = 2           # a pair the test keeps: fmax rsqrt (then
+#                           OPS_DYER_IP, less its fmin under receiver
+#                           softening)
 OPS_PW_GW = dict(inner=5,  # q<1; lin+2.25q(2) *c *ih
                  outer=7,  # q<1 q<2; t t^2 *-0.75 *c /r
                  none=2)   # q<1 q<2
@@ -369,8 +381,9 @@ ALL_PAIRS = ("pairwise_pass1", "pairwise_pass2")
 #   near hydrostatic balance), so the error scales with the sum of |terms|,
 #   not with the result: rtol 1e-4 plus an atol of 1e-4 of the field's
 #   largest magnitude. The all-pairs kernels follow the same rule: counts
-#   exact (pairwise_pass1 is built with -fmad=false too), rho and phi rtol
-#   1e-4, grad phi, grad P and the div/curl sums rtol 1e-4 plus the atol.
+#   exact (pairwise_pass1 forms its count's r2 and q with __fmul_rn and
+#   __fadd_rn), rho and phi rtol 1e-4, grad phi, grad P and the div/curl
+#   sums rtol 1e-4 plus the atol.
 _GRAV_TOL = [(1e-4, 0.0)] + [(1e-4, 1e-4)] * 3 + [None]
 TOL = {
     "filter_sph": [None],
@@ -1073,7 +1086,9 @@ def _row_blocks(n, block=512):
 
 def _pw_branches(pos, inv_h, i0, i1):
     """[block, n] masks and q of the pairs of target rows [i0, i1): not the
-    self pair, q_i and q_j as the all-pairs kernels form them."""
+    self pair, the pairs the q^2 test keeps (r2 ihm^2 <= PSPH_Q2_SKIP, ihm
+    the smaller 1/h), and q_i and q_j as the all-pairs kernels form
+    them."""
     import torch
     x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
     dxx = x[i0:i1, None] - x[None, :]
@@ -1082,41 +1097,53 @@ def _pw_branches(pos, inv_h, i0, i1):
     r2 = dxx * dxx + dxy * dxy + dxz * dxz
     idx = torch.arange(pos.shape[0], device=pos.device)
     pair = idx[i0:i1, None] != idx[None, :]
+    ihm = torch.minimum(inv_h[i0:i1, None], inv_h[None, :])
+    kept = pair & ~((r2 * ihm) * ihm > _q2_skip())
     r = torch.sqrt(r2)
-    return pair, r2, r * inv_h[i0:i1, None], r * inv_h[None, :], \
+    return pair, kept, r2, r * inv_h[i0:i1, None], r * inv_h[None, :], \
         (dxx, dxy, dxz)
 
 
+@functools.lru_cache(maxsize=None)
+def _q2_skip():
+    return _cu_define("pairwise_pass1", "PSPH_Q2_SKIP", "common.cuh")
+
+
 def _pairwise_pass1_ops(pos, h, mass, cfg):
-    """Pass 1's operations on this data: every pair's geometry, the spline
-    branches of q_i and q_j on pairs inside either support, and, with
-    direct gravity, the Dyer-Ip branch of x = r / a on every pair."""
+    """Pass 1's operations on this data: every pair's q^2 test, the rest of
+    the geometry on the pairs it keeps, the spline branches of q_i and q_j
+    on pairs inside either support, and, with direct gravity, the outer
+    Dyer-Ip branch on the pairs the test skips and the branch of x = r / a
+    on those it keeps."""
     import torch
     n = pos.shape[0]
     inv_h = 1.0 / torch.where(h > 0, h, 1.0)
     gravity = cfg.gravity_solver == "direct"
     receiver = cfg.softening_mode == "receiver_h"
-    ops = OPS_PW_SELF * n * n + OPS_PW_GEOM * n * (n - 1)
+    ops = OPS_PW_SKIP * n * (n - 1)
     for i0, i1 in _row_blocks(n):
-        pair, r2, qi, qj, _ = _pw_branches(pos, inv_h, i0, i1)
+        pair, kept, r2, qi, qj, _ = _pw_branches(pos, inv_h, i0, i1)
         sph = pair & ((qi < 2.0) | (qj < 2.0))
-        ops += (OPS_PW_RHO * _n(sph) + _by_branch(OPS_PW_W, sph, qi)
+        ops += (OPS_PW_NEAR * _n(kept) + OPS_PW_RHO * _n(sph)
+                + _by_branch(OPS_PW_W, sph, qi)
                 + _by_branch(OPS_PW_W, sph, qj))
         if gravity:
             inv_a = inv_h[i0:i1, None].expand_as(r2) if receiver \
                 else torch.minimum(inv_h[i0:i1, None], inv_h[None, :])
             x = (r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))) * inv_a
-            ops += ((OPS_PW_GRAV - (1 if receiver else 0)) * _n(pair)
-                    + _dyer_ip_ops(pair, x))
+            ops += (OPS_PW_GRAV_FAR * _n(pair & ~kept)
+                    + (OPS_PW_GRAV - (1 if receiver else 0)) * _n(kept)
+                    + _dyer_ip_ops(kept, x))
     return ops
 
 
 def _pairwise_pass2_ops(pos, h, mass, cfg, vel):
-    """Pass 2's operations on this data: every pair's geometry; on pairs
-    inside either support the gradient branches, the pressure coefficient
-    and the sums; with viscosity v.x on those pairs, Pi_ij on the
-    approaching ones, the correct-derivative gradient again under the sign
-    bug and the div/curl sums under Balsara."""
+    """Pass 2's operations on this data: every pair's q^2 test, the rest of
+    the geometry on the pairs it keeps; on pairs inside either support the
+    gradient branches, the pressure coefficient and the sums; with
+    viscosity v.x on those pairs, Pi_ij on the approaching ones, the
+    correct-derivative gradient again under the sign bug and the div/curl
+    sums under Balsara."""
     import torch
     n = pos.shape[0]
     inv_h = 1.0 / torch.where(h > 0, h, 1.0)
@@ -1124,14 +1151,16 @@ def _pairwise_pass2_ops(pos, h, mass, cfg, vel):
     balsara = cfg.av_balsara and av
     mode = ("asymmetric" if cfg.grad_p_mode == "reference_asymmetric"
             else "symmetric")
-    ops = OPS_PW_SELF * n * n + OPS_PW_GEOM * n * (n - 1)
+    ops = OPS_PW_SKIP * n * (n - 1)
     for i0, i1 in _row_blocks(n):
-        pair, r2, qi, qj, (dxx, dxy, dxz) = _pw_branches(pos, inv_h, i0, i1)
+        pair, kept, r2, qi, qj, (dxx, dxy, dxz) = _pw_branches(
+            pos, inv_h, i0, i1)
         sup = pair & ((qi < 2.0) | (qj < 2.0))
         grad = (_by_branch(OPS_PW_GW, sup, qi) + _by_branch(OPS_PW_GW, sup, qj)
                 + OPS_PW_GW_CJ * _n(sup & (qj < 2.0))
                 + OPS_PW_GW_SYM * _n(sup))
-        ops += grad + (OPS_PW_COEF[mode] + OPS_PW_GP_SUM) * _n(sup)
+        ops += OPS_PW_NEAR * _n(kept) + grad \
+            + (OPS_PW_COEF[mode] + OPS_PW_GP_SUM) * _n(sup)
         if av:
             vdotr = ((vel[i0:i1, 0, None] - vel[None, :, 0]) * dxx
                      + (vel[i0:i1, 1, None] - vel[None, :, 1]) * dxy
@@ -1144,6 +1173,23 @@ def _pairwise_pass2_ops(pos, h, mass, cfg, vel):
             if balsara:
                 ops += OPS_PW_DC * _n(sup)
     return ops
+
+
+def pairwise_shares(pos, h):
+    """What the all-pairs kernels visit on this data: of the n (n - 1)
+    pairs j != i, the share inside either support (r ih_i < 2 or r ih_j <
+    2) and the share the q^2 test skips (r2 ihm^2 > PSPH_Q2_SKIP)."""
+    import torch
+    n = pos.shape[0]
+    inv_h = 1.0 / torch.where(h > 0, h, 1.0)
+    inside = skipped = 0
+    for i0, i1 in _row_blocks(n):
+        pair, kept, _, qi, qj, _ = _pw_branches(pos, inv_h, i0, i1)
+        inside += _n(pair & ((qi < 2.0) | (qj < 2.0)))
+        skipped += _n(pair & ~kept)
+    pairs = n * (n - 1)
+    return dict(pairs=pairs, inside_share=inside / pairs,
+                skipped_share=skipped / pairs)
 
 
 def pairwise_bound(name, args, kw, cfg, out):
@@ -1970,7 +2016,9 @@ def pairwise_cases(n):
     base = (st.pos, st.h, st.mass)
     cases = [("pairwise_pass1", "symmetric_max", cfg, base, {}, True),
              ("pairwise_pass1", "receiver_h",
-              cfg.replace(softening_mode="receiver_h"), base, {}, False)]
+              cfg.replace(softening_mode="receiver_h"), base, {}, False),
+             ("pairwise_pass1", "no_gravity",
+              cfg.replace(gravity_solver="none"), base, {}, False)]
     p2 = (*base, st.rho, st.pressure)
     cases += [("pairwise_pass2", "symmetric", cfg, p2, {}, True),
               ("pairwise_pass2", "asymmetric+sign_bug",
@@ -1996,26 +2044,37 @@ def pairwise_cases(n):
 
 
 def pairwise_plantings(name, args, kw, cfg):
-    """The NaNs phase 4 plants in one all-pairs call, one planting a
-    launch: [(label, args, keywords, must_reach)], each in one field of the
-    last particle, which lies outside the supports of most targets: its x
-    and m, and for pass 2 its pressure and (with viscosity) its velocity.
+    """The non-finite values phase 4 plants in one all-pairs call, one
+    planting a launch: [(label, args, keywords, must_reach)], each in one
+    field of one particle: the last one (its block of targets is the last,
+    partial one) and one a third of the way in. Each lies outside the
+    supports of most targets; its own block meets it in a diagonal tile,
+    every other block in a tile without the self test. The fields: a NaN
+    x, a +inf x (an infinite r2, which the q^2 test would skip but for
+    the tile's flag), a NaN h (the wrapper's guard makes it 1), a NaN m,
+    and for pass 2 a NaN pressure and (with viscosity) velocity.
     `must_reach`: the plain version's outputs hold a NaN for it whatever
-    the inputs (a NaN x meets pass 1 only inside a spline of a NaN q,
-    which is 0, unless direct gravity reads it; a NaN velocity meets the
-    viscosity of no pair that approaches, but the Balsara sums of
-    every pair)."""
-    j = args[0].shape[0] - 1
+    the inputs (a non-finite x meets pass 1 only inside a spline of a NaN
+    or infinite q, which is 0, unless direct gravity reads it; a NaN
+    velocity meets the viscosity of no pair that approaches, but the
+    Balsara sums of every pair)."""
+    n = args[0].shape[0]
     grav = name == "pairwise_pass1" and cfg.gravity_solver == "direct"
-    out = [("x", tuple(_with_nan(args, 0, (j, 0))), kw, grav or
-            name == "pairwise_pass2"),
-           ("m", tuple(_with_nan(args, 2, j)), kw, True)]
-    if name == "pairwise_pass2":
-        out.append(("P", tuple(_with_nan(args, 4, j)), kw, True))
-        if kw.get("vel") is not None:
-            vel = _with_nan([kw["vel"]], 0, (j, 0))[0]
-            out.append(("velocity", args, dict(kw, vel=vel),
-                        kw.get("fbal") is not None and cfg.av_balsara))
+    out = []
+    for j in (n - 1, n // 3):
+        out += [(f"x@{j}", tuple(_with_nan(args, 0, (j, 0))), kw,
+                 grav or name == "pairwise_pass2"),
+                (f"x+inf@{j}", tuple(_with_nan(args, 0, (j, 0),
+                                               float("inf"))), kw,
+                 grav or name == "pairwise_pass2"),
+                (f"h@{j}", tuple(_with_nan(args, 1, j)), kw, False),
+                (f"m@{j}", tuple(_with_nan(args, 2, j)), kw, True)]
+        if name == "pairwise_pass2":
+            out.append((f"P@{j}", tuple(_with_nan(args, 4, j)), kw, True))
+            if kw.get("vel") is not None:
+                vel = _with_nan([kw["vel"]], 0, (j, 0))[0]
+                out.append((f"velocity@{j}", args, dict(kw, vel=vel),
+                            kw.get("fbal") is not None and cfg.av_balsara))
     return out
 
 
@@ -2044,10 +2103,48 @@ def pairwise_nan_agreement(name, kernel, plain, args, kw, cfg):
     return None, reached
 
 
-def check_pairwise(n, parent_libs=None):
-    """Phase 4 for the all-pairs kernels at n particles, with planted NaNs;
-    with `parent_libs` ({kernel: library} of another checkout's build)
-    each case is also timed in turns with that build. Returns ({name:
+def pairwise_instance(name, cfg, kw):
+    """The template arguments of the all-pairs instance a call launches
+    (pass 1: direct gravity, receiver softening with it; pass 2:
+    viscosity, Balsara with it)."""
+    if name == "pairwise_pass1":
+        grav = cfg.gravity_solver == "direct"
+        return (name, (int(grav),
+                       int(grav and cfg.softening_mode == "receiver_h")))
+    av = cfg.av_alpha > 0.0 and kw.get("vel") is not None
+    return (name, (int(av), int(av and cfg.av_balsara)))
+
+
+def parent_splits_for(parent):
+    """The other checkout's ``splits_for`` (ops/cuda/pairwise.py), read
+    from its source: its kernels are timed with the source splits their
+    own wrapper gives them. Its module constants and the function are
+    executed alone (the module itself imports the other checkout's
+    package)."""
+    import ast
+    path = os.path.join(parent, "planetmodel_sph_tpu_torch", "ops", "cuda",
+                        "pairwise.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    keep = [node for node in tree.body
+            if (isinstance(node, ast.Assign)
+                and all(isinstance(t, ast.Name) for t in node.targets)
+                and not any(isinstance(v, (ast.Name, ast.Call))
+                            for v in ast.walk(node.value)))
+            or (isinstance(node, ast.FunctionDef)
+                and node.name == "splits_for")]
+    ns = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)
+    return ns["splits_for"]
+
+
+def check_pairwise(n, parent_libs=None, ptxas=None, parent_splits=None):
+    """Phase 4 for the all-pairs kernels at n particles, with planted
+    non-finite values and a second launch held to the same bits; with
+    `parent_libs` ({kernel: library} of another checkout's build) each case
+    is also timed in turns with that build, launched with the source
+    splits of that checkout's wrapper (`parent_splits`). `ptxas`: the
+    build's instances by (kernel, template arguments). Returns ({name:
     report of the main path's case, "cases": [...]}, failures)."""
     import torch
     from planetmodel_sph_tpu_torch.ops.cuda import build
@@ -2055,6 +2152,7 @@ def check_pairwise(n, parent_libs=None):
     wrappers = {"pairwise_pass1": (pw.pass1, pw.pass1_plain),
                 "pairwise_pass2": (pw.pass2, pw.pass2_plain)}
     reports, failures = {"cases": []}, []
+    shares = {}
     for name, case, cfg, args, kw, on_main in pairwise_cases(n):
         kernel, plain = wrappers[name]
         out = kernel(*args, cfg, **kw)
@@ -2063,6 +2161,13 @@ def check_pairwise(n, parent_libs=None):
         torch.cuda.synchronize()
         as_tuple = lambda o: tuple(o) if isinstance(o, tuple) else (o,)
         ok, err, msgs = compare(name, as_tuple(out), as_tuple(ref))
+        again = kernel(*args, cfg, **kw)
+        torch.cuda.synchronize()
+        same = same_bits(as_tuple(out), as_tuple(again))
+        if not same:
+            ok = False
+            msgs.append("two launches on the same inputs differ")
+        del again
         nan_msg, reached = pairwise_nan_agreement(name, kernel, plain, args,
                                                   kw, cfg)
         if nan_msg:
@@ -2072,20 +2177,33 @@ def check_pairwise(n, parent_libs=None):
         dev_ms = device_ms(lambda: kernel(*args, cfg, **kw))
         turns = None
         if parent_libs and name in parent_libs:
-            # the parent's kernel and this one in turns, as check_one
+            # the parent's kernel and this one in turns, as check_one, each
+            # with its own wrapper's source splits
             turns = {"parent": [], "this": []}
+            own_splits = pw.splits_for
             for who in ("parent", "this", "this", "parent"):
-                with (build.library(name, parent_libs[name])
-                      if who == "parent" else contextlib.nullcontext()):
-                    turns[who].append(cuda_ms(
-                        lambda: kernel(*args, cfg, **kw), KERNEL_REPS))
+                if who == "parent":
+                    pw.splits_for = parent_splits
+                try:
+                    with (build.library(name, parent_libs[name])
+                          if who == "parent" else contextlib.nullcontext()):
+                        turns[who].append(cuda_ms(
+                            lambda: kernel(*args, cfg, **kw), KERNEL_REPS))
+                finally:
+                    pw.splits_for = own_splits
         plain_ms = cuda_ms(lambda: plain(*args, cfg, **kw), PLAIN_REPS)
         b_ms, b_by, nbytes, ops = pairwise_bound(name, args, kw, cfg,
                                                  as_tuple(out))
+        key = (args[0].data_ptr(), args[1].data_ptr())
+        if key not in shares:
+            shares[key] = pairwise_shares(args[0], args[1])
+        sh = shares[key]
+        px = (ptxas or {}).get(pairwise_instance(name, cfg, kw)) or {}
         rep = dict(name=name, case=case, n=n, ok=ok, max_abs_err=err, ms=ms,
                    device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by,
                    bytes=nbytes, ops=ops, splits=pw.splits_for(n),
+                   same_bits=same, shares=sh, ptxas=px or None,
                    nan_agrees=nan_msg is None, nan_reached=reached,
                    messages=msgs)
         if turns:
@@ -2100,6 +2218,12 @@ def check_pairwise(n, parent_libs=None):
               f"ms={ms:.4f} device_ms={fmt_ms(dev_ms)} "
               f"plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+        print(f"  {label}: inside either support {sh['inside_share']:.5f} "
+              f"of {sh['pairs']} pairs, skipped by the q^2 test "
+              f"{sh['skipped_share']:.5f}; {px.get('regs')} registers, "
+              f"{px.get('smem')} B shared, spills {px.get('spill_stores')}/"
+              f"{px.get('spill_loads')} B; two launches "
+              f"{'bit-identical' if same else 'DIFFER'}", flush=True)
         got = ", ".join(f"{k} {'reached' if v else 'masked'}"
                         for k, v in reached.items())
         print(f"  {label}: planted NaNs "
@@ -2431,6 +2555,8 @@ SYM_BENCH = ["--set", "grad_p_mode=symmetric", "--set", "h_mode=relax",
              "m2p_window=256"]
 # `sg100k`: `sym100k` with the supergroup far tier
 SG_BENCH = SYM_BENCH + ["--set", "sg_blocks=4", "--set", "blk_window=768"]
+# `dense32k`: the dense jupiter_3k step at n = 32768, the all-pairs kernels
+DENSE_BENCH = ["--preset", "jupiter_3k", "--n", "32768", "--steps", "20"]
 
 
 def bench_turns(trees, label, extra=()):
@@ -2472,9 +2598,9 @@ def bench_turns(trees, label, extra=()):
 
 def parent_phase(parent, state, cfg):
     """Phase 7, with --parent DIR: the two probes (probe_turns), the
-    production step, `sym100k` and `sg100k` from DIR's checkout and from
-    this one in turns, each whole (its kernels, its Python; bench_turns);
-    then each
+    production step, `sym100k`, `sg100k` and `dense32k` from DIR's
+    checkout and from this one in turns, each whole (its kernels, its
+    Python; bench_turns); then each
     checkout's sorted and unsorted chunks (the CLI's 64 steps of the
     settled state, restored from npz checkpoints that differ only in
     sorted_chunks) against each other, as phase 5f holds them. Returns
@@ -2485,7 +2611,8 @@ def parent_phase(parent, state, cfg):
     rep["probes"] = probe_turns(trees)
     rep["steps"], rep["median_steps_per_s"] = bench_turns(
         trees, "production step")
-    for leg, extra in (("sym100k", SYM_BENCH), ("sg100k", SG_BENCH)):
+    for leg, extra in (("sym100k", SYM_BENCH), ("sg100k", SG_BENCH),
+                       ("dense32k", DENSE_BENCH)):
         rep[f"{leg}_steps"], rep[f"{leg}_median_steps_per_s"] = bench_turns(
             trees, leg, extra)
     work = os.path.join(OUT_DIR, "parent_phase")
@@ -3009,7 +3136,7 @@ def main(argv=None) -> int:
               "spills", flush=True)
         for ln in spills:
             print(f"    {ln}", flush=True)
-    parent_libs = None
+    parent_libs = parent_splits = None
     if args.parent:
         # the other checkout's two sweeps, built into its own directory
         pkg = os.path.join(os.path.abspath(args.parent),
@@ -3023,10 +3150,11 @@ def main(argv=None) -> int:
         except RuntimeError as e:
             return fail(f"the parent's kernels: {e}")
         parent_libs = {n: build.lib_path(n, pout) for n in in_turns}
+        parent_splits = parent_splits_for(os.path.abspath(args.parent))
         print(f"build of the parent's {', '.join(in_turns)}: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = {}
-    for n in REDESIGNED:
+    for n in REDESIGNED + ALL_PAIRS:
         # every instance of the redesigned kernels, by template arguments
         for inst in ptxas_instances(logs[n][1]):
             ptxas[(n, inst["args"])] = inst
@@ -3089,7 +3217,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pw_reports = {}
     for n, _ in DENSE_RUNS:
-        pw_reports[n], fails = check_pairwise(n, parent_libs)
+        pw_reports[n], fails = check_pairwise(n, parent_libs, ptxas,
+                                              parent_splits)
         failures += fails
     # the kernels line carries the all-pairs kernels at the default
     # preset's size; the larger size rides along under its own key

@@ -33,6 +33,14 @@ __device__ __forceinline__ float psph_max(float a, float b) {
   return r;
 }
 
+// 1/sqrt(s) for s >= FLT_MIN (no denormal to scale), NaN-keeping: the bare
+// approximate instruction, where rsqrtf scales a denormal first
+__device__ __forceinline__ float psph_rsqrt_ftz(float s) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(s));
+  return r;
+}
+
 // Dyer-Ip softened point-mass term, accumulated into (phi, g). Finite at
 // r = 0 (x = 0 takes the inner branch, dx = 0 kills the force); phi then
 // holds the -2.4 m/a self term that the caller removes.
@@ -56,6 +64,37 @@ __device__ __forceinline__ void psph_dyer_ip(
   gx += dxx * mag;
   gy += dxy * mag;
   gz += dxz * mag;
+}
+
+// One pair's Dyer-Ip term added into acc (phi, gx, gy, gz), r2 = |d|^2:
+// the plain versions' expressions, the outer branch's (x >= 1, or NaN)
+// first, then the inner one's, its polynomials as multiply-adds, selected
+// into them where x < 1. The same selection written as one select between
+// the two finished terms was slower on the H100 in p2p, and so were a
+// branch on x < 1 and a warp vote before it. p2p.cu evaluates every pair
+// with it; pairwise_pass1.cu the pairs its q^2 test does not skip.
+__device__ __forceinline__ void psph_p2p_pair(float m, float dxx, float dxy,
+                                              float dxz, float r2,
+                                              float inv_a,
+                                              float (&acc)[4]) {
+  const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
+  const float x = (r2 * inv_r) * inv_a;
+  const float mr = m * inv_r;
+  const bool in = x < 1.0f;
+  // x >= 1: m/r^3, m/r
+  float mag = mr * inv_r * inv_r;
+  float p = mr;
+  // x < 1: (m/a^3)(8 - 9 x + 2 x^3), (m/a)(2.4 - 4 x^2 + 3 x^3 - 0.4 x^5)
+  const float x2 = x * x;
+  const float inv_a3 = inv_a * inv_a * inv_a;
+  mag = in ? (m * inv_a3) * fmaf(fmaf(2.0f, x2, -9.0f), x, 8.0f) : mag;
+  p = in ? (m * inv_a) * fmaf(x2, fmaf(x, fmaf(-0.4f, x2, 3.0f), -4.0f),
+                              2.4f)
+         : p;
+  acc[0] -= p;
+  acc[1] = fmaf(dxx, mag, acc[1]);
+  acc[2] = fmaf(dxy, mag, acc[2]);
+  acc[3] = fmaf(dxz, mag, acc[3]);
 }
 
 // Near-field gravity sweep over one window: the first n slots of the rows

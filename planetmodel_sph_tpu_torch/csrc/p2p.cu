@@ -35,10 +35,11 @@
 //   of m > 0, once per group;
 // - both branches of the Dyer-Ip term are formed, the inner one's
 //   polynomials as multiply-adds, and the one x takes is selected, so no
-//   warp diverges; a NaN x selects the outer branch, as the plain
-//   version's torch.where does. The self pair keeps rsqrtf(max(r2,
-//   1e-30f)), with psph_max, which keeps a NaN r2 as torch.clamp does,
-//   and min-h softening psph_min (NaN when either ih is);
+//   warp diverges (psph_p2p_pair, common.cuh); a NaN x selects the outer
+//   branch, as the plain version's torch.where does. The self pair keeps
+//   rsqrtf(max(r2, 1e-30f)), with psph_max, which keeps a NaN r2 as
+//   torch.clamp does, and min-h softening psph_min (NaN when either ih
+//   is);
 // - P2P_TPT = 2 targets a thread (targets i and i + b / 2, which share
 //   each slot's shared loads) and 8 slot slices: 32 x 8 = 256 threads a
 //   group of 64; the slices' sums are added in slice order at the end,
@@ -49,36 +50,6 @@
 // than one on the H100 at sym100k's and sg100k's windows, min-h and
 // receiver softening)
 #define P2P_TPT 2
-
-// One pair's Dyer-Ip term added into acc (phi, gx, gy, gz): the plain
-// version's expressions, the outer branch's (x >= 1, or NaN) first, then
-// the inner one's, its polynomials as multiply-adds, selected into them
-// where x < 1. The same selection written as one select between the two
-// finished terms was slower on the H100, and so were a branch on x < 1
-// and a warp vote before it.
-__device__ __forceinline__ void p2p_pair(float m, float dxx, float dxy,
-                                         float dxz, float inv_a,
-                                         float (&acc)[4]) {
-  const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
-  const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
-  const float x = (r2 * inv_r) * inv_a;
-  const float mr = m * inv_r;
-  const bool in = x < 1.0f;
-  // x >= 1: m/r^3, m/r
-  float mag = mr * inv_r * inv_r;
-  float p = mr;
-  // x < 1: (m/a^3)(8 - 9 x + 2 x^3), (m/a)(2.4 - 4 x^2 + 3 x^3 - 0.4 x^5)
-  const float x2 = x * x;
-  const float inv_a3 = inv_a * inv_a * inv_a;
-  mag = in ? (m * inv_a3) * fmaf(fmaf(2.0f, x2, -9.0f), x, 8.0f) : mag;
-  p = in ? (m * inv_a) * fmaf(x2, fmaf(x, fmaf(-0.4f, x2, 3.0f), -4.0f),
-                              2.4f)
-         : p;
-  acc[0] -= p;
-  acc[1] = fmaf(dxx, mag, acc[1]);
-  acc[2] = fmaf(dxy, mag, acc[2]);
-  acc[3] = fmaf(dxz, mag, acc[3]);
-}
 
 template <bool RECV>
 __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
@@ -140,9 +111,11 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
       const float4 p = pos[j];
       const float jh = RECV ? 0.0f : cih[j];
 #pragma unroll
-      for (int u = 0; u < P2P_TPT; ++u)
-        p2p_pair(p.w, x[u] - p.x, y[u] - p.y, z[u] - p.z,
-                 RECV ? ih[u] : psph_min(ih[u], jh), acc[u]);
+      for (int u = 0; u < P2P_TPT; ++u) {
+        const float dxx = x[u] - p.x, dxy = y[u] - p.y, dxz = z[u] - p.z;
+        psph_p2p_pair(p.w, dxx, dxy, dxz, dxx * dxx + dxy * dxy + dxz * dxz,
+                      RECV ? ih[u] : psph_min(ih[u], jh), acc[u]);
+      }
     }
   });
 #pragma unroll

@@ -15,28 +15,54 @@
 //   balsara: Pi_ij *= (f_i + f_j)/2, and the raw sums
 //            dc_i = sum_j m_j g_av (v_ij . x_ij, v_ij x x_ij)
 //
-// Bound on the H100: pair arithmetic, as pass 1. Design: as pass 1 (one
-// thread per target, sources staged in shared memory, the source range
-// split over blockIdx.y and the partial sums added in split order by a
-// second kernel). Every term of a pair carries a kernel-gradient factor,
-// so a pair outside both supports adds exactly 0 and is skipped before any
-// of the pressure or viscosity math, unless a NaN or an infinity could
-// reach the sums through it: the plain version multiplies it by a gradient
-// of 0, and a non-finite field times 0 is NaN. So a tile in which a staged
-// field (or the factor formed from them) is not finite, and a target with
-// a non-finite value in what it reads of itself, skip nothing (all_pairs:
-// set once a tile at the staging and once a target; it zeroes the gate's
-// 1/h_i, so that the gate costs what it did), and the gate "r/h_i >= 2 and
-// r/h_j >= 2" leaves out no pair with a NaN in r or either 1/h. A flagged
-// target also visits its self pair with m = 0, as the plain version
-// weighs it: 0 times its own non-finite value is NaN there. The
-// per-source factor P_j/rho_j (or P_j/rho_j^2) is formed once when the
-// tile is staged. This kernel decides
-// only through q < 1, q < 2 inside continuous functions and v.x < 0, its
-// sums are held to a tolerance, and it keeps multiply-add contraction.
+// Bound on the H100: pair arithmetic, as pass 1; only a few per mille of
+// the pairs lie inside a support, and every term of a pair carries a
+// kernel-gradient factor, so a pair outside both supports adds exactly 0.
+// What held the first design back: one thread a target and six scalar
+// shared loads a pair, m read before the gate; the IEEE square root, both
+// q and the gate on every pair; the self test j == i in the inner loop of
+// every tile. This design (pairwise_pass1.cu's):
+// - PW_TPT = 2 targets a thread, which share each source's shared loads
+//   (two beat one in every case on the H100); the source's x, y, z and
+//   1/h are staged as one float4, so a pair the test leaves out costs one
+//   16-byte shared load for two targets; m, the pressure factor and the
+//   viscosity fields are read only for a pair that passes;
+// - the q^2 test before the square root, ihm = psph_min(ih_i, ih_j): a
+//   pair with (r2 ihm) ihm > PSPH_Q2_SKIP lies outside both supports and
+//   adds nothing; the exact gate "r/h_i >= 2 and r/h_j >= 2" stays for the
+//   pairs that pass;
+// - the pairs the test keeps (0.2 % of them) are listed, per thread, in
+//   shared memory and evaluated after the sweep of the tile, or when the
+//   list may not hold the next source's pairs (pairwise_pass1.cu's list):
+//   the sweep's loop holds only the test;
+// - diagonal tiles apart: only a tile whose source range meets the block's
+//   targets runs the sweep with the self test;
+// - a NaN or an infinity reaches the sums as in the plain version, which
+//   multiplies a pair outside both supports by a gradient of 0 (a
+//   non-finite field times 0 is NaN): a tile in which a staged field (or
+//   the factor formed from them) is not finite, and a target with a
+//   non-finite value in what it reads of itself, skip nothing (all_pairs:
+//   set once a tile at the staging and once a target; it zeroes the
+//   target's 1/h of the test and the gate for the tile), and a NaN in r2
+//   or either 1/h fails the test and is listed. A flagged target also
+//   visits its self pair with m = 0, as the plain version weighs it;
+// - the per-source factor P_j/rho_j (or P_j/rho_j^2) is formed once when
+//   the tile is staged;
+// - blockIdx.y splits the source range and a second kernel adds the
+//   splits' partial sums in split order (no atomics).
+// This kernel decides only through q < 1, q < 2 inside continuous
+// functions and v.x < 0, its sums are held to a tolerance, and it keeps
+// multiply-add contraction.
 #include "common.cuh"
 
-#define PW_TILE 128
+#define PW_THREADS 128
+#define PW_TPT 2
+#define PW_TARGETS (PW_THREADS * PW_TPT)
+#define PW_TILE PW_TARGETS
+// pairs the q^2 test keeps that a thread lists before it evaluates them
+#define PW_DEFER 16
+// a listed pair: source k (8 bits), target u (bit 8), the self pair (bit 9)
+static_assert(PW_TILE <= 256 && PW_TPT == 2, "the list's entries");
 
 // (dW/dr)/r from r and 1/h; finite at r = 0 (q = 0 takes the inner branch)
 __device__ __forceinline__ float pw_gw(float r, float q, float ih,
@@ -51,7 +77,7 @@ __device__ __forceinline__ float pw_gw(float r, float q, float ih,
 }
 
 template <bool AV, bool BAL>
-__global__ void pairwise_pass2_kernel(
+__global__ void __launch_bounds__(PW_THREADS) pairwise_pass2_kernel(
     const float* __restrict__ pos, const float* __restrict__ inv_h,
     const float* __restrict__ mass, const float* __restrict__ rho,
     const float* __restrict__ prs, const float* __restrict__ vel,
@@ -59,52 +85,68 @@ __global__ void pairwise_pass2_kernel(
     const float* __restrict__ fb, float* __restrict__ part, int n, int chunk,
     int asymmetric, int sign_bug, float av_alpha, float av_beta) {
   constexpr int NOUT = BAL ? 7 : 3;
-  __shared__ float cx[PW_TILE], cy[PW_TILE], cz[PW_TILE], cih[PW_TILE],
-      cm[PW_TILE], cp[PW_TILE];
+  __shared__ __align__(16) float4 geo[PW_TILE];    // x, y, z, ih
+  __shared__ float cm[PW_TILE], cp[PW_TILE];
   __shared__ float cvx[AV ? PW_TILE : 1], cvy[AV ? PW_TILE : 1],
       cvz[AV ? PW_TILE : 1], chh[AV ? PW_TILE : 1], ccs[AV ? PW_TILE : 1],
       crho[AV ? PW_TILE : 1], cfb[BAL ? PW_TILE : 1];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
+  // each thread's list of the sources the q^2 test kept, per target
+  __shared__ unsigned short queue[PW_DEFER][PW_THREADS];
+  // this thread's column of the list, and its last entry that leaves room
+  // for the next source's pairs
+  unsigned short* const qbase = &queue[0][threadIdx.x];
+  const unsigned short* const qlast =
+      qbase + (PW_DEFER - PW_TPT) * PW_THREADS;
+  const int lo = blockIdx.x * PW_TARGETS;
   const int j0 = blockIdx.y * chunk;
   const int j1 = min(n, j0 + chunk);
   const float lin = sign_bug ? 3.0f : -3.0f;
-  float x = 0.0f, y = 0.0f, z = 0.0f, ih = 1.0f, ri = 1.0f, pi_i = 0.0f;
-  float vx = 0.0f, vy = 0.0f, vz = 0.0f, hi = 1.0f, csi = 0.0f, fbi = 1.0f;
-  if (live) {
-    x = pos[3 * (size_t)i];
-    y = pos[3 * (size_t)i + 1];
-    z = pos[3 * (size_t)i + 2];
-    ih = inv_h[i];
-    ri = rho[i];
-    pi_i = prs[i] / (ri * ri);
-    if constexpr (AV) {
-      vx = vel[3 * (size_t)i];
-      vy = vel[3 * (size_t)i + 1];
-      vz = vel[3 * (size_t)i + 2];
-      hi = hh[i];
-      csi = cs[i];
-    }
-    if constexpr (BAL) fbi = fb[i];
-  }
-  const float own[12] = {x, y, z, ih, ri, pi_i, vx, vy, vz, hi, csi, fbi};
-  const bool target_bad = !psph_all_finite(own);
-  float acc[NOUT];
+  int ti[PW_TPT];
+  float x[PW_TPT], y[PW_TPT], z[PW_TPT], ih[PW_TPT], ri[PW_TPT],
+      pi_i[PW_TPT];
+  float vx[PW_TPT], vy[PW_TPT], vz[PW_TPT], hi[PW_TPT], csi[PW_TPT],
+      fbi[PW_TPT];
+  bool target_bad[PW_TPT];
+  float acc[PW_TPT][NOUT];
 #pragma unroll
-  for (int k = 0; k < NOUT; ++k) acc[k] = 0.0f;
+  for (int u = 0; u < PW_TPT; ++u) {
+    const int i = ti[u] = lo + threadIdx.x + u * PW_THREADS;
+    x[u] = y[u] = z[u] = pi_i[u] = 0.0f;
+    ih[u] = ri[u] = 1.0f;
+    vx[u] = vy[u] = vz[u] = csi[u] = 0.0f;
+    hi[u] = fbi[u] = 1.0f;
+    if (i < n) {
+      x[u] = pos[3 * (size_t)i];
+      y[u] = pos[3 * (size_t)i + 1];
+      z[u] = pos[3 * (size_t)i + 2];
+      ih[u] = inv_h[i];
+      ri[u] = rho[i];
+      pi_i[u] = prs[i] / (ri[u] * ri[u]);
+      if constexpr (AV) {
+        vx[u] = vel[3 * (size_t)i];
+        vy[u] = vel[3 * (size_t)i + 1];
+        vz[u] = vel[3 * (size_t)i + 2];
+        hi[u] = hh[i];
+        csi[u] = cs[i];
+      }
+      if constexpr (BAL) fbi[u] = fb[i];
+    }
+    const float own[12] = {x[u], y[u], z[u], ih[u], ri[u], pi_i[u],
+                           vx[u], vy[u], vz[u], hi[u], csi[u], fbi[u]};
+    target_bad[u] = !psph_all_finite(own);
+#pragma unroll
+    for (int k = 0; k < NOUT; ++k) acc[u][k] = 0.0f;
+  }
   for (int base = j0; base < j1; base += PW_TILE) {
     const int cnt = min(PW_TILE, j1 - base);
     bool bad = false;
-    for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
+    for (int k = threadIdx.x; k < cnt; k += PW_THREADS) {
       const size_t j = (size_t)base + k;
       const float rj = rho[j];
       float v[13] = {pos[3 * j], pos[3 * j + 1], pos[3 * j + 2], inv_h[j],
                      mass[j], asymmetric ? prs[j] / rj : prs[j] / (rj * rj),
                      rj, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      cx[k] = v[0];
-      cy[k] = v[1];
-      cz[k] = v[2];
-      cih[k] = v[3];
+      geo[k] = make_float4(v[0], v[1], v[2], v[3]);
       cm[k] = v[4];
       cp[k] = v[5];
       if constexpr (AV) {
@@ -119,71 +161,120 @@ __global__ void pairwise_pass2_kernel(
       bad = bad || !psph_all_finite(v);
     }
     const bool tile_bad = __syncthreads_or(bad) != 0;
-    const bool all_pairs = tile_bad || target_bad;
-    // the gate's 1/h_i for this tile: 0 gates out nothing
-    const float ih_gate = all_pairs ? 0.0f : ih;
-    if (live) {
-      // one pair's terms with mass m (0 for the self pair, as the plain
-      // version weighs it)
-      auto pair = [&](int k, float m) {
-        const float dxx = x - cx[k];
-        const float dxy = y - cy[k];
-        const float dxz = z - cz[k];
-        const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
-        const float jh = cih[k];
-        const float r = sqrtf(r2);
-        const float qi = r * ih;
-        const float qj = r * jh;
-        if (r * ih_gate >= 2.0f && qj >= 2.0f) return;
-        const float gw =
-            0.5f * (pw_gw(r, qi, ih, lin) + pw_gw(r, qj, jh, lin));
-        float coef = asymmetric ? m * cp[k] * gw
-                                : m * (pi_i + cp[k]) * ri * gw;
-        if constexpr (AV) {
-          const float dvx = vx - cvx[k];
-          const float dvy = vy - cvy[k];
-          const float dvz = vz - cvz[k];
-          const float vdotr = dvx * dxx + dvy * dxy + dvz * dxz;
-          const float gs_av =
-              sign_bug ? 0.5f * (pw_gw(r, qi, ih, -3.0f)
-                                 + pw_gw(r, qj, jh, -3.0f))
-                       : gw;
-          if (vdotr < 0.0f) {
-            const float hbar = 0.5f * (hi + chh[k]);
-            const float mu = hbar * vdotr / (r2 + 0.01f * hbar * hbar);
-            const float cbar = 0.5f * (csi + ccs[k]);
-            const float rhobar = 0.5f * (ri + crho[k]);
-            float pij = (-av_alpha * cbar * mu + av_beta * mu * mu) / rhobar;
-            if constexpr (BAL) pij *= 0.5f * (fbi + cfb[k]);
-            coef += m * pij * gs_av * ri;
-          }
-          if constexpr (BAL) {
-            const float g_dc = m * gs_av;
-            acc[3] += g_dc * vdotr;
-            acc[4] += g_dc * (dvy * dxz - dvz * dxy);
-            acc[5] += g_dc * (dvz * dxx - dvx * dxz);
-            acc[6] += g_dc * (dvx * dxy - dvy * dxx);
-          }
-        }
-        acc[0] += dxx * coef;
-        acc[1] += dxy * coef;
-        acc[2] += dxz * coef;
-      };
-      for (int k = 0; k < cnt; ++k) {
-        if (base + k == i) {
-          // 0 times a non-finite value of the target's own is NaN
-          if (target_bad) pair(k, 0.0f);
-          continue;
-        }
-        pair(k, cm[k]);
-      }
+    // each target's 1/h for this tile's q^2 test and gate: 0 skips and
+    // gates out nothing ((r2 0) 0 is 0 or NaN)
+    float ih_tile[PW_TPT];
+#pragma unroll
+    for (int u = 0; u < PW_TPT; ++u) {
+      const bool all_pairs = tile_bad || target_bad[u];
+      ih_tile[u] = all_pairs ? 0.0f : ih[u];
     }
+    // the terms of target u and staged source k that the q^2 test kept
+    // (d = x_i - x_j, r2 = |d|^2); `self`: the self pair, which the plain
+    // version weighs with m = 0
+    auto near = [&](int u, int k, float jh, float dxx, float dxy, float dxz,
+                    float r2, bool self) {
+      const float r = sqrtf(r2);
+      const float qi = r * ih[u];
+      const float qj = r * jh;
+      if (r * ih_tile[u] >= 2.0f && qj >= 2.0f) return;
+      const float m = self ? 0.0f : cm[k];
+      const float gw =
+          0.5f * (pw_gw(r, qi, ih[u], lin) + pw_gw(r, qj, jh, lin));
+      float coef = asymmetric ? m * cp[k] * gw
+                              : m * (pi_i[u] + cp[k]) * ri[u] * gw;
+      if constexpr (AV) {
+        const float dvx = vx[u] - cvx[k];
+        const float dvy = vy[u] - cvy[k];
+        const float dvz = vz[u] - cvz[k];
+        const float vdotr = dvx * dxx + dvy * dxy + dvz * dxz;
+        const float gs_av =
+            sign_bug ? 0.5f * (pw_gw(r, qi, ih[u], -3.0f)
+                               + pw_gw(r, qj, jh, -3.0f))
+                     : gw;
+        if (vdotr < 0.0f) {
+          const float hbar = 0.5f * (hi[u] + chh[k]);
+          const float mu = hbar * vdotr / (r2 + 0.01f * hbar * hbar);
+          const float cbar = 0.5f * (csi[u] + ccs[k]);
+          const float rhobar = 0.5f * (ri[u] + crho[k]);
+          float pij = (-av_alpha * cbar * mu + av_beta * mu * mu) / rhobar;
+          if constexpr (BAL) pij *= 0.5f * (fbi[u] + cfb[k]);
+          coef += m * pij * gs_av * ri[u];
+        }
+        if constexpr (BAL) {
+          const float g_dc = m * gs_av;
+          acc[u][3] += g_dc * vdotr;
+          acc[u][4] += g_dc * (dvy * dxz - dvz * dxy);
+          acc[u][5] += g_dc * (dvz * dxx - dvx * dxz);
+          acc[u][6] += g_dc * (dvx * dxy - dvy * dxx);
+        }
+      }
+      acc[u][0] += dxx * coef;
+      acc[u][1] += dxy * coef;
+      acc[u][2] += dxz * coef;
+    };
+    // the tile's sweep: the q^2 test of every (target, source) pair, each
+    // pair it keeps listed (source k, target u, the self bit); whenever a
+    // list may not hold the next source's pairs, and at the tile's end,
+    // the listed pairs go to near() in the order listed, so each target's
+    // pairs are added in source order. `diag`: the tile's source range
+    // meets the block's targets, and the self pair is visited only by a
+    // flagged target
+    auto sweep = [&](bool diag) {
+      int k = 0;
+      do {
+        unsigned short* qw = qbase;
+        for (; k < cnt; ++k) {
+          const float4 p = geo[k];
+#pragma unroll
+          for (int u = 0; u < PW_TPT; ++u) {
+            const bool self = diag && base + k == ti[u];
+            const float dxx = x[u] - p.x;
+            const float dxy = y[u] - p.y;
+            const float dxz = z[u] - p.z;
+            const float r2 = fmaf(dxz, dxz, fmaf(dxy, dxy, dxx * dxx));
+            const float ihm = psph_min(ih_tile[u], p.w);
+            if (!((r2 * ihm) * ihm > PSPH_Q2_SKIP) &&
+                (!self || target_bad[u])) {
+              *qw = (unsigned short)(k | (u << 8) | (self ? 512 : 0));
+              qw += PW_THREADS;
+            }
+          }
+          if (qw > qlast) {
+            ++k;
+            break;
+          }
+        }
+        for (const unsigned short* q = qbase; q < qw; q += PW_THREADS) {
+          const int v = *q;
+          const int kk = v & 255;
+          const float4 p = geo[kk];
+          auto visit = [&](int u) {
+            const float dxx = x[u] - p.x;
+            const float dxy = y[u] - p.y;
+            const float dxz = z[u] - p.z;
+            near(u, kk, p.w, dxx, dxy, dxz,
+                 dxx * dxx + dxy * dxy + dxz * dxz, (v & 512) != 0);
+          };
+          if (v & 256)
+            visit(1);
+          else
+            visit(0);
+        }
+      } while (k < cnt);
+    };
+    if (base < lo + PW_TARGETS && base + cnt > lo)
+      sweep(true);
+    else
+      sweep(false);
     __syncthreads();
   }
-  if (live) {
-    float* p = part + (size_t)blockIdx.y * NOUT * n + i;
 #pragma unroll
-    for (int k = 0; k < NOUT; ++k) p[(size_t)k * n] = acc[k];
+  for (int u = 0; u < PW_TPT; ++u) {
+    if (ti[u] >= n) continue;
+    float* p = part + (size_t)blockIdx.y * NOUT * n + ti[u];
+#pragma unroll
+    for (int k = 0; k < NOUT; ++k) p[(size_t)k * n] = acc[u][k];
   }
 }
 
@@ -213,25 +304,25 @@ extern "C" int psph_pairwise_pass2(
     int n, int splits, int asymmetric, int sign_bug, int av, int balsara,
     float av_alpha, float av_beta, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const int iblocks = (n + PW_TILE - 1) / PW_TILE;
+  const dim3 grid((n + PW_TARGETS - 1) / PW_TARGETS, splits);
   const int chunk = (n + splits - 1) / splits;
-  const dim3 grid(iblocks, splits);
   cudaStream_t st = (cudaStream_t)stream;
   if (av && balsara)
-    pairwise_pass2_kernel<true, true><<<grid, PW_TILE, 0, st>>>(
+    pairwise_pass2_kernel<true, true><<<grid, PW_THREADS, 0, st>>>(
         pos, inv_h, mass, rho, prs, vel, hh, cs, fb, part, n, chunk,
         asymmetric, sign_bug, av_alpha, av_beta);
   else if (av)
-    pairwise_pass2_kernel<true, false><<<grid, PW_TILE, 0, st>>>(
+    pairwise_pass2_kernel<true, false><<<grid, PW_THREADS, 0, st>>>(
         pos, inv_h, mass, rho, prs, vel, hh, cs, fb, part, n, chunk,
         asymmetric, sign_bug, av_alpha, av_beta);
   else
-    pairwise_pass2_kernel<false, false><<<grid, PW_TILE, 0, st>>>(
+    pairwise_pass2_kernel<false, false><<<grid, PW_THREADS, 0, st>>>(
         pos, inv_h, mass, rho, prs, vel, hh, cs, fb, part, n, chunk,
         asymmetric, sign_bug, av_alpha, av_beta);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  pairwise_pass2_reduce<<<iblocks, PW_TILE, 0, st>>>(
-      part, gp, dc, n, splits, (av && balsara) ? 7 : 3);
+  pairwise_pass2_reduce<<<(n + PW_THREADS - 1) / PW_THREADS, PW_THREADS, 0,
+                          st>>>(part, gp, dc, n, splits,
+                                (av && balsara) ? 7 : 3);
   return (int)cudaGetLastError();
 }

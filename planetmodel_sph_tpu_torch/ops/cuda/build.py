@@ -50,16 +50,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernels whose output holds an exact decision on r2 (the filter mask, the
-# q < 2 counts of the pass 1s) build without multiply-add contraction, so
-# r2 and cut*cut round as the plain PyTorch versions' separate ops do and
-# knife-edge compares agree; so does the pass-1 tile probe, whose signed
-# random-normal terms reach |q|^3 ~ 1e4 and cancel, so that only the order
-# of the sum may differ from its plain version's. The pass 2s, p2p and
-# gravity_fused count nothing that rounding moves, and their sums are held
-# to a tolerance: they keep FMA, as do the other probes (probe_fma measures
-# the FMA rate itself).
-NO_FMAD = ("filter_sph", "pass1_gradh", "pass1_sym", "pairwise_pass1",
-           "probe_pass1_tile")
+# q < 2 counts of the windowed pass 1s) build without multiply-add
+# contraction, so r2 and cut*cut round as the plain PyTorch versions'
+# separate ops do and knife-edge compares agree; so does the pass-1 tile
+# probe, whose signed random-normal terms reach |q|^3 ~ 1e4 and cancel, so
+# that only the order of the sum may differ from its plain version's.
+# pairwise_pass1 forms its count's r2 and q with __fmul_rn and __fadd_rn,
+# which are never contracted, and keeps FMA elsewhere. The pass 2s, p2p
+# and gravity_fused count nothing that rounding moves, and their sums are
+# held to a tolerance: they keep FMA, as do the other probes (probe_fma
+# measures the FMA rate itself).
+NO_FMAD = ("filter_sph", "pass1_gradh", "pass1_sym", "probe_pass1_tile")
 
 _LIBS: dict = {}
 

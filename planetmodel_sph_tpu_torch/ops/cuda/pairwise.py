@@ -37,15 +37,18 @@ from .launch import (LAUNCHES, is_cuda, launch, need,  # noqa: F401
 INV_PI = 1.0 / 3.14159265358979323846
 KERNELS = ("pairwise_pass1", "pairwise_pass2")
 PLAIN_BLOCK = 512         # target rows per [block, n] broadcast
-_TPB = 128                # threads per block of the kernels (PW_TILE)
-_TARGET_BLOCKS = 1056     # 8 blocks for each of the H100's 132 SMs
+_TARGETS = 256            # targets a block of the kernels (PW_TARGETS)
+_TARGET_BLOCKS = 4224     # four waves of 8 blocks on each of the 132 SMs
+_MAX_SPLITS = 96
 
 
 def splits_for(n: int) -> int:
     """Source-range splits (blockIdx.y) that give the card enough blocks:
-    one thread per target alone is only n/128 blocks."""
-    iblocks = max(1, -(-n // _TPB))
-    return max(1, min(64, -(-_TARGET_BLOCKS // iblocks)))
+    the targets alone are only n/256 blocks. Four waves of blocks keep the
+    last one's share of the time small; at most 96 splits (n = 3000 then
+    runs 1152 blocks of some 32 sources each)."""
+    iblocks = max(1, -(-n // _TARGETS))
+    return max(1, min(_MAX_SPLITS, -(-_TARGET_BLOCKS // iblocks)))
 
 
 def _guard(x):

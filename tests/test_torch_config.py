@@ -226,3 +226,49 @@ def test_top_level_preset_equals_the_reference_field_by_field(name):
     assert getattr(tp, name) is getattr(tc, name)
     assert dataclasses.asdict(getattr(tp, name)()) == \
         dataclasses.asdict(getattr(jp, name)())
+
+
+# ---- group sizes the windowed kernels cannot launch -----------------------
+
+# the grid path's RESPA inner step with the near tier on its own (p2p), as
+# the `sym100k` leg runs it
+P2P_KW = dict(fuse_p2p_sph=False, fuse_p2p_residual=False)
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: tc.jupiter_100k(**kw),
+    lambda **kw: tc.jupiter_100k(**P2P_KW, **kw),
+    lambda **kw: tc.parity(**kw),
+    lambda **kw: tc.jupiter_3k(gravity_solver="tree", **kw),
+], ids=["grid", "grid_unfused_near_tier", "parity", "dense_tree_gravity"])
+def test_group_size_above_256_is_refused_on_every_tree_path(make):
+    with pytest.raises(ValueError, match=r"nbr_group_size=512.*256"):
+        tc.check_slice(make(nbr_group_size=512))
+
+
+@pytest.mark.parametrize("b", [32, 64, 256])
+@pytest.mark.parametrize("make", [
+    lambda **kw: tc.jupiter_100k(**kw),
+    lambda **kw: tc.jupiter_100k(**P2P_KW, **kw),
+    lambda **kw: tc.parity(**kw),
+], ids=["grid", "grid_unfused_near_tier", "parity"])
+def test_launchable_group_sizes_stay_admitted(make, b):
+    tc.check_slice(make(nbr_group_size=b))
+
+
+def test_odd_group_size_is_refused_where_p2p_launches():
+    cfg = tc.jupiter_100k(**P2P_KW, nbr_group_size=33, nbr_sub=11)
+    assert tc.launches_p2p(cfg)
+    with pytest.raises(ValueError, match=r"nbr_group_size=33.*p2p"):
+        tc.check_slice(cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    {},                                  # residual window merged in pass 2
+    dict(**P2P_KW, respa_every=1),       # every tier in one launch a step
+    dict(gravity_solver="none", **P2P_KW),
+], ids=["merged", "no_respa", "no_gravity"])
+def test_odd_group_size_is_admitted_where_p2p_does_not_launch(kw):
+    cfg = tc.jupiter_100k(nbr_group_size=33, nbr_sub=11, **kw)
+    assert not tc.launches_p2p(cfg)
+    tc.check_slice(cfg)

@@ -66,17 +66,28 @@ Q2_SKIP = _skip_constant()
 # C's float functions with their NaN rules (fminf and fmaxf return the
 # other operand; psph_min and psph_max, min.NaN.f32 and max.NaN.f32,
 # return NaN)
+def _fmaf(a, b, c):
+    """fmaf in float32: the product of two float32 values is exact in
+    float64, so a * b + c rounds once there and once to float32 (the two
+    roundings can differ from one only at a float32 halfway point)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
 _C_CALLS = {"fminf": np.fmin, "fmaxf": np.fmax, "sqrtf": np.sqrt,
             "psph_min": np.minimum, "psph_max": np.maximum,
             "isfinite": np.isfinite,
-            "psph_all_finite": lambda v: np.isfinite(v).all(axis=0)}
+            "psph_all_finite": lambda v: np.isfinite(v).all(axis=0),
+            "__fmul_rn": np.multiply, "__fadd_rn": np.add, "fmaf": _fmaf}
 
 
 def _c_test(expr):
     """A C float expression of the kernels (names, float literals, * + -,
-    comparisons, && || !, a ? b : c, fminf/fmaxf/sqrtf) as a function of
-    numpy float32 arrays given by name, with C's rounding and NaN rules."""
+    comparisons, && || !, a ? b : c, fminf/fmaxf/sqrtf/fmaf, __fmul_rn and
+    __fadd_rn, INFINITY; a per-target subscript [u] is dropped) as a
+    function of numpy float32 arrays given by name, with C's rounding and
+    NaN rules."""
     py = re.sub(r"(\d+\.\d*(?:[eE][+-]?\d+)?)f\b", r"\1", expr)
+    py = py.replace("[u]", "").replace("INFINITY", "float('inf')")
     py = py.replace("&&", " and ").replace("||", " or ")
     py = re.sub(r"!(?!=)", " not ", py)
     m = re.fullmatch(r"\s*(.+?)\s*\?\s*(.+?)\s*:\s*(.+?)\s*", py)
@@ -109,6 +120,8 @@ def _c_test(expr):
         if isinstance(n, ast.IfExp):
             return np.where(ev(n.test, env), ev(n.body, env),
                             ev(n.orelse, env)).astype(np.float32)
+        if isinstance(n, ast.Call) and n.func.id == "float":
+            return np.float32(n.args[0].value)
         if isinstance(n, ast.Call):
             return _C_CALLS[n.func.id](*(ev(a, env) for a in n.args))
         raise ValueError(f"not a kernel test expression: {expr}")
@@ -645,14 +658,32 @@ def test_the_r_guard_keeps_a_nan_r2():
     """Every gravity sweep guards r = 0 with rsqrtf(psph_max(r2, 1e-30f)):
     max.NaN.f32 keeps a NaN r2 (a NaN position) as the plain versions'
     torch.clamp does, where fmaxf would return 1e-30 and a finite
-    potential; for every other r2 the two give the same bits."""
+    potential; for every other r2 the two give the same bits. p2p.cu and
+    pairwise_pass1.cu take it through psph_p2p_pair; pairwise_pass1.cu's
+    other 1/r, from its q^2 test's s2 = r2 ihm^2 without the guard,
+    reaches only the pairs the test skips (s2 > 4: never 0, a denormal or
+    NaN), through selects that give every other pair 0."""
     srcs = {n: _source(n) for n in sorted(os.listdir(CSRC))
             if n.endswith((".cu", ".cuh"))}
     for name, src in srcs.items():
         assert "fmaxf(r2" not in src, name
-    for name in ("common.cuh", "p2p.cu", "pass2.cu", "gravity_fused.cu",
-                 "pairwise_pass1.cu"):
+    for name in ("common.cuh", "pass2.cu", "gravity_fused.cu"):
         assert "rsqrtf(psph_max(r2, 1e-30f))" in srcs[name], name
+    body = re.search(r"void psph_p2p_pair\(.*?\n}\n", srcs["common.cuh"],
+                     re.S)
+    assert body and "rsqrtf(psph_max(r2, 1e-30f))" in body.group(0)
+    for name in ("p2p.cu", "pairwise_pass1.cu"):
+        assert "psph_p2p_pair(" in srcs[name], name
+    pw1 = srcs["pairwise_pass1.cu"]
+    far = re.search(r"const bool skip = (s2 > PSPH_Q2_SKIP);", pw1)
+    assert far and "const float inv_r = psph_rsqrt_ftz(s2) * ihm;" in pw1
+    assert "const float mr = skip ? p.w * inv_r : 0.0f;" in pw1
+    assert "const float mag = skip ? mr * inv_r * inv_r : 0.0f;" in pw1
+    assert "rsqrtf(" not in re.sub(r"//[^\n]*", "", pw1)
+    skipped = _c_test(far.group(1))
+    s2 = np.array([0.0, np.nan, 1e-40, 4.0, 5.0, np.inf], np.float32)
+    got = skipped(s2=s2, PSPH_Q2_SKIP=Q2_SKIP)
+    assert got.tolist() == [False, False, False, False, True, True]
     nan = np.float32(np.nan)
     guard = _c_test("psph_max(r2, floor)")
     floor = np.float32(1e-30)
@@ -686,45 +717,175 @@ def test_cases_cover_both_windows_and_every_flag():
 def test_standing_nan_differences_of_the_other_kernels():
     """The all-pairs kernels keep a NaN where their plain versions do:
     pairwise_pass1 softens gravity with psph_min (NaN when either 1/h is,
-    as torch.minimum), and both gate out a pair only when r/h_i >= 2 and
-    r/h_j >= 2 on the tile's gate ih, which the non-finite flags of the
-    staged tile and of the target zero (then nothing is gated out), so a
-    NaN in r or either 1/h is never gated out."""
+    as torch.minimum), and both gate out a pair that passed the q^2 test
+    only when r/h_i >= 2 and r/h_j >= 2 on the tile's gate ih, which the
+    non-finite flags of the staged tile and of the target zero (then
+    nothing is gated out), so a NaN in r or either 1/h is never gated
+    out; a flagged target visits its self pair with m = 0 and counts it
+    nowhere."""
     nan = np.float32(np.nan)
     pw1, pw2 = _source("pairwise_pass1.cu"), _source("pairwise_pass2.cu")
-    assert "receiver_soft ? ih : psph_min(ih, jh)" in pw1
+    assert "RECV ? ih[u] : psph_min(ih[u], jh)" in pw1
     assert "fminf(ih" not in pw1 and "fminf(ih" not in pw2
-    gates = [re.search(r"if \(!\((r \* ih_gate >= 2\.0f && qj >= 2\.0f)\)"
-                       r"\) \{", pw1),
-             re.search(r"if \((r \* ih_gate >= 2\.0f && qj >= 2\.0f)\) "
+    gates = [re.search(r"if \(!\((__fmul_rn\(r, ih_tile\[u\]\) >= 2\.0f "
+                       r"&& qj >= 2\.0f)\)\) \{", pw1),
+             re.search(r"if \((r \* ih_tile\[u\] >= 2\.0f && qj >= 2\.0f)\) "
                        r"return;", pw2)]
     assert all(gates)
     for src in (pw1, pw2):
         assert "const bool tile_bad = __syncthreads_or(bad) != 0;" in src
         assert "bad = bad || !psph_all_finite(v);" in src
-        assert "const bool target_bad = !psph_all_finite(own);" in src
-        assert re.search(r"const bool all_pairs = tile_bad \|\| "
-                         r"target_bad;", src)
-        assert "const float ih_gate = all_pairs ? 0.0f : ih;" in src
+        assert "target_bad[u] = !psph_all_finite(own);" in src
+        assert "const bool all_pairs = tile_bad || target_bad[u];" in src
+        # one 1/h for the q^2 test and the gate: 0 for a flagged target
+        assert "ih_tile[u] = all_pairs ? 0.0f : ih[u];" in src
+        assert "const float ihm = psph_min(ih_tile[u], " in src
+        # a self pair is listed only for a flagged target
+        assert "(!self || target_bad[u])" in src
     # pass 2 stages its factor P/rho (P/rho^2) and tests it with the rows
     assert "mass[j], asymmetric ? prs[j] / rj : prs[j] / (rj * rj)," in pw2
-    # a flagged target visits its self pair with m = 0, as the plain
-    # version weighs it, and counts it nowhere
-    assert "if (target_bad) pair(k, 0.0f, 0);" in pw1
-    assert "if (target_bad) pair(k, 0.0f);" in pw2
-    assert "s_nn += qi < 2.0f ? other : 0;" in pw1
-    assert "s_nd += other;" in pw1
-    gated_out = _c_test(gates[0].group(1))
-    ih_gate = _c_test("all_pairs ? 0.0f : ih")
-    far = np.float32(1e3)
-    for r, ih, jh in ((far, 1.0, nan), (far, nan, 1.0), (nan, 1.0, 1.0)):
-        assert not gated_out(r=r, qj=np.float32(r) * np.float32(jh),
-                             ih_gate=ih_gate(all_pairs=False, ih=ih))
-    assert gated_out(r=far, qj=far, ih_gate=ih_gate(all_pairs=False,
-                                                    ih=1.0))
-    assert not gated_out(r=far, qj=far, ih_gate=ih_gate(all_pairs=True,
+    # the self pair weighs m = 0, and pass 1 counts it in neither count
+    assert "const float m = self ? 0.0f : cm[k];" in pw2
+    assert "near(u, jh, self ? 0.0f : p.w, dxx, dxy, dxz," in pw1
+    assert "self ? 0 : 1);" in pw1
+    assert "nn[u] += qi < 2.0f ? other : 0;" in pw1
+    assert "GRAV ? sources - (ti[u] >= j0 && ti[u] < j1 ? 1 : 0) : 0" in pw1
+    for gate in gates:
+        gated_out = _c_test(gate.group(1))
+        ih_tile = _c_test("all_pairs ? 0.0f : ih")
+        far = np.float32(1e3)
+        for r, ih, jh in ((far, 1.0, nan), (far, nan, 1.0), (nan, 1.0, 1.0)):
+            assert not gated_out(r=r, qj=np.float32(r) * np.float32(jh),
+                                 ih_tile=ih_tile(all_pairs=False, ih=ih))
+        assert gated_out(r=far, qj=far, ih_tile=ih_tile(all_pairs=False,
                                                         ih=1.0))
+        assert not gated_out(r=far, qj=far, ih_tile=ih_tile(all_pairs=True,
+                                                            ih=1.0))
     assert np.isnan(_c_test("psph_min(ih, jh)")(ih=1.0, jh=nan))
+
+
+# ---------------------------------------------------------------------------
+# the all-pairs kernels' q^2 test
+# ---------------------------------------------------------------------------
+
+def _pairwise_skips():
+    """Each all-pairs kernel's q^2 test as its source states it: a
+    function of the pair's d = x_i - x_j, both 1/h and the target's flag
+    (tile or target not finite, which zeroes the test's 1/h_i) that says
+    whether the pair is skipped."""
+    out = {}
+    for name, jh in (("pairwise_pass1.cu", "jh"), ("pairwise_pass2.cu",
+                                                    "p.w")):
+        src = _source(name)
+        r2 = re.search(r"const float dxz = z\[u\] - p\.z;\s*"
+                       r"const float r2 = ([^;]+);", src)
+        ihm = re.search(r"const float ihm = (psph_min\(ih_tile\[u\], "
+                        + re.escape(jh) + r"\));", src)
+        tile = re.search(r"ih_tile\[u\] = ([^;]+);", src)
+        if name == "pairwise_pass1.cu":
+            m = re.search(r"const float s2 = ([^;]+);\s*"
+                          r"const bool skip = (s2 > PSPH_Q2_SKIP);", src)
+            test = m and m.group(2).replace("s2", f"({m.group(1)})")
+        else:
+            m = re.search(r"if \(!\((\(r2 \* ihm\) \* ihm > PSPH_Q2_SKIP)\) "
+                          r"&&", src)
+            test = m and m.group(1)
+        assert r2 and ihm and tile and test, name
+        f_r2, f_tile = _c_test(r2.group(1)), _c_test(tile.group(1))
+        f_ihm = _c_test(ihm.group(1).replace(jh, "jh"))
+        f_test = _c_test(test)
+
+        def skipped(dx, dy, dz, ih, jh, flagged=False, f_r2=f_r2,
+                    f_ihm=f_ihm, f_test=f_test, f_tile=f_tile):
+            ih_tile = f_tile(all_pairs=np.asarray(flagged), ih=ih)
+            return np.asarray(f_test(r2=f_r2(dxx=dx, dxy=dy, dxz=dz),
+                                     ihm=f_ihm(ih_tile=ih_tile, jh=jh),
+                                     PSPH_Q2_SKIP=Q2_SKIP))
+        out[name] = skipped
+    return out
+
+
+PW_SKIPS = _pairwise_skips()
+
+
+def _pw_knife_edges(rng, n, rel, log_lo=-3.0, log_hi=3.0):
+    """n pairs at |r| = (2 / min(ih, jh)) rel (1 + k 2^-24), k in
+    [-256, 256], in random directions: float32 components."""
+    ih = (10.0 ** rng.uniform(log_lo, log_hi, n)).astype(np.float32)
+    jh = (ih * 10.0 ** rng.uniform(-1, 1, n)).astype(np.float32)
+    u = rng.normal(size=(3, n))
+    u /= np.linalg.norm(u, axis=0)
+    k = rng.integers(-256, 257, n)
+    r = (2.0 / np.minimum(ih, jh).astype(np.float64)) * rel \
+        * (1 + k * 2.0 ** -24)
+    dx, dy, dz = ((r * c).astype(np.float32) for c in u)
+    return dx, dy, dz, ih, jh
+
+
+@pytest.mark.parametrize("scale", [(-3.0, 3.0), (-9.0, -6.0)],
+                         ids=["code_units", "cgs"])
+@pytest.mark.parametrize("rel", [1.0, float(np.sqrt(Q2_SKIP / 4.0))],
+                         ids=["q_at_2", "at_the_skip_threshold"])
+@pytest.mark.parametrize("kernel", sorted(PW_SKIPS))
+def test_pairwise_skip_leaves_out_no_pair_inside_a_support(kernel, rel,
+                                                           scale):
+    """A pair the all-pairs kernels' q^2 test skips has sqrtf(r2) ih >= 2
+    for both 1/h, r2 formed as the plain version forms it (separate
+    float32 operations), at the knife edge r ih = 2 (1 +- k 2^-24) of the
+    larger support and at the test's own threshold."""
+    rng = np.random.default_rng(13)
+    dx, dy, dz, ih, jh = _pw_knife_edges(rng, 400_000, rel, *scale)
+    skip = PW_SKIPS[kernel](dx, dy, dz, ih, jh)
+    r2 = _r2(dx, dy, dz)
+    assert not np.any(skip & (_q(r2, ih) < 2.0))
+    assert not np.any(skip & (_q(r2, jh) < 2.0))
+    if rel == 1.0:
+        assert not skip.any()          # q within 256 ulps of 2: all kept
+    else:
+        assert 0 < skip.sum() < skip.size   # both sides of the threshold
+
+
+@settings(max_examples=300, deadline=None)
+@given(log_ih=st.floats(-9.0, 3.0), log_ratio=st.floats(-2.0, 2.0),
+       k=st.integers(-8, 8), ux=st.floats(-1.0, 1.0),
+       uy=st.floats(-1.0, 1.0), uz=st.floats(-1.0, 1.0))
+def test_pairwise_skip_property_at_the_knife_edge(log_ih, log_ratio, k, ux,
+                                                  uy, uz):
+    """r ih_min = 2 (1 + k 2^-23), k in [-8, 8]: a skipped pair is outside
+    both supports, in both kernels."""
+    norm = np.sqrt(ux * ux + uy * uy + uz * uz)
+    if norm < 1e-3:
+        ux, uy, uz, norm = 1.0, 0.0, 0.0, 1.0
+    ih = np.float32(10.0 ** log_ih)
+    jh = np.float32(10.0 ** (log_ih + log_ratio))
+    r = (2.0 / float(min(ih, jh))) * (1 + k * 2.0 ** -23)
+    dx, dy, dz = (np.float32(r * c / norm) for c in (ux, uy, uz))
+    r2 = _r2(dx, dy, dz)
+    for skipped in PW_SKIPS.values():
+        if skipped(dx, dy, dz, ih, jh):
+            assert _q(r2, ih) >= 2.0 and _q(r2, jh) >= 2.0
+
+
+@pytest.mark.parametrize("kernel", sorted(PW_SKIPS))
+def test_pairwise_skip_keeps_nan_zero_ih_and_flagged_pairs(kernel):
+    """No pair with a NaN r2 (a NaN or infinite position: inf - inf) or a
+    NaN 1/h is skipped, none with a zero 1/h (h = inf: ihm = 0), and none
+    of a flagged tile or target (its zeroed ihm), an infinite r2
+    included; a far pair of finite values is skipped."""
+    skipped = PW_SKIPS[kernel]
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    f = np.float32
+    far = f(1e3)
+    # the last: an infinite x against itself or another, inf - inf
+    dx = np.array([nan, far, far, far, far, nan], np.float32)
+    ih = np.array([1.0, nan, 1.0, 0.0, 1.0, 1.0], np.float32)
+    jh = np.array([1.0, 1.0, nan, 1.0, 0.0, 1.0], np.float32)
+    zero = np.zeros_like(dx)
+    assert not skipped(dx, zero, zero, ih, jh).any()
+    assert skipped(far, f(0), f(0), f(1), f(1))
+    assert skipped(inf, f(0), f(0), f(1), f(1))     # r2 = inf, unflagged
+    for d in (far, inf, f(2.1)):
+        assert not skipped(d, f(0), f(0), f(1), f(1), flagged=True)
 
 
 # ---------------------------------------------------------------------------

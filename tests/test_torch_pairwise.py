@@ -78,7 +78,9 @@ def _hold_pass1(out, ref):
                                   np.asarray(ref.n_direct))
 
 
-@pytest.mark.parametrize("n", [200, 137])
+# n = 301: not a multiple of the kernels' 256 targets a block, nor of the
+# plain versions' row blocks
+@pytest.mark.parametrize("n", [200, 137, 301])
 @pytest.mark.parametrize("softening", ["receiver_h", "symmetric_max"])
 def test_pass1_plain_matches_pallas(softening, n):
     jcfg, tcfg = _cfgs(n, softening_mode=softening)
@@ -90,8 +92,9 @@ def test_pass1_plain_matches_pallas(softening, n):
     assert int(out.n_direct[0]) == n - 1
 
 
-def test_pass1_plain_no_gravity_matches_pallas():
-    jcfg, tcfg = _cfgs(gravity_solver="none")
+@pytest.mark.parametrize("n", [200, 301])
+def test_pass1_plain_no_gravity_matches_pallas(n):
+    jcfg, tcfg = _cfgs(n, gravity_solver="none")
     t, st = _particles(jcfg)
     ref = jpw.pass1(st.pos, st.h, st.mass, jcfg)
     out = tpw.pass1_plain(t["pos"], t["h"], t["mass"], tcfg)
@@ -109,7 +112,7 @@ def test_pass1_plain_matches_port_dense(softening):
     _hold_pass1(out, ref)
 
 
-@pytest.mark.parametrize("n", [200, 137])
+@pytest.mark.parametrize("n", [200, 137, 301])
 @pytest.mark.parametrize("mode", ["reference_asymmetric", "symmetric"])
 @pytest.mark.parametrize("bug", [False, True])
 def test_pass2_plain_matches_pallas(mode, bug, n):
@@ -122,10 +125,11 @@ def test_pass2_plain_matches_pallas(mode, bug, n):
     _close(out, td.pass2(*args, tcfg), 1e-3, 1e-5)
 
 
+@pytest.mark.parametrize("n", [200, 301])
 @pytest.mark.parametrize("bug", [False, True])
 @pytest.mark.parametrize("balsara", [False, True])
-def test_pass2_plain_viscosity_matches_pallas(balsara, bug):
-    jcfg, tcfg = _cfgs(av_alpha=1.0, av_beta=2.0, av_balsara=balsara,
+def test_pass2_plain_viscosity_matches_pallas(balsara, bug, n):
+    jcfg, tcfg = _cfgs(n, av_alpha=1.0, av_beta=2.0, av_balsara=balsara,
                        kernel_deriv_sign_bug=bug)
     t, st = _particles(jcfg, moving=True)
     fb = np.linspace(0.2, 1.0, jcfg.n).astype(np.float32)
@@ -222,9 +226,12 @@ def test_pass2_refuses_grad_h_mode():
 
 
 def test_splits_fill_the_card_and_stay_bounded():
-    assert tpw.splits_for(3000) * -(-3000 // 128) >= 1056
-    assert tpw.splits_for(32768) * 256 >= 1056
-    assert tpw.splits_for(1) == 64 and tpw.splits_for(10 ** 6) == 1
+    """Blocks of 256 targets: at least 8 blocks on each of the 132 SMs at
+    n = 3000, four waves of them at n = 32768; at most 96 splits, and one
+    where the targets alone fill four waves."""
+    assert tpw.splits_for(3000) * -(-3000 // 256) >= 1056
+    assert tpw.splits_for(32768) * (32768 // 256) >= 4 * 1056
+    assert tpw.splits_for(1) == 96 and tpw.splits_for(2 * 10 ** 6) == 1
 
 
 @pytest.mark.gpu

@@ -145,17 +145,18 @@ def test_filter_shares_beside_the_bound_by_hand():
 def _four_particles():
     """x = 0, 0.5 (h = 1), x = 5 (h = 3), x = 100 (h = 1). Ordered pairs
     inside either support: (0,1), (1,0) with q_i, q_j < 1; (0,2), (1,2)
-    with q_i >= 2 and 1 <= q_j < 2; (2,0), (2,1) the reverse. The six pairs
-    with particle 3 lie outside both supports. Dyer-Ip under
-    max-softening: near only for (0,1), (1,0)."""
+    with q_i >= 2 and 1 <= q_j < 2; (2,0), (2,1) the reverse; the q^2 test
+    keeps these six. The six pairs with particle 3 lie outside both
+    supports and the test skips them. Dyer-Ip under either softening: near
+    only for (0,1), (1,0)."""
     pos = torch.tensor([[0.0, 0, 0], [0.5, 0, 0], [5.0, 0, 0],
                         [100.0, 0, 0]])
     h = torch.tensor([1.0, 1.0, 3.0, 1.0])
     return pos, h, torch.ones(4)
 
 
-def _pw_common(n=4):
-    return cs.OPS_PW_SELF * n * n + cs.OPS_PW_GEOM * n * (n - 1)
+def _pw_common(n=4, kept=6):
+    return cs.OPS_PW_SKIP * n * (n - 1) + cs.OPS_PW_NEAR * kept
 
 
 @pytest.mark.parametrize("softening", ["symmetric_max", "receiver_h"])
@@ -171,7 +172,10 @@ def test_pairwise_pass1_ops_and_bytes_by_branch(softening):
     w, di = cs.OPS_PW_W, cs.OPS_DYER_IP
     sph = 6 * cs.OPS_PW_RHO + 4 * (w["inner"] + w["outer"] + w["none"])
     fmin = 1 if softening == "receiver_h" else 0
-    grav = 12 * (cs.OPS_PW_GRAV - fmin) + 2 * di["near"] + 10 * di["far"]
+    # the six skipped pairs take the outer branch alone; of the six kept,
+    # two are near and four far
+    grav = (6 * cs.OPS_PW_GRAV_FAR + 6 * (cs.OPS_PW_GRAV - fmin)
+            + 2 * di["near"] + 4 * di["far"])
     assert ops == _pw_common() + sph + grav
     assert nbytes == (48 + 16 + 16) + (16 + 16 + 16 + 48 + 16)
     assert by == "bytes"          # four particles: the arrays outweigh it
@@ -180,6 +184,19 @@ def test_pairwise_pass1_ops_and_bytes_by_branch(softening):
     _, _, _, ops0 = cs.pairwise_bound("pairwise_pass1", args, {}, cfg0,
                                       tuple(pw.pass1(*args, cfg0)))
     assert ops0 == _pw_common() + sph
+
+
+def test_pairwise_shares_by_hand():
+    """Of the twelve ordered pairs, six lie inside either support and the
+    q^2 test skips the other six; a particle moved to the knife edge of
+    the larger support (r ih_min = 2 exactly) is inside no support and
+    still kept by the test."""
+    pos, h, _ = _four_particles()
+    sh = cs.pairwise_shares(pos, h)
+    assert sh == dict(pairs=12, inside_share=0.5, skipped_share=0.5)
+    pos[3, 0] = 11.0                  # r = 6 from x = 5 (h = 3): q = 2
+    sh = cs.pairwise_shares(pos, h)
+    assert sh["inside_share"] == 0.5 and sh["skipped_share"] == 4 / 12
 
 
 def _pass2_args():
@@ -554,3 +571,31 @@ def test_probe_pass1_tile_ops_and_bytes_by_branch():
                for q in (-0.5, -1.5, -3.0, -0.2))
     assert float(out[1, 0]) == pytest.approx(-poly / 3.141592653589793,
                                              rel=1e-5)
+
+
+def test_parent_splits_are_read_from_the_checkouts_own_source():
+    """--parent times the other checkout's all-pairs kernels with its own
+    wrapper's source splits: read from its source, this checkout's gives
+    the wrapper's own numbers."""
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    splits = cs.parent_splits_for(ROOT)
+    for n in (1, 301, 3000, 32768, 10 ** 6):
+        assert splits(n) == pw.splits_for(n)
+
+
+def test_pairwise_instances_follow_the_flags():
+    from planetmodel_sph_tpu_torch import config as tc
+    cfg = tc.jupiter_3k(n=4)
+    assert cs.pairwise_instance("pairwise_pass1", cfg, {}) == (
+        "pairwise_pass1", (1, 0))
+    assert cs.pairwise_instance(
+        "pairwise_pass1", cfg.replace(softening_mode="receiver_h"), {}) == (
+        "pairwise_pass1", (1, 1))
+    assert cs.pairwise_instance(
+        "pairwise_pass1", cfg.replace(gravity_solver="none"), {}) == (
+        "pairwise_pass1", (0, 0))
+    av = cfg.replace(av_alpha=1.0, av_balsara=True)
+    assert cs.pairwise_instance("pairwise_pass2", av, {}) == (
+        "pairwise_pass2", (0, 0))
+    assert cs.pairwise_instance("pairwise_pass2", av, {"vel": 1}) == (
+        "pairwise_pass2", (1, 1))

@@ -391,10 +391,12 @@ def test_nan_agreement_of_pass1_sym_and_p2p(name, receiver):
 
 @pytest.mark.parametrize("name", ["pairwise_pass1", "pairwise_pass2"])
 def test_pairwise_nan_agreement_plants_nans_that_reach(name):
-    """The all-pairs plantings (x, m; pass 2 also P and, with viscosity
-    and the Balsara sums, the velocity) on 64 particles: on the CPU the
-    wrappers run their plain versions, so the check passes, and each
-    planting reaches an output where it must."""
+    """The all-pairs plantings at two particles, the last and a third of
+    the way in (a NaN and a +inf x, a NaN h, m; pass 2 also P and, with
+    viscosity and the Balsara sums, the velocity) on 64 particles: on the
+    CPU the wrappers run their plain versions, so the check passes, and
+    each planting reaches an output where it must (a NaN h never: the
+    wrappers' guard makes it 1)."""
     from planetmodel_sph_tpu_torch import config as tc
     from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
     rng = np.random.default_rng(3)
@@ -404,15 +406,16 @@ def test_pairwise_nan_agreement_plants_nans_that_reach(name):
     mass = torch.full((n,), 1.0 / n)
     kernel, plain = ((pw.pass1, pw.pass1_plain) if name == "pairwise_pass1"
                      else (pw.pass2, pw.pass2_plain))
+    fields = {"x": True, "x+inf": True, "h": False, "m": True}
     if name == "pairwise_pass1":
         cfg = tc.jupiter_3k(n=n)
         args, kw = (pos, h, mass), {}
-        want = {"x": True, "m": True}
     else:
         cfg = tc.jupiter_3k(n=n, av_alpha=1.0, av_beta=2.0, av_balsara=True)
         args = (pos, h, mass, torch.full((n,), 2.0), torch.full((n,), 0.5))
         kw = dict(vel=-0.1 * pos, fbal=torch.ones(n))
-        want = {"x": True, "m": True, "P": True, "velocity": True}
+        fields.update(P=True, velocity=True)
+    want = {f"{f}@{j}": v for j in (n - 1, n // 3) for f, v in fields.items()}
     msg, reached = cs.pairwise_nan_agreement(name, kernel, plain, args, kw,
                                              cfg)
     assert msg is None and reached == want
