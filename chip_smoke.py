@@ -28,7 +28,14 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    no leg runs: ``p2p`` and ``gravity_fused`` under receiver softening at
    the 100k shapes, ``pass2`` asymmetric with the sign bug, symmetric
    with fused gravity under receiver softening, and `settle100k`'s
-   Balsara inputs with the energy column. The two all-pairs kernels
+   Balsara inputs with the energy column; and on group sizes no leg runs,
+   recorded on the settled state's first chunk set-up under each (windows
+   widened until overflow is 0): b = 512, two blocks a group, in the
+   production form (``filter_sph``, ``pass1_gradh``, the merged grad-h
+   ``pass2``, the far-only ``gravity_fused``) and under `sym100k`'s step
+   (``pass1_sym``, ``pass2``, ``p2p``, ``gravity_fused`` with its near
+   tier), b = 1024 for ``filter_sph``'s second word of boxes, and b = 33
+   for ``p2p``'s one-target tail. The two all-pairs kernels
    are held against theirs on primed ``ics.jupiter`` particles at n = 3000
    and n = 32768, every case at both sizes: pass 1 with both softenings
    and without gravity, pass 2 symmetric, asymmetric with the sign bug,
@@ -98,9 +105,14 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    in one launch). Phase 4 holds every kernel these legs launch against its
    plain version on the leg's own first inputs, and the four probes of the
    tools (``probe_fma``, ``probe_launch``, ``probe_gather``,
-   ``probe_pass1_tile`` at SG 1, 4 and 8) against theirs at the reference
-   tools' shapes. Then (5e) the port's ``tools.roofline`` and
-   ``tools.microbench``, the probes' main path: the card's dispatch
+   ``probe_pass1_tile`` at SG 1, 4 and 8, two launches the same bits, and
+   at SG 1 and 8 a NaN, an +inf and a finite 1e13 planted one at a time
+   at a dead slot below nv, a slot in [nv, span) and one past the span
+   (their x), a target's ih and x, a live and a dead m: NaN and
+   infinities where the plain version has them, the rest within
+   TILE_TOL) against theirs at the reference tools' shapes. Then (5e)
+   the port's ``tools.roofline`` and ``tools.microbench``, the probes'
+   main path: the card's dispatch
    latency, memory stream, f32 FMA rate and launch cost beside the
    published peaks, ``count_work`` at the settled state and the modeled
    floor against the main path's measured step, the five gather variants
@@ -123,10 +135,11 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    with ``git archive`` into a git-ignored directory): phase 2 also builds
    DIR's six redesigned kernels (``pass1_gradh``, ``pass1_sym``,
    ``pass2``, ``gravity_fused``, ``filter_sph``, ``p2p``) and its two
-   all-pairs kernels into DIR's own build directory, phase 4 times them
-   and this checkout's in turns (parent, this, this, parent) on each
-   case's inputs (the all-pairs kernels each with the source splits of
-   its own checkout's wrapper), and this phase times the two probes
+   all-pairs kernels and its ``probe_pass1_tile`` into DIR's own build
+   directory, phase 4 times them and this checkout's in turns (parent,
+   this, this, parent) on each case's inputs (the all-pairs kernels each
+   with the source splits of its own checkout's wrapper; the tile probe
+   also with the parent's device time), and this phase times the two probes
    (``probe_launch`` in a chain beside ``torch.mul``, ``probe_gather``
    beside ``packed[idx]``) and runs the production step, `sym100k`,
    `sg100k` and `dense32k` (README's commands) from both checkouts, each
@@ -146,6 +159,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -200,6 +214,25 @@ BASALT100K_KW = dict(
 BASALT100K_STEPS = 16
 # the supergroup far tier on sym100k
 SG_KW = dict(sg_blocks=4, blk_window=768)
+# group sizes past the windowed kernels' old limits of 256 targets (and
+# 512 boxed targets for filter_sph) and an odd one for p2p: (b, nbr_sub,
+# the leg's settings, the windows' first growth, (kernel, case) checked)
+GROUP_SIZE_LEGS = (
+    (512, 32, {}, 2, (("filter_sph", "filter"), ("pass1_gradh", "grad_h"),
+                      ("pass2", "grad_h+merged"),
+                      ("gravity_fused", "far_only"))),
+    (512, 32, SYM_KW, 2, (("pass1_sym", "symmetric"),
+                          ("pass2", "symmetric"), ("p2p", "min_h"),
+                          ("gravity_fused", "near+min_h"))),
+    (1024, 32, {}, 3, (("filter_sph", "filter"),)),
+    (33, 11, SYM_KW, 1, (("p2p", "min_h"),)),
+)
+GROW_WINDOWS = ("nbr_window", "sph_refined_window", "p2p_window",
+                "m2p_window")
+# the cases group_size_cases yields, as check_modes names them
+GROUP_SIZE_CASES = {
+    (name, f"{case}@b{b}" + ("@sym100k" if kw else ""))
+    for b, _, kw, _, kernels in GROUP_SIZE_LEGS for name, case in kernels}
 # particle-exact SPH lists on the settled state: tools/ksweep2.py's r4x896
 # with the fusion's companion flag off and sym100k's unfused windows
 EXACT_KW = dict(sph_exact_window=896, fuse_p2p_sph=False,
@@ -212,6 +245,8 @@ FMA_SHAPE, FMA_REPS = (256, 512), 512
 LAUNCH_SHAPE, LAUNCH_CHAIN = (8, 128), 256
 GATHER_NB, GATHER_W, GATHER_C = 2067, 96, 7
 TILE_SUPERS = (1, 4, 8)
+# the tile widths whose phase-4 case plants non-finite and far-out values
+TILE_NAN_SUPERS = (1, 8)
 TOOL_K = 8                # data-dependent calls of each microbench variant
 VPU_K, HBM_K, HBM_MB = 16, 32, 512
 # probe_fma: the kernel rounds once per FMA, the plain acc * v + v twice;
@@ -672,6 +707,65 @@ def exact_cases(cfg, exact_state):
     yield "pass2", "grad_h@exact100k", leg, *seen["pass2"]
 
 
+def overflowing(st):
+    """The window fields of the config to grow for a structure that drops
+    entries: the SPH window with its refined one, the P2P window, the M2P
+    window."""
+    return [k for over, keys in (
+        (st.sph_overflow, ("nbr_window", "sph_refined_window")),
+        (st.p2p_overflow, ("p2p_window",)),
+        (st.m2p_overflow, ("m2p_window",))) if int(over) for k in keys]
+
+
+def group_size_cases(cfg, state):
+    """The inputs of the group sizes past the windowed kernels' old limits,
+    as :func:`mode_cases` yields them, each recorded on the settled
+    state's first chunk set-up under that size (windows widened until
+    overflow is 0): b = 512 in the production form (``filter_sph``,
+    ``pass1_gradh``, the merged grad-h ``pass2``, the far-only
+    ``gravity_fused``: two blocks a group) and under `sym100k`'s unfused
+    symmetric step (``pass1_sym``, ``pass2``, ``p2p``, and
+    ``gravity_fused`` with its near tier), b = 1024 for ``filter_sph``'s
+    second word of boxes, and b = 33 (sub-blocks of 11) under `sym100k`
+    for ``p2p``'s odd tail. No leg launches them."""
+    from planetmodel_sph_tpu_torch.models import planet
+    from planetmodel_sph_tpu_torch.ops import structure
+    for b, sub, kw, grow, kernels in GROUP_SIZE_LEGS:
+        base = cfg.replace(nbr_group_size=b, nbr_sub=sub, **kw)
+        gcfg = base.replace(**{k: getattr(base, k) * grow
+                               for k in GROW_WINDOWS})
+        label = f"b{b}" + ("@sym100k" if kw else "")
+        names = [name for name, _ in kernels]
+        with Spy() as seen:
+            # the chunk's set-up (h-solve and build), its windows grown by
+            # half where they drop entries, until none does
+            for _ in range(8):
+                run_state, st = planet.chunk_setup(state, gcfg)
+                wider = overflowing(st)
+                if not wider:
+                    break
+                gcfg = gcfg.replace(**{k: getattr(gcfg, k) * 3 // 2
+                                       for k in wider})
+            _eval(run_state, gcfg, st, "near")
+            if "gravity_fused" in names:
+                if kw:
+                    _eval(run_state, gcfg, st, "all")
+                else:
+                    structure.gravity_far(run_state.pos, run_state.h,
+                                          run_state.mass, gcfg, st,
+                                          sorted_io=True)
+        occupancy(label, st)
+        over = {k: int(v) for k, v in structure.overflow_info(st).items()}
+        if any(over.values()):
+            raise RuntimeError(f"{label}: overflow {over}")
+        for name, case in kernels:
+            a, kwn = seen[name]
+            if kwn["b"] != b:
+                raise RuntimeError(f"{name} at {label}: b = {kwn['b']}")
+            yield name, f"{case}@{label}", (), a, kwn
+        del st, seen, run_state
+
+
 def n_groups(a):
     """Target groups of a kernel call: the length of its nv argument."""
     return a[0].shape[0]
@@ -838,6 +932,12 @@ def _group_slices(g, step=SLICE_GROUPS):
         yield g0, min(g, g0 + step)
 
 
+def _step(b, s):
+    """Groups per slice of a [groups, b, s] intermediate: SLICE_GROUPS, or
+    fewer where b * s exceeds the production filter's 64 x 7,680."""
+    return max(1, min(SLICE_GROUPS, SLICE_GROUPS * 64 * 7680 // (b * s)))
+
+
 def _n(mask) -> int:
     return int(mask.sum())
 
@@ -872,7 +972,7 @@ def _filter_ops(a):
     g, s = src[0].shape
     b = tgt[0].shape[0] // g
     tests = 0
-    for g0, g1 in _group_slices(g):
+    for g0, g1 in _group_slices(g, _step(b, s)):
         tx, ty, tz, tc, tsk = (c[g0 * b:g1 * b].reshape(g1 - g0, b, 1)
                                for c in tgt)
         sx, sy, sz, sc, ssk, sm = (r[g0:g1, None, :] for r in src)
@@ -895,7 +995,7 @@ def _pass1_ops(a):
     g, s = src[0].shape
     b = tgt[0].shape[0] // g
     ops = OPS_SLOT_TEST * _slots_below_nv(nv, s)
-    for g0, g1 in _group_slices(g):
+    for g0, g1 in _group_slices(g, _step(b, s)):
         tx, ty, tz, tih = (c[g0 * b:g1 * b].reshape(g1 - g0, b, 1)
                            for c in tgt)
         sx, sy, sz, sm = (r[g0:g1, None, :] for r in src)
@@ -929,7 +1029,7 @@ def _pass1_sym_ops(a):
     g, s = src[0].shape
     b = tgt[0].shape[0] // g
     ops = OPS_SLOT_TEST * _slots_below_nv(nv, s)
-    for g0, g1 in _group_slices(g):
+    for g0, g1 in _group_slices(g, _step(b, s)):
         tx, ty, tz, tih = (c[g0 * b:g1 * b].reshape(g1 - g0, b, 1)
                            for c in tgt)
         sx, sy, sz, sih, sm = (r[g0:g1, None, :] for r in src)
@@ -968,7 +1068,7 @@ def _p2p_ops(a, kw):
     g, s = src[0].shape
     b = tgt[0].shape[0] // g
     ops = OPS_SLOT_TEST * _slots_below_nv(nv, s)
-    for g0, g1 in _group_slices(g):
+    for g0, g1 in _group_slices(g, _step(b, s)):
         ops += _p2p_window_ops(nv, src, tgt, kw["receiver_soft"], g0, g1, b)
     return ops
 
@@ -1073,7 +1173,7 @@ def _gravity_ops(a, kw=None):
     if p2p is not None:
         nvp = kw["nv_p2p"]
         ops += OPS_SLOT_TEST * _slots_below_nv(nvp, p2p[0].shape[1])
-        for g0, g1 in _group_slices(g):
+        for g0, g1 in _group_slices(g, _step(b, p2p[0].shape[1])):
             ops += _p2p_window_ops(nvp, p2p, tgt,
                                    kw.get("receiver_soft", False), g0, g1,
                                    b)
@@ -1287,13 +1387,18 @@ def _tile_ops(a, kw):
 
 def _probe_work(name, a, kw, out):
     """(bytes, operations) of one probe call: inputs read once, outputs
-    written once (a tile's rows only below each instance's extent)."""
+    written once (a tile's m and live rows only below each instance's
+    extent, its x, y and z over its span, where a far-out position still
+    reaches the sum)."""
     from planetmodel_sph_tpu_torch.ops.cuda import probes
     if name == "probe_pass1_tile":
         nv, tgt, rows = a
-        ext = probes.tile_extent(nv, rows[0].shape[1], kw.get("chunk", 512))
+        s, chunk = rows[0].shape[1], kw.get("chunk", 512)
+        ext = int(probes.tile_extent(nv, s, chunk).sum())
+        span = int(probes.tile_span(nv, s, chunk).sum())
         nbytes = (_io_bytes(tgt, [], [nv], out)
-                  + int(ext.sum()) * sum(r.element_size() for r in rows))
+                  + span * sum(r.element_size() for r in rows[:3])
+                  + ext * sum(r.element_size() for r in rows[3:]))
         return nbytes, _tile_ops(a, kw)
     nbytes = _io_bytes([], [], list(a), out)
     if name == "probe_fma":
@@ -1332,13 +1437,55 @@ def ptxas_instances(log):
     return out
 
 
+def sass_pair_loops(sass):
+    """probe_pass1_tile's sweep loops in its SASS (``cuobjdump -sass``):
+    {kernel instance: [(instructions a live pair, exact)]}, one entry per
+    innermost loop (a backward branch whose body holds no other) with a
+    MUFU.RSQ in its body, one a live pair; `exact` where the body calls
+    the square root's slow path (__fsqrt_rn past its range test)."""
+    import re
+    out, fn, ins = {}, None, []
+
+    def close():
+        if fn is None:
+            return
+        back = [(int(m.group(1), 16), addr) for addr, txt in ins
+                for m in [re.search(r"BRA (0x[0-9a-f]+)", txt)]
+                if m and int(m.group(1), 16) < addr]
+        loops = []
+        for lo, hi in back:
+            if sum(lo <= a and b <= hi for a, b in back) != 1:
+                continue
+            body = [t for a, t in ins if lo <= a <= hi]
+            pairs = sum("MUFU.RSQ" in t for t in body)
+            if pairs:
+                loops.append((len(body) / pairs,
+                              any("CALL" in t for t in body)))
+        out[fn] = loops
+
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            close()
+            fn, ins = m.group(1), []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m and fn is not None:
+            ins.append((int(m.group(1), 16), m.group(2)))
+    close()
+    return out
+
+
 def instance_key(name, kw, a=None):
     """The template arguments of the instance a call launches (pass2: mode,
     sign bug, viscosity, Balsara, gravity 0/1/2, receiver softening,
     energy, as pass2.cu orders them; gravity_fused: its near tier 0/1/2
     and the moment fields of the ring rows `a[2]`; p2p: receiver softening
-    0/1; pass1_gradh, pass1_sym and filter_sph have none)."""
+    0/1; filter_sph: more than 32 boxes of 16 targets a group, 0/1;
+    pass1_gradh and pass1_sym have none)."""
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    if name == "filter_sph":
+        return (name, (int(kw["b"] > 32 * 16),))
     if name == "gravity_fused":
         near = (2 if kw.get("receiver_soft") else 1) \
             if kw.get("p2p_rows") is not None else 0
@@ -1412,7 +1559,7 @@ def _filter_shares(a, kw):
     pad = nbox * size - b
     nan = float("nan")
     live_n = kept = rejected = boxes = tests = charged = 0
-    for g0, g1 in _group_slices(g):
+    for g0, g1 in _group_slices(g, _step(b, s)):
         gs = g1 - g0
         tx, ty, tz, tc, tsk = (c[g0 * b:g1 * b].reshape(gs, b, 1)
                                for c in tgt)
@@ -1585,7 +1732,7 @@ def _filter_plantings(a, kw):
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
     b = kw["b"]
     nv, tgt, src = a
-    for g0, g1 in _group_slices(n_groups(a)):
+    for g0, g1 in _group_slices(n_groups(a), slice_groups(a, kw)):
         keep = gk2.filter_sph_plain(*slice_args(a, kw, g0, g1)[0])
         groups = torch.nonzero(keep.any(dim=1))
         if len(groups):
@@ -1788,9 +1935,11 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
     dev_ms = device_ms(lambda: wrapper(*a, **kw))
     if host:
         extra["host_us"] = host_us(lambda: wrapper(*a, **kw))
-    if parent_libs and name in parent_libs:
+    if parent_libs and name in parent_libs and \
+            (name, case) not in GROUP_SIZE_CASES:
         # the parent's kernel and this one in turns: parent, this, this,
-        # parent, on the same inputs through the same wrapper
+        # parent, on the same inputs through the same wrapper (not at the
+        # group sizes the parent's kernels refused)
         from planetmodel_sph_tpu_torch.ops.cuda import build
         turns = {"parent": [], "this": []}
         for who in ("parent", "this", "this", "parent"):
@@ -1996,7 +2145,7 @@ def check_modes(cases, ptxas=None, parent_libs=None):
             ("gravity_fused", "near+min_h+monopole@basalt100k"),
             ("filter_sph", "exact_h_solve"), ("pass1_gradh", "exact_h_solve"),
             ("filter_sph", "exact100k"), ("pass1_gradh", "exact100k"),
-            ("pass2", "grad_h@exact100k")}
+            ("pass2", "grad_h@exact100k")} | GROUP_SIZE_CASES
     missing = want - {(r["name"], r["case"]) for r in reports}
     if missing:
         failures.append(f"kernel cases not checked: {sorted(missing)}")
@@ -2279,10 +2428,75 @@ def chain_ms(fn, x, k):
     return roofline.chained(fn, x, k, torch.device("cuda")) * 1e3
 
 
-def check_probe(name, case, a, kw):
+def tile_plantings(a, kw):
+    """probe_pass1_tile's plantings, one a launch: [(label, args,
+    must_reach)], a NaN, an +inf and a finite 1e13 in turn in instance 0:
+    at the x of its last dead slot below nv, of a slot in [nv, span) and of
+    one past the span, at target 1's ih, at the x of its first target with
+    ih < 0, and at the m of its last live and last dead slot below nv.
+    `must_reach`: the reference's sweep is not finite at some target for
+    this planting whatever the other inputs (a NaN ih; an infinite ih, c =
+    inf, or live m, 0 * inf; a NaN live m), or finite everywhere (a slot
+    past the span, a dead m); None where it depends on the inputs (a NaN
+    position gives q = NaN and W = 0, an infinite one W = inf only where q
+    = -inf)."""
+    from planetmodel_sph_tpu_torch.ops.cuda import probes
+    nv, tgt, rows = a
+    tb, s = kw["tb"], rows[0].shape[1]
+    nvg = int(nv[0])
+    span = int(probes.tile_span(nv[:1], s, kw["chunk"])[0])
+    live = (rows[4][0, :nvg] > 0.5).nonzero()[:, 0]
+    dead = (rows[4][0, :nvg] <= 0.5).nonzero()[:, 0]
+    neg = int((tgt[3][:tb, 0] < 0).nonzero()[0, 0])
+    places = [("dead x", "rows", 0, (0, int(dead[-1])), None),
+              ("span x", "rows", 0, (0, min(nvg, span - 1)), None),
+              ("past x", "rows", 0, (0, min(span, s - 1)), False),
+              ("target ih", "tgt", 3, (1, 0), True),
+              ("target x", "tgt", 0, (neg, 0), None),
+              ("live m", "rows", 3, (0, int(live[-1])), True),
+              ("dead m", "rows", 3, (0, int(dead[-1])), False)]
+    out = []
+    for label, which, k, at, reach in places:
+        for value in (float("nan"), float("inf"), 1e13):
+            t, r = ((_with_nan(tgt, k, at, value), rows) if which == "tgt"
+                    else (tgt, _with_nan(rows, k, at, value)))
+            # a large finite ih or m may leave every target finite
+            out.append((f"{label}={value:g}", (nv, t, r),
+                        None if value == 1e13 and reach else reach))
+    return out
+
+
+def tile_nan_agreement(a, kw):
+    """probe_pass1_tile on each of tile_plantings: NaN and infinite at the
+    same targets as the plain version, the rest within TILE_TOL of each
+    target's sum of |m W|. Returns (message or None, {label: reached})."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import probes
+    reached = {}
+    for label, pa, must in tile_plantings(a, kw):
+        out = probes.probe_pass1_tile(*pa, **kw)
+        ref, mag = probes.probe_pass1_tile_plain(*pa, chunk=kw["chunk"])
+        msg = non_finite_agree((out,), (ref,))
+        if msg:
+            return f"{label}: {msg}", reached
+        reached[label] = not bool(torch.isfinite(ref).all())
+        if must is not None and reached[label] != must:
+            return (f"{label}: the plain version is "
+                    f"{'not ' if reached[label] else ''}finite"), reached
+        fin = torch.isfinite(ref)
+        err = (out.double() - ref.double()).abs()[fin]
+        if bool((err > TILE_TOL * mag.double()[fin]).any()):
+            return f"{label}: finite outputs outside TILE_TOL", reached
+    return None, reached
+
+
+def check_probe(name, case, a, kw, parent_libs=None):
     """One probe against its plain version (probe_gather and probe_launch
     exactly, probe_fma to FMA_RTOL, probe_pass1_tile to TILE_TOL of each
-    target's sum of |m W|), timed: the report."""
+    target's sum of |m W|, and on its SG = 1 and 8 cases with non-finite
+    and far-out values planted, tile_nan_agreement), timed: the report.
+    `parent_libs`: {kernel: library} of another checkout's build, timed in
+    turns with this one's."""
     import torch
     from planetmodel_sph_tpu_torch.ops.cuda import probes
     kernel = getattr(probes, name)
@@ -2305,6 +2519,21 @@ def check_probe(name, case, a, kw):
         bad = int((err > lim).sum())
     ok = finite and bad == 0 and out.shape == ref.shape
     max_err = float(err.max())
+    msgs = [] if ok else [f"{bad} entries outside tolerance, finite "
+                          f"{finite}"]
+    extra = {}
+    if name == "probe_pass1_tile":
+        again = kernel(*a, **kw)
+        extra["same_bits"] = same_bits(out, again)
+        if not extra["same_bits"]:
+            ok = False
+            msgs.append("two launches on the same inputs differ")
+        if kw["tb"] // 64 in TILE_NAN_SUPERS:
+            nan_msg, extra["nan_reached"] = tile_nan_agreement(a, kw)
+            extra["nan_agrees"] = nan_msg is None
+            if nan_msg:
+                ok = False
+                msgs.append(f"planted values: {nan_msg}")
     library_ms = library_dev = graph_ms = None
     if name == "probe_launch":
         # the fixed cost of one launch: chains of launches, each on the
@@ -2329,6 +2558,21 @@ def check_probe(name, case, a, kw):
             library_ms = cuda_ms(lambda: a[0][rows], KERNEL_REPS)
             library_dev = device_ms(lambda: a[0][rows])
     dev_ms = device_ms(lambda: kernel(*a, **kw))
+    if parent_libs and name in parent_libs:
+        # the parent's kernel and this one in turns: parent, this, this,
+        # parent, on the same inputs through the same wrapper; then the
+        # parent's device time
+        from planetmodel_sph_tpu_torch.ops.cuda import build
+        turns = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            with (build.library(name, parent_libs[name]) if who == "parent"
+                  else contextlib.nullcontext()):
+                turns[who].append(cuda_ms(lambda: kernel(*a, **kw),
+                                          KERNEL_REPS))
+        extra["parent_ms"], extra["ms_in_turns"] = turns["parent"], \
+            turns["this"]
+        with build.library(name, parent_libs[name]):
+            extra["parent_device_ms"] = device_ms(lambda: kernel(*a, **kw))
     b_ms, b_by, nbytes, ops = bound(name, a, kw, out)
     shapes = {"inputs": [list(t.shape) for t in a
                          if isinstance(t, torch.Tensor)],
@@ -2347,8 +2591,24 @@ def check_probe(name, case, a, kw):
         print(f"  {label}: a launch in a chain of {LAUNCH_CHAIN}: "
               f"{ms:.5f} ms a wrapper call (torch.mul {library_ms:.5f}), "
               f"{graph_ms:.5f} ms replayed from a CUDA graph", flush=True)
-    msgs = [] if ok else [f"{bad} entries outside tolerance, finite "
-                          f"{finite}"]
+    if "same_bits" in extra:
+        print(f"  {label}: two launches "
+              f"{'bit-identical' if extra['same_bits'] else 'DIFFER'}",
+              flush=True)
+    if "nan_reached" in extra:
+        got = ", ".join(f"{k} {'reached' if v else 'masked'}"
+                        for k, v in extra["nan_reached"].items())
+        print(f"  {label}: planted values "
+              f"{'agree' if extra['nan_agrees'] else 'DIFFER'} ({got})",
+              flush=True)
+    if "parent_ms" in extra:
+        p, t = extra["parent_ms"], extra["ms_in_turns"]
+        print(f"  {label}: in turns, parent {p[0]:.4f}, this {t[0]:.4f}, "
+              f"this {t[1]:.4f}, parent {p[1]:.4f} ms "
+              f"({sum(p) / sum(t):.2f}x); parent device_ms "
+              f"{fmt_ms(extra['parent_device_ms'], 5)}", flush=True)
+    for m in msgs:
+        print(f"  {label}: {m}", flush=True)
     del out, ref
     torch.cuda.empty_cache()
     return dict(name=name, case=case, ok=ok, max_abs_err=max_err, ms=ms,
@@ -2356,15 +2616,15 @@ def check_probe(name, case, a, kw):
                 library_device_ms=library_dev, graph_ms=graph_ms,
                 bound_ms=b_ms,
                 bound_by=b_by, bytes=nbytes, ops=ops, shapes=shapes,
-                messages=msgs)
+                messages=msgs, **extra)
 
 
-def check_probes():
+def check_probes(parent_libs=None):
     """Phase 4 for the tools' four probes. Returns ([report],
     failures)."""
     reports, failures = [], []
     for name, case, a, kw in probe_cases():
-        rep = check_probe(name, case, a, kw)
+        rep = check_probe(name, case, a, kw, parent_libs)
         reports.append(rep)
         if not rep["ok"]:
             failures.append(f"{name} [{case}]: disagrees with its plain "
@@ -3143,7 +3403,7 @@ def main(argv=None) -> int:
                            "planetmodel_sph_tpu_torch")
         pout = os.path.join(pkg, "build")
         t0 = time.perf_counter()
-        in_turns = REDESIGNED + ALL_PAIRS
+        in_turns = REDESIGNED + ALL_PAIRS + ("probe_pass1_tile",)
         try:
             build.build_all(in_turns, force=True,
                             src=os.path.join(pkg, "csrc"), out=pout)
@@ -3154,7 +3414,7 @@ def main(argv=None) -> int:
         print(f"build of the parent's {', '.join(in_turns)}: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = {}
-    for n in REDESIGNED + ALL_PAIRS:
+    for n in REDESIGNED + ALL_PAIRS + ("probe_pass1_tile",):
         # every instance of the redesigned kernels, by template arguments
         for inst in ptxas_instances(logs[n][1]):
             ptxas[(n, inst["args"])] = inst
@@ -3163,6 +3423,20 @@ def main(argv=None) -> int:
                   f"{inst['stack']} B stack, spills {inst['spill_stores']}/"
                   f"{inst['spill_loads']} B", flush=True)
     report["ptxas"] = [dict(name=k[0], **v) for k, v in ptxas.items()]
+    # the tile probe's sweep loops in SASS: instructions a live pair
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           build.lib_path("probe_pass1_tile")],
+                          capture_output=True, text=True).stdout
+    report["tile_sass"] = sass_pair_loops(sass)
+    for fn, loops in report["tile_sass"].items():
+        print(f"  sass {fn}: " + ", ".join(
+            f"{'exact' if exact else 'in-range'} {per:.1f}"
+            for per, exact in loops) + " instructions a live pair",
+            flush=True)
+    if not any(report["tile_sass"].values()):
+        return fail("no sweep loop found in probe_pass1_tile's SASS")
 
     # 3. load
     t0 = time.perf_counter()
@@ -3211,7 +3485,8 @@ def main(argv=None) -> int:
     mode_reports, fails = check_modes(itertools.chain(
         mode_cases(state, cfg, sym_state, settle_state, settle_cfg),
         energy_cases(cfg, adia_state, sg_state, basalt_cfg, basalt_state),
-        exact_cases(cfg, exact_state)), ptxas, parent_libs)
+        exact_cases(cfg, exact_state), group_size_cases(cfg, state)), ptxas,
+        parent_libs)
     failures += fails
     report["kernel_modes"] = mode_reports
     torch.cuda.empty_cache()
@@ -3228,7 +3503,7 @@ def main(argv=None) -> int:
     report["kernels"] = kreports
     report["pairwise_cases"] = [c for r in pw_reports.values()
                                 for c in r["cases"]]
-    probe_reports, fails = check_probes()
+    probe_reports, fails = check_probes(parent_libs)
     failures += fails
     report["probes"] = probe_reports
 

@@ -211,38 +211,10 @@ def _check_common(cfg: SimConfig) -> None:
         raise NotImplementedError(f"dtype={cfg.dtype!r}: kernels are f32")
 
 
-# targets a group that the windowed kernels launch: one block of at most
-# 256 threads a group (PSPH_WIN_THREADS, csrc/common.cuh)
-MAX_GROUP_SIZE = 256
-
-
-def launches_p2p(cfg: SimConfig) -> bool:
-    """Whether a run can launch the unfused near tier (``p2p``, two targets
-    a thread): the RESPA inner force of the cached grid + tree chunk
-    (respa_every > 1), unless pass 2 sweeps the residual-P2P window itself
-    (fuse_p2p_sph and fuse_p2p_residual)."""
-    return (cfg.neighbor_mode == "grid" and cfg.gravity_solver == "tree"
-            and cfg.respa_every > 1
-            and not (fuse_active(cfg) and cfg.fuse_p2p_residual))
-
-
 def _check_tree(cfg: SimConfig) -> None:
     """The block tree's gravity tiers (grid runs, and dense SPH with tree
     gravity)."""
     fuse_active(cfg)       # raises on a fusion the tiers cannot serve
-    b = cfg.nbr_group_size
-    if b > MAX_GROUP_SIZE:
-        raise ValueError(
-            f"nbr_group_size={b}: the block tree's kernels (gravity_fused; "
-            "on the grid path also pass1_gradh, pass1_sym, pass2 and "
-            f"filter_sph) launch groups of at most {MAX_GROUP_SIZE} "
-            "targets")
-    if b % 2 and launches_p2p(cfg):
-        raise ValueError(
-            f"nbr_group_size={b}: p2p, the near tier of the RESPA inner "
-            "step (grid + tree gravity, respa_every > 1, the residual-P2P "
-            "window not merged into pass 2), runs two targets a thread and "
-            "launches even group sizes only")
     if cfg.grav_pair_dtype != "float32":
         raise NotImplementedError(
             f"grav_pair_dtype={cfg.grav_pair_dtype!r}: the bfloat16 pair "

@@ -2,7 +2,8 @@
 //
 // Layout contract (the same as the reference's Pallas sweeps): targets are
 // [G*B] columns in the Morton-sorted padded layout, one group of B targets
-// per thread block and one target per thread; sources are [G, S] window
+// per thread block (or per psph_grid's blocks of a group) and one target
+// per thread; sources are [G, S] window
 // rows, of which the first nv[g] slots are valid. Padding and duplicate
 // source slots carry m = 0, so they add exactly 0 to every sum. The self
 // pair is included; callers correct it.
@@ -144,9 +145,10 @@ __device__ __forceinline__ void psph_p2p_window(
 // pass2.cu): double-buffered asynchronous copies of window tiles into
 // shared memory, and the block-wide compaction of the live slots.
 //
-// A block of these sweeps runs b targets times ns slot slices
-// (b * ns <= PSPH_WIN_THREADS threads): thread t serves target t % b and
-// slice t / b, and slice k visits the compacted slots k, k + ns, ... of
+// A block of these sweeps runs bt = min(b, PSPH_WIN_THREADS) targets times
+// ns slot slices (bt * ns <= PSPH_WIN_THREADS threads, psph_share): thread
+// t serves target t % bt and slice t / bt, and slice k visits the
+// compacted slots k, k + ns, ... of
 // every tile. Each thread keeps its slice's sums in registers; the
 // slices are added in a fixed order at the end (psph_combine), so the
 // same inputs give the same bits on every run.
@@ -175,10 +177,11 @@ __device__ __forceinline__ void psph_stage(float (*dst)[PSPH_TILE],
 }
 
 // Stable compaction of the staged slots [0, cnt) for which keep(j, m)
-// holds, m = mrow[j] (keep must hold wherever m != 0): put(j, k) stores
-// slot j at compacted position k, k counting the kept slots before j, and
-// returns true when one of the slot's staged fields is not finite.
-// Returns the number kept, adds the number with m > 0 to npos and sets
+// holds, m = mrow[j]: put(j, k) stores slot j at compacted position k, k
+// counting the kept slots before j, and returns true when one of the
+// slot's staged fields is not finite (or out of a sweep's safe range).
+// Returns the number kept, adds the number with m > 0, kept or not, to
+// npos (n_direct where keep holds wherever m != 0) and sets
 // `bad` when some kept slot reported a non-finite field (a sweep that
 // leaves out pairs then visits every pair of the tile: in the plain
 // versions a NaN or an infinity times a weight of 0 is NaN), all the same
@@ -334,13 +337,52 @@ __device__ __forceinline__ void psph_combine(T (&acc)[N], T* red, int b,
 // windowed sweeps ran faster than with 2 on the H100 (PERF.md).
 #define PSPH_SLICES 4
 
-// Slot slices for a group of b targets: PSPH_SLICES, halved until the
-// block fits PSPH_WIN_THREADS; 0 when b does not fit at all.
+// Slot slices for a group of b targets: PSPH_SLICES, halved until a block
+// of min(b, PSPH_WIN_THREADS) targets fits PSPH_WIN_THREADS; 0 when b < 1.
 static inline int psph_slices(int b) {
-  if (b < 1 || b > PSPH_WIN_THREADS) return 0;
+  if (b < 1) return 0;
+  const int bt = b < PSPH_WIN_THREADS ? b : PSPH_WIN_THREADS;
   int ns = PSPH_SLICES;
-  while (ns > 1 && b * ns > PSPH_WIN_THREADS) ns >>= 1;
+  while (ns > 1 && bt * ns > PSPH_WIN_THREADS) ns >>= 1;
   return ns;
+}
+
+// The launch shape of a windowed sweep over g groups of b targets with ns
+// slot slices. A group of more than PSPH_WIN_THREADS targets is split over
+// blocks: block (g, y) takes targets [y bt, min(b, (y + 1) bt)) of group
+// g, bt = min(b, PSPH_WIN_THREADS), and sweeps the group's whole window
+// for them, so that each target is finished by one block (no sum crosses
+// blocks) and a group of at most PSPH_WIN_THREADS targets is one block
+// (gridDim.y = 1) as before; a block runs bt * ns threads.
+static inline dim3 psph_grid(int g, int b) {
+  return dim3(g, (b + PSPH_WIN_THREADS - 1) / PSPH_WIN_THREADS);
+}
+static inline int psph_block(int b, int ns) {
+  return (b < PSPH_WIN_THREADS ? b : PSPH_WIN_THREADS) * ns;
+}
+
+// What a thread of a windowed sweep serves (psph_grid): thread
+// tid of block (g, y) takes target y bt + tid % bt of the group and slot
+// slice k = tid / bt. Past the group's last target (`on` false, in the
+// last block of a group whose b is not a multiple of bt) it reads the
+// block's first target, stages, compacts and synchronises with the block,
+// but visits no slot (`from`, its first compacted slot, is PSPH_TILE,
+// past every tile) and writes nothing.
+struct PsphShare {
+  int bt;       // targets a slice: min(b, PSPH_WIN_THREADS)
+  int k;        // the thread's slot slice
+  int from;     // its first compacted slot: k, or PSPH_TILE when !on
+  bool on;      // it serves a target of the group
+  size_t t;     // that target's column
+};
+
+__device__ __forceinline__ PsphShare psph_share(int b) {
+  const int bt = min(b, PSPH_WIN_THREADS);
+  const int i = threadIdx.x % bt, k = threadIdx.x / bt;
+  const int first = blockIdx.y * bt;
+  const bool on = first + i < b;
+  return {bt, k, on ? k : PSPH_TILE, on,
+          (size_t)blockIdx.x * b + first + (on ? i : 0)};
 }
 
 // True when every row pointer is 16-byte aligned and rows of length s

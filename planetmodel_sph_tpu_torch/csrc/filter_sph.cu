@@ -18,7 +18,9 @@
 // those, and a warp waited for its slowest lane. This design:
 // - the group's targets are split into boxes of PSPH_FILTER_BOX targets in
 //   their Morton order, each with its bounding box, the largest tc and
-//   the largest tsk, computed once a block in shared memory;
+//   the largest tsk, computed once a block in shared memory; a group is
+//   one block whatever its size (its mask row is the OR over all its
+//   targets), the boxes taken 32 at a time, one word of box bits each;
 // - every live slot meets every box as a whole first (the same work in
 //   every lane): the squared distance d2 from the slot to the box (per
 //   axis the gap lo - x or x - hi, 0 inside) cannot exceed any target's
@@ -46,8 +48,8 @@
 // matches it bit for bit.
 #include "common.cuh"
 
-// targets of a pre-reject box, Morton-contiguous in the group (at most 32
-// boxes a group: a slot's surviving boxes are the bits of one word)
+// targets of a pre-reject box, Morton-contiguous in the group (a slot's
+// surviving boxes among 32 are the bits of one word)
 #define PSPH_FILTER_BOX 16
 // 1 + 2^-10: the box's squared cut is raised by this factor before the
 // pre-reject compares it, far above the rounding of its few operations
@@ -57,8 +59,13 @@
 #define PSPH_INF __int_as_float(0x7f800000)
 
 #define FILTER_THREADS 256
+// the dynamic shared memory a block may take beside its queues: the
+// H100's 227 KB a block less the static 16 KB, which holds the targets
+// and boxes of a group of up to 9,820 targets
+#define FILTER_MAX_DYNAMIC (232448 - 2 * 2 * FILTER_THREADS * 16)
 
-// The boxes that may keep a slot: bit q clear where box q pre-rejects it.
+// The boxes among box[0, nbox) (nbox <= 32) that may keep a slot: bit q
+// clear where box q pre-rejects it.
 __device__ __forceinline__ unsigned filter_boxes(const float4* box,
                                                  int nbox, float cx,
                                                  float cy, float cz,
@@ -98,6 +105,10 @@ struct Slot {
   float m, x, y, z, c, sk;
 };
 
+// WIDE: more than 32 boxes a group (b > 512), taken a word of 32 at a
+// time; otherwise one word, with no loop over words (slower in turns on
+// the H100 at b = 64)
+template <bool WIDE>
 __global__ void __launch_bounds__(FILTER_THREADS) filter_sph_kernel(
     const float* __restrict__ tx, const float* __restrict__ ty,
     const float* __restrict__ tz, const float* __restrict__ tc,
@@ -185,29 +196,33 @@ __global__ void __launch_bounds__(FILTER_THREADS) filter_sph_kernel(
   for (int t = 0; t < tiles; ++t) {
     const int j = t * blockDim.x + threadIdx.x;
     const Slot after = load(j + 2 * blockDim.x);
-    const unsigned boxes =
-        cur.m > 0.0f
-            ? filter_boxes(box, nbox, cur.x, cur.y, cur.z, cur.c, cur.sk)
-            : 0u;
     if (j < s) keep[row + j] = 0.0f;
-    for (int q = 0; q < nbox; ++q) {
-      const bool mine = (boxes >> q) & 1u;
-      const unsigned pairs = __ballot_sync(0xffffffffu, mine);
-      if (mine) {
-        const int at = count + __popc(pairs & ((1u << lane) - 1u));
-        qp[at] = make_float4(cur.x, cur.y, cur.z, cur.c);
-        qr[at] = make_float4(cur.sk, __int_as_float(j),
-                             __int_as_float(q * PSPH_FILTER_BOX), 0.0f);
-      }
-      count += __popc(pairs);
-      if (count >= 32) {
-        sweep(32);
-        count -= 32;
-        if (lane < count) {
-          qp[lane] = qp[32 + lane];
-          qr[lane] = qr[32 + lane];
+    for (int q0 = 0; q0 < (WIDE ? nbox : 1); q0 += 32) {
+      const int nq = WIDE ? min(32, nbox - q0) : nbox;
+      const unsigned boxes =
+          cur.m > 0.0f ? filter_boxes(box + 2 * q0, nq, cur.x, cur.y, cur.z,
+                                      cur.c, cur.sk)
+                       : 0u;
+      for (int q = 0; q < nq; ++q) {
+        const bool mine = (boxes >> q) & 1u;
+        const unsigned pairs = __ballot_sync(0xffffffffu, mine);
+        if (mine) {
+          const int at = count + __popc(pairs & ((1u << lane) - 1u));
+          qp[at] = make_float4(cur.x, cur.y, cur.z, cur.c);
+          qr[at] = make_float4(cur.sk, __int_as_float(j),
+                               __int_as_float((q0 + q) * PSPH_FILTER_BOX),
+                               0.0f);
         }
-        __syncwarp();
+        count += __popc(pairs);
+        if (count >= 32) {
+          sweep(32);
+          count -= 32;
+          if (lane < count) {
+            qp[lane] = qp[32 + lane];
+            qr[lane] = qr[32 + lane];
+          }
+          __syncwarp();
+        }
       }
     }
     cur = next;
@@ -224,11 +239,19 @@ extern "C" int psph_filter_sph(
     const float* sc, const float* ssk, const float* sm, const int* nv,
     float* keep, int g, int b, int s, void* stream) {
   const int nbox = (b + PSPH_FILTER_BOX - 1) / PSPH_FILTER_BOX;
-  if (g > 0 && nbox > 32) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(b + 2 * nbox) * sizeof(float4) +
                       (size_t)b * sizeof(float);
+  if (g > 0 && smem > FILTER_MAX_DYNAMIC) return (int)cudaErrorInvalidValue;
+  const auto kernel =
+      nbox > 32 ? filter_sph_kernel<true> : filter_sph_kernel<false>;
+  if (g > 0 && smem > 48 * 1024) {
+    // above 48 KB only as opted-in dynamic shared memory
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (g > 0)
-    filter_sph_kernel<<<g, FILTER_THREADS, smem, (cudaStream_t)stream>>>(
+    kernel<<<g, FILTER_THREADS, smem, (cudaStream_t)stream>>>(
         tx, ty, tz, tc, tsk, sx, sy, sz, sc, ssk, sm, nv, keep, b, s);
   return (int)cudaGetLastError();
 }

@@ -39,9 +39,11 @@
 // loop, where about a third of the far entries are not accepted or carry
 // m = 0. This design (common.cuh):
 // - b targets x ns slot slices (psph_slices: 64 x 4 = 256 threads a
-//   group); thread t serves target t % b and slice t / b, and slice k
-//   visits the entries k, k + ns, ... of every compacted tile; the near
-//   tier's window is split the same way (psph_p2p_window's slice);
+//   group; a group of more than 256 targets takes one block of 256 per
+//   256 targets, psph_share); thread t serves target t % b and slice
+//   t / b, and slice k visits the entries k, k + ns, ... of every
+//   compacted tile; the near tier's window is split the same way
+//   (psph_p2p_window's slice);
 // - tiles of PSPH_TILE entries are copied asynchronously (psph_window:
 //   cp.async, 16 bytes a copy where the rows allow), the copy of tile
 //   t + 1 in flight while tile t is swept;
@@ -170,8 +172,8 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
   __shared__ __align__(16) float4 e[NQ][PSPH_TILE];
   __shared__ int wtab[32];
   const int g = blockIdx.x;
-  const int i = threadIdx.x % a.b, k = threadIdx.x / a.b;
-  const size_t t = (size_t)g * a.b + i;
+  const PsphShare my = psph_share(a.b);
+  const size_t t = my.t;
   const float x = a.tx[t], y = a.ty[t], z = a.tz[t];
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};    // phi, gx, gy, gz
   int nd[1] = {0};
@@ -182,7 +184,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
     psph_p2p_window<HAS_P2P == 2>(
         a.p2p.f[0], a.p2p.f[1], a.p2p.f[2], a.p2p.f[3], a.p2p.f[4],
         (size_t)g * a.sp, min(a.nv_p2p[g], a.sp), x, y, z, a.tih[t],
-        &raw[0][0], acc[0], acc[1], acc[2], acc[3], nd[0], k, a.ns);
+        &raw[0][0], acc[0], acc[1], acc[2], acc[3], nd[0], my.from, a.ns);
 
   // ring tier, then the blk tier (the same test for every thread of the
   // grid): windowed moments, slots below nv with m > 0
@@ -192,25 +194,25 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
   auto wraw = reinterpret_cast<float (*)[NM][PSPH_TILE]>(&raw[0][0][0]);
   moment_tier<NM, NM>(a.ring.first<NM>(), (size_t)g * a.sr,
                       min(a.nv_ring[g], a.sr), a.vec_ring != 0, wraw, e,
-                      wtab, x, y, z, k, a.ns, acc, na, m_pos);
+                      wtab, x, y, z, my.from, a.ns, acc, na, m_pos);
   if (a.nv_blk != nullptr)
     moment_tier<NM, NM>(a.blk.first<NM>(), (size_t)g * a.sb,
                         min(a.nv_blk[g], a.sb), a.vec_blk != 0, wraw, e,
-                        wtab, x, y, z, k, a.ns, acc, na, m_pos);
+                        wtab, x, y, z, my.from, a.ns, acc, na, m_pos);
 
   // far tier: the shared block (or supergroup) moments under the group's
   // frozen mask, staged beside the mask
   const Rows far = a.far.after(a.accept + (size_t)g * a.nbpad);
   moment_tier<NM, NM + 1>(far.first<NM + 1>(), 0, a.nbpad, a.vec_far != 0,
                           raw, e, wtab, x,
-                          y, z, k, a.ns, acc, na,
+                          y, z, my.from, a.ns, acc, na,
                           [](float (*st)[PSPH_TILE], int j) {
                             return st[0][j] > 0.5f && st[1][j] > 0.0f;
                           });
 
-  psph_combine(acc, &raw[0][0][0], a.b, a.ns);
-  psph_combine(nd, reinterpret_cast<int*>(&raw[1][0][0]), a.b, a.ns);
-  if (k != 0) return;
+  psph_combine(acc, &raw[0][0][0], my.bt, a.ns);
+  psph_combine(nd, reinterpret_cast<int*>(&raw[1][0][0]), my.bt, a.ns);
+  if (my.k != 0 || !my.on) return;
   a.phi[t] = a.g_const * acc[0];
   a.gx[t] = a.g_const * acc[1];
   a.gy[t] = a.g_const * acc[2];
@@ -253,7 +255,8 @@ extern "C" int psph_gravity_fused(
   a.vec_far = psph_vec_rows(a.far.f, nm, nbpad) &&
                       psph_vec_rows(&accept, 1, nbpad) ? 1 : 0;
   cudaStream_t st = (cudaStream_t)stream;
-#define PSPH_GF(P, M) gravity_fused_kernel<P, M><<<g, b * ns, 0, st>>>(a)
+#define PSPH_GF(P, M) \
+  gravity_fused_kernel<P, M><<<psph_grid(g, b), psph_block(b, ns), 0, st>>>(a)
   if (g > 0) {
     const int p = !has_p2p ? 0 : (!receiver_soft ? 1 : 2);
     if (nm == 10) {

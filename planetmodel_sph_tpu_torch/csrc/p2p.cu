@@ -40,16 +40,26 @@
 //   rsqrtf(max(r2, 1e-30f)), with psph_max, which keeps a NaN r2 as
 //   torch.clamp does, and min-h softening psph_min (NaN when either ih
 //   is);
-// - P2P_TPT = 2 targets a thread (targets i and i + b / 2, which share
-//   each slot's shared loads) and 8 slot slices: 32 x 8 = 256 threads a
+// - P2P_TPT = 2 targets a thread (targets i and i + ceil(b / 2), which
+//   share each slot's shared loads; an odd b leaves the last thread one
+//   target, its second masked) and 8 slot slices: 32 x 8 = 256 threads a
 //   group of 64; the slices' sums are added in slice order at the end,
-//   with no atomics, so the result is the same on every run.
+//   with no atomics, so the result is the same on every run. A group of
+//   more than 512 targets takes one block of 256 threads per 512 targets,
+//   each sweeping the whole window for its own.
 #include "common.cuh"
 
 // targets a thread: two share each slot's shared loads (faster in turns
 // than one on the H100 at sym100k's and sg100k's windows, min-h and
 // receiver softening)
 #define P2P_TPT 2
+
+// Threads of a slot slice for a group of b targets: ceil(b / P2P_TPT),
+// at most PSPH_WIN_THREADS (a larger group takes several blocks)
+__host__ __device__ __forceinline__ int p2p_slice_threads(int b) {
+  const int bt = (b + P2P_TPT - 1) / P2P_TPT;
+  return bt < PSPH_WIN_THREADS ? bt : PSPH_WIN_THREADS;
+}
 
 template <bool RECV>
 __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
@@ -68,19 +78,26 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
   __shared__ float cih[RECV ? 1 : PSPH_TILE];
   __shared__ int wtab[64];
   const int g = blockIdx.x;
-  const int bt = b / P2P_TPT;            // threads of one slice
+  // threads of one slice; block y takes the group's targets [y P2P_TPT bt,
+  // (y + 1) P2P_TPT bt), thread i0 of a slice targets i0 + u bt of them
+  const int bt = p2p_slice_threads(b);
   const int i0 = threadIdx.x % bt, k = threadIdx.x / bt;
+  const int first = blockIdx.y * P2P_TPT * bt;
   float x[P2P_TPT], y[P2P_TPT], z[P2P_TPT], ih[P2P_TPT];
+  bool on[P2P_TPT];
   bool target_bad = false;
 #pragma unroll
   for (int u = 0; u < P2P_TPT; ++u) {
-    const size_t t = (size_t)g * b + i0 + u * bt;
+    const int it = first + i0 + u * bt;
+    on[u] = it < b;
+    // past the group's last target: the block's first, summed unwritten
+    const size_t t = (size_t)g * b + (on[u] ? it : first);
     x[u] = tx[t];
     y[u] = ty[t];
     z[u] = tz[t];
     ih[u] = tih[t];
     const float own[4] = {x[u], y[u], z[u], ih[u]};
-    target_bad = target_bad || !psph_all_finite(own);
+    target_bad = target_bad || (on[u] && !psph_all_finite(own));
   }
   // some target of the block has a non-finite column: keep every slot
   const bool keep_all = __syncthreads_or(target_bad) != 0;
@@ -121,8 +138,8 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
 #pragma unroll
   for (int u = 0; u < P2P_TPT; ++u) {
     psph_combine(acc[u], &raw[0][0][0], bt, ns);
-    if (k == 0) {
-      const size_t t = (size_t)g * b + i0 + u * bt;
+    if (k == 0 && on[u]) {
+      const size_t t = (size_t)g * b + first + i0 + u * bt;
       phi_out[t] = g_const * acc[u][0];
       gx_out[t] = g_const * acc[u][1];
       gy_out[t] = g_const * acc[u][2];
@@ -139,22 +156,23 @@ extern "C" int psph_p2p(
     const float* sm, const int* nv, float* phi, float* gx, float* gy,
     float* gz, int* nd, int g, int b, int s, int receiver_soft,
     float g_const, void* stream) {
-  // P2P_TPT targets a thread: slices of b / P2P_TPT threads, as many as
-  // fit PSPH_WIN_THREADS up to PSPH_SLICES * P2P_TPT
-  const int bt = b % P2P_TPT == 0 ? b / P2P_TPT : 0;
-  int ns = psph_slices(bt) == 0 ? 0 : PSPH_SLICES * P2P_TPT;
+  // P2P_TPT targets a thread: slices of p2p_slice_threads(b) threads, as
+  // many as fit PSPH_WIN_THREADS up to PSPH_SLICES * P2P_TPT
+  if (g > 0 && b < 1) return (int)cudaErrorInvalidValue;
+  const int bt = p2p_slice_threads(b);
+  int ns = PSPH_SLICES * P2P_TPT;
   while (ns > 1 && bt * ns > PSPH_WIN_THREADS) ns >>= 1;
-  if (g > 0 && ns == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(g, (b + P2P_TPT * bt - 1) / (P2P_TPT * bt));
   const float* rows[5] = {sx, sy, sz, sih, sm};
   const int vec = psph_vec_rows(rows, 5, s) ? 1 : 0;
   if (g > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     if (receiver_soft)
-      p2p_kernel<true><<<g, bt * ns, 0, st>>>(
+      p2p_kernel<true><<<grid, bt * ns, 0, st>>>(
           tx, ty, tz, tih, sx, sy, sz, sih, sm, nv, phi, gx, gy, gz, nd, b,
           s, ns, vec, g_const);
     else
-      p2p_kernel<false><<<g, bt * ns, 0, st>>>(
+      p2p_kernel<false><<<grid, bt * ns, 0, st>>>(
           tx, ty, tz, tih, sx, sy, sz, sih, sm, nv, phi, gx, gy, gz, nd, b,
           s, ns, vec, g_const);
   }

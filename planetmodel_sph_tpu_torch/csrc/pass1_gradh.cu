@@ -38,7 +38,9 @@
 //   the spline by select, not branch;
 // - 64 targets x 4 slot slices = 256 threads a group; the slices' sums are
 //   added in slice order at the end, with no atomics, so the result is
-//   the same on every run.
+//   the same on every run. A group of more than 256 targets takes one
+//   block of 256 per 256 targets (psph_grid), each sweeping the
+//   whole window for its own.
 #include "common.cuh"
 
 __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_gradh_kernel(
@@ -53,8 +55,9 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_gradh_kernel(
   __shared__ __align__(16) float4 comp[PSPH_TILE];
   __shared__ int wtab[64];
   const int g = blockIdx.x;
-  const int i = threadIdx.x % b, k = threadIdx.x / b;
-  const size_t t = (size_t)g * b + i;
+  const PsphShare my = psph_share(b);
+  const int k = my.k;
+  const size_t t = my.t;
   const float x = tx[t], y = ty[t], z = tz[t], ih = tih[t];
   const float ih_skip = ih > 0.0f ? ih : 0.0f;
   const float own[4] = {x, y, z, ih};
@@ -77,7 +80,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_gradh_kernel(
     // the skip's ih for this tile: 0 skips nothing ((r2 0) 0 is 0 or NaN)
     const float ih_tile = all_pairs ? 0.0f : ih_skip;
 #pragma unroll 4
-    for (int j = k; j < live; j += ns) {
+    for (int j = my.from; j < live; j += ns) {
       const float4 p = comp[j];
       const float dxx = x - p.x;
       const float dxy = y - p.y;
@@ -102,9 +105,9 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_gradh_kernel(
       }
     }
   });
-  psph_combine(acc, &raw[0][0][0], b, ns);
-  psph_combine(cnt, reinterpret_cast<int*>(&raw[1][0][0]), b, ns);
-  if (k == 0) {
+  psph_combine(acc, &raw[0][0][0], my.bt, ns);
+  psph_combine(cnt, reinterpret_cast<int*>(&raw[1][0][0]), my.bt, ns);
+  if (k == 0 && my.on) {
     const float ci3 = PSPH_INV_PI * (ih * ih * ih);
     rho[t] = ci3 * acc[0];
     xi[t] = -(ci3 * ih) * acc[1];
@@ -122,7 +125,8 @@ extern "C" int psph_pass1_gradh(
   const float* rows[4] = {sx, sy, sz, sm};
   const int vec = psph_vec_rows(rows, 4, s) ? 1 : 0;
   if (g > 0)
-    pass1_gradh_kernel<<<g, b * ns, 0, (cudaStream_t)stream>>>(
+    pass1_gradh_kernel<<<psph_grid(g, b), psph_block(b, ns), 0,
+                         (cudaStream_t)stream>>>(
         tx, ty, tz, tih, sx, sy, sz, sm, nv, rho, nn, xi, b, s, ns, vec);
   return (int)cudaGetLastError();
 }

@@ -49,7 +49,8 @@
 //   separate operations do and the q < 2 count matches it exactly);
 // - 64 targets x 4 slot slices = 256 threads a group; the slices' sums are
 //   added in slice order at the end, with no atomics, so the result is
-//   the same on every run.
+//   the same on every run. A group of more than 256 targets takes one
+//   block of 256 per 256 targets (psph_grid).
 #include "common.cuh"
 
 __device__ __forceinline__ float w_poly(float q) {
@@ -76,8 +77,9 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_sym_kernel(
   __shared__ __align__(16) float4 wts[PSPH_TILE];    // m, ih, ih^3, -
   __shared__ int wtab[64];
   const int g = blockIdx.x;
-  const int i = threadIdx.x % b, k = threadIdx.x / b;
-  const size_t t = (size_t)g * b + i;
+  const PsphShare my = psph_share(b);
+  const int k = my.k;
+  const size_t t = my.t;
   const float x = tx[t], y = ty[t], z = tz[t], ih = tih[t];
   const float ih_skip = ih > 0.0f ? ih : 0.0f;
   const float own[4] = {x, y, z, ih};
@@ -118,7 +120,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_sym_kernel(
     // the skip's ih for this tile: 0 skips nothing ((r2 0) 0 is 0 or NaN)
     const float ih_tile = all_pairs ? 0.0f : ih_skip;
 #pragma unroll 4
-    for (int j = k; j < kept; j += ns) {
+    for (int j = my.from; j < kept; j += ns) {
       const float4 p = geo[j];
       const float dxx = x - p.x;
       const float dxy = y - p.y;
@@ -135,9 +137,9 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) pass1_sym_kernel(
       }
     }
   });
-  psph_combine(acc, &raw[0][0][0], b, ns);
-  psph_combine(cnt, reinterpret_cast<int*>(&raw[1][0][0]), b, ns);
-  if (k == 0) {
+  psph_combine(acc, &raw[0][0][0], my.bt, ns);
+  psph_combine(cnt, reinterpret_cast<int*>(&raw[1][0][0]), my.bt, ns);
+  if (k == 0 && my.on) {
     const float ci3 = ih * ih * ih;
     rho[t] = (0.5f * PSPH_INV_PI) * (ci3 * acc[0] + acc[1]);
     nn[t] = cnt[0];
@@ -154,7 +156,8 @@ extern "C" int psph_pass1_sym(
   const float* rows[5] = {sx, sy, sz, sih, sm};
   const int vec = psph_vec_rows(rows, 5, s) ? 1 : 0;
   if (g > 0)
-    pass1_sym_kernel<<<g, b * ns, 0, (cudaStream_t)stream>>>(
+    pass1_sym_kernel<<<psph_grid(g, b), psph_block(b, ns), 0,
+                       (cudaStream_t)stream>>>(
         tx, ty, tz, tih, sx, sy, sz, sih, sm, nv, rho, nn, b, s, ns, vec);
   return (int)cudaGetLastError();
 }

@@ -76,7 +76,8 @@
 //   compaction and slices, in its own loop;
 // - 64 targets x 4 slot slices = 256 threads a group; the slices' sums are
 //   added in slice order at the end, with no atomics, so the result is
-//   the same on every run.
+//   the same on every run. A group of more than 256 targets takes one
+//   block of 256 per 256 targets (psph_grid).
 // The flags are template parameters: each combination is its own kernel
 // with only its rows staged and only its sums kept in registers.
 #include "common.cuh"
@@ -154,10 +155,11 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
   __shared__ __align__(16) float4 comp[NQ][PSPH_TILE];
   __shared__ int wtab[64];
   const int g = blockIdx.x;
-  const int i = threadIdx.x % a.b, k = threadIdx.x / a.b;
+  const PsphShare my = psph_share(a.b);
+  const int k = my.k;
   const int ns = a.ns;
   const float av_alpha = a.av_alpha, av_beta = a.av_beta;
-  const size_t t = (size_t)g * a.b + i;
+  const size_t t = my.t;
   const float x = a.t[0][t], y = a.t[1][t], z = a.t[2][t], ih = a.t[3][t];
   float tcv = 0.0f;
   if (MODE != MODE_ASYM) tcv = a.tc[t];
@@ -202,7 +204,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
     // the gate's ih for this tile: 0 opens it for every pair (r 0 is 0
     // or NaN, never >= 2)
     const float ih_gate = all_pairs ? 0.0f : ih;
-    for (int j = k; j < live; j += ns) {
+    for (int j = my.from; j < live; j += ns) {
       const float4 q0 = comp[0][j];
       const float4 q1 = comp[1][j];
       const float dxx = x - q0.x;
@@ -305,7 +307,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
         if (!RECV) comp[1][at].x = st[RECV ? 0 : 3][j];
         return false;
       });
-      for (int j = k; j < live; j += ns) {
+      for (int j = my.from; j < live; j += ns) {
         const float4 q0 = comp[0][j];
         const float dxx = x - q0.x;
         const float dxy = y - q0.y;
@@ -319,8 +321,8 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
     });
   }
 
-  psph_combine(acc, &raw[0][0][0], a.b, ns);
-  if (k != 0) return;
+  psph_combine(acc, &raw[0][0][0], my.bt, ns);
+  if (k != 0 || !my.on) return;
   a.gp[0][t] = acc[0];
   a.gp[1][t] = acc[1];
   a.gp[2][t] = acc[2];
@@ -349,12 +351,12 @@ static void launch6(const Pass2Args& a, int g, int energy, cudaStream_t st) {
   if constexpr (MODE != MODE_ASYM) {
     if (energy) {
       pass2_kernel<MODE, SB, AV, BAL, GRAV, RECV, true>
-          <<<g, a.b * a.ns, 0, st>>>(a);
+          <<<psph_grid(g, a.b), psph_block(a.b, a.ns), 0, st>>>(a);
       return;
     }
   }
   pass2_kernel<MODE, SB, AV, BAL, GRAV, RECV, false>
-      <<<g, a.b * a.ns, 0, st>>>(a);
+      <<<psph_grid(g, a.b), psph_block(a.b, a.ns), 0, st>>>(a);
 }
 
 template <int MODE, bool SB, bool AV, bool BAL>

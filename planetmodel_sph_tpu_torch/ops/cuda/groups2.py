@@ -373,6 +373,11 @@ def gravity_fused_plain(nv_ring, tgt, ring_rows, far_rows, accept, *,
 # wrappers
 # ---------------------------------------------------------------------------
 
+# targets of a group filter_sph holds in shared memory (the H100's 227 KB a
+# block: FILTER_MAX_DYNAMIC, csrc/filter_sph.cu)
+FILTER_MAX_GROUP = 9820
+
+
 def filter_sph(nv, tgt, src, *, b):
     """Per-candidate true-interaction mask over the group's window.
 
@@ -384,6 +389,9 @@ def filter_sph(nv, tgt, src, *, b):
         raise ValueError(f"{name}: 5 target columns and 6 source rows")
     cuda = _is_cuda(name, [nv, *tgt, *src])
     g, s = _check_window(name, nv, tgt, src, b)
+    if b > FILTER_MAX_GROUP:
+        raise ValueError(f"{name}: a group of {b} targets; the kernel holds "
+                         f"at most {FILTER_MAX_GROUP} in shared memory")
     if not cuda:
         return filter_sph_plain(nv, tgt, src)
     keep = torch.empty((g, s), dtype=torch.float32, device=nv.device)

@@ -52,18 +52,26 @@ def probe_gather_plain(packed, idx):
     return packed[torch.clamp(idx, 0, packed.shape[0] - 1).long()]
 
 
-def tile_extent(nv, s: int, chunk: int):
-    """Slots each instance sums: min(nv, trips * chunk) with trips =
-    min(ceil(nv / chunk), s // chunk), the reference's loop bound."""
+def tile_span(nv, s: int, chunk: int):
+    """Slots each instance sweeps: trips * chunk with trips =
+    min(ceil(nv / chunk), s // chunk), the reference's loop bound. Every
+    slot of the span meets every target of its instance; a slot past it
+    is never read."""
     trips = torch.clamp(torch.minimum(-(-nv // chunk),
                                       torch.full_like(nv, s // chunk)),
                         min=0)
-    return torch.minimum(nv, trips * chunk)
+    return trips * chunk
+
+
+def tile_extent(nv, s: int, chunk: int):
+    """Slots of each instance that can be live: min(nv, tile_span)."""
+    return torch.minimum(nv, tile_span(nv, s, chunk))
 
 
 def _spline_w(r2, inv_h):
     """The reference tool's W on the signed q = r * ih (a negative q takes
-    the inner branch, the prefactor keeps the sign of ih^3)."""
+    the inner branch, the prefactor keeps the sign of ih^3; a NaN q takes
+    the 0 of the last branch)."""
     r = torch.sqrt(r2)
     q = r * inv_h
     c = INV_PI * inv_h * inv_h * inv_h
@@ -76,15 +84,18 @@ def _spline_w(r2, inv_h):
 
 
 def probe_pass1_tile_plain(nv, tgt, rows, chunk: int = 512, block: int = 32):
-    """(rho, sum |m W|) per target, [gb*tb, 1] each: the masked sum over the
-    first tile_extent slots of each instance with live > 0.5. Instances go
-    `block` at a time so the [block, tb, S] intermediates stay small."""
+    """(rho, sum |m W|) per target, [gb*tb, 1] each: the reference's sweep.
+    Each instance sums over its own span [0, tile_span) the terms
+    where(slot < nv and live > 0.5, m, 0) * W, so a dead slot of the span
+    adds 0 * W (NaN where W is not finite); slots past the span are not
+    read. Instances go `block` at a time so the [block, tb, S]
+    intermediates stay small."""
     tx, ty, tz, tih = tgt
     sx, sy, sz, sm, slv = rows
     gb, s = sx.shape
     tb = tx.shape[0] // gb
-    ext = tile_extent(nv, s, chunk)
-    width = int(ext.max()) if gb else 0
+    span = tile_span(nv, s, chunk)
+    width = int(span.max()) if gb else 0
     slot = torch.arange(width, device=nv.device)
     rho, mag = [], []
     for g0 in range(0, gb, block):
@@ -95,9 +106,11 @@ def probe_pass1_tile_plain(nv, tgt, rows, chunk: int = 512, block: int = 32):
         dxy = col(ty) - row(sy)
         dxz = col(tz) - row(sz)
         r2 = dxx * dxx + dxy * dxy + dxz * dxz
-        pair = (slot[None, None, :] < ext[g0:g1, None, None]) \
+        pair = (slot[None, None, :] < nv[g0:g1, None, None]) \
             & (row(slv) > 0.5)
         term = torch.where(pair, row(sm), 0.0) * _spline_w(r2, col(tih))
+        term = torch.where(slot[None, None, :] < span[g0:g1, None, None],
+                           term, 0.0)
         rho.append(term.sum(dim=2).reshape(-1, 1))
         mag.append(term.abs().sum(dim=2).reshape(-1, 1))
     if not rho:

@@ -2,7 +2,9 @@
 
 import dataclasses
 
+import numpy as np
 import pytest
+import torch
 
 from planetmodel_sph_tpu import config as jc
 from planetmodel_sph_tpu_torch import config as tc
@@ -228,7 +230,7 @@ def test_top_level_preset_equals_the_reference_field_by_field(name):
         dataclasses.asdict(getattr(jp, name)())
 
 
-# ---- group sizes the windowed kernels cannot launch -----------------------
+# ---- group sizes: any that nbr_sub divides, as in the reference ------------
 
 # the grid path's RESPA inner step with the near tier on its own (p2p), as
 # the `sym100k` leg runs it
@@ -241,9 +243,13 @@ P2P_KW = dict(fuse_p2p_sph=False, fuse_p2p_residual=False)
     lambda **kw: tc.parity(**kw),
     lambda **kw: tc.jupiter_3k(gravity_solver="tree", **kw),
 ], ids=["grid", "grid_unfused_near_tier", "parity", "dense_tree_gravity"])
-def test_group_size_above_256_is_refused_on_every_tree_path(make):
-    with pytest.raises(ValueError, match=r"nbr_group_size=512.*256"):
-        tc.check_slice(make(nbr_group_size=512))
+def test_group_size_512_is_admitted_on_every_tree_path(make):
+    """The windowed kernels split a group of more than 256 targets over
+    blocks (tests/test_torch_group_sizes.py holds the port against the
+    JAX package at b = 512)."""
+    cfg = make(nbr_group_size=512)
+    tc.check_slice(cfg)
+    assert cfg.nbr_group_size == 512
 
 
 @pytest.mark.parametrize("b", [32, 64, 256])
@@ -256,11 +262,12 @@ def test_launchable_group_sizes_stay_admitted(make, b):
     tc.check_slice(make(nbr_group_size=b))
 
 
-def test_odd_group_size_is_refused_where_p2p_launches():
+def test_odd_group_size_is_admitted_where_p2p_launches():
+    """The RESPA inner step of the unfused grid + tree chunk launches p2p,
+    which gives an odd group's last target a thread of its own."""
     cfg = tc.jupiter_100k(**P2P_KW, nbr_group_size=33, nbr_sub=11)
-    assert tc.launches_p2p(cfg)
-    with pytest.raises(ValueError, match=r"nbr_group_size=33.*p2p"):
-        tc.check_slice(cfg)
+    assert cfg.respa_every > 1 and cfg.gravity_solver == "tree"
+    tc.check_slice(cfg)
 
 
 @pytest.mark.parametrize("kw", [
@@ -270,5 +277,22 @@ def test_odd_group_size_is_refused_where_p2p_launches():
 ], ids=["merged", "no_respa", "no_gravity"])
 def test_odd_group_size_is_admitted_where_p2p_does_not_launch(kw):
     cfg = tc.jupiter_100k(nbr_group_size=33, nbr_sub=11, **kw)
-    assert not tc.launches_p2p(cfg)
     tc.check_slice(cfg)
+
+
+def test_group_size_nbr_sub_does_not_divide_is_refused_as_in_jax():
+    """The one limit the reference has: nbr_sub divides nbr_group_size
+    (structure.build)."""
+    import jax
+    from planetmodel_sph_tpu.ops import structure as js
+    from planetmodel_sph_tpu_torch.ops import structure as ts
+    pos = np.zeros((64, 3), np.float32)
+    h, m = np.ones(64, np.float32), np.ones(64, np.float32)
+    kw = dict(n=64, neighbor_mode="grid", gravity_solver="tree",
+              nbr_group_size=33, nbr_sub=16)
+    with pytest.raises(ValueError, match="nbr_sub must divide"):
+        jax.jit(lambda p, hh, mm: js.build(
+            p, hh, mm, jc.SimConfig(**kw)))(pos, h, m)
+    with pytest.raises(ValueError, match="nbr_sub must divide"):
+        ts.build(torch.from_numpy(pos), torch.from_numpy(h),
+                 torch.from_numpy(m), tc.SimConfig(**kw))

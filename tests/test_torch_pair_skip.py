@@ -74,18 +74,21 @@ def _fmaf(a, b, c):
 
 
 _C_CALLS = {"fminf": np.fmin, "fmaxf": np.fmax, "sqrtf": np.sqrt,
+            "__fsqrt_rn": np.sqrt,
             "psph_min": np.minimum, "psph_max": np.maximum,
             "isfinite": np.isfinite,
             "psph_all_finite": lambda v: np.isfinite(v).all(axis=0),
             "__fmul_rn": np.multiply, "__fadd_rn": np.add, "fmaf": _fmaf}
 
 
-def _c_test(expr):
+def _c_test(expr, calls=None):
     """A C float expression of the kernels (names, float literals, * + -,
-    comparisons, && || !, a ? b : c, fminf/fmaxf/sqrtf/fmaf, __fmul_rn and
-    __fadd_rn, INFINITY; a per-target subscript [u] is dropped) as a
-    function of numpy float32 arrays given by name, with C's rounding and
-    NaN rules."""
+    comparisons, && || !, a ? b : c, fminf/fmaxf/sqrtf/fmaf, __fsqrt_rn,
+    __fmul_rn and __fadd_rn, INFINITY; a per-target subscript [u] is
+    dropped) as a function of numpy float32 arrays given by name, with C's
+    rounding and NaN rules. `calls`: more functions by name (a kernel's
+    own helpers)."""
+    calls = {**_C_CALLS, **(calls or {})}
     py = re.sub(r"(\d+\.\d*(?:[eE][+-]?\d+)?)f\b", r"\1", expr)
     py = py.replace("[u]", "").replace("INFINITY", "float('inf')")
     py = py.replace("&&", " and ").replace("||", " or ")
@@ -123,7 +126,7 @@ def _c_test(expr):
         if isinstance(n, ast.Call) and n.func.id == "float":
             return np.float32(n.args[0].value)
         if isinstance(n, ast.Call):
-            return _C_CALLS[n.func.id](*(ev(a, env) for a in n.args))
+            return calls[n.func.id](*(ev(a, env) for a in n.args))
         raise ValueError(f"not a kernel test expression: {expr}")
 
     def run(**env):

@@ -549,7 +549,9 @@ def test_probe_pass1_tile_ops_and_bytes_by_branch():
     """Two targets at the origin, ih = 1 and ih = -1 (a negative q takes
     the inner branch); slots at r = 0.5 (inner), 1.5 (outer), 3 (none), a
     dead one, r = 0.2 (inner), then one past nv. chunk 4 over 8 slots:
-    the extent is min(nv, trips * chunk) = 5."""
+    the extent is min(nv, trips * chunk) = 5, the span trips * chunk = 8
+    (x, y and z are read over the span: a far-out position there reaches
+    the sum)."""
     from planetmodel_sph_tpu_torch.ops.cuda import probes
     tgt = [_col([0.0, 0.0])] * 3 + [_col([1.0, -1.0])]
     xs = [0.5, 1.5, 3.0, 0.4, 0.2, 0.1, 0.0, 0.0]
@@ -564,7 +566,7 @@ def test_probe_pass1_tile_ops_and_bytes_by_branch():
     assert ops == ((cs.OPS_TILE_GEOM + cs.OPS_TILE_SUM) * 8
                    + 6 * w["inner"] + w["outer"] + w["none"]
                    + cs.OPS_TILE_SLOT * 5 + cs.OPS_TILE_TARGET * 2)
-    assert nbytes == 4 * 2 * 4 + 4 + 2 * 4 + 5 * 5 * 4
+    assert nbytes == 4 * 2 * 4 + 4 + 2 * 4 + 8 * 3 * 4 + 5 * 2 * 4
     # the second target: every q negative, the inner polynomial, and the
     # prefactor ih^3 / pi negative
     poly = sum(1.0 - 1.5 * q * q + 0.75 * q * q * q

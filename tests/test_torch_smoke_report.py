@@ -209,7 +209,15 @@ def test_instance_key_of_gravity_fused():
         ("gravity_fused", (1, 4))
     assert cs.instance_key("gravity_fused", dict(
         p2p_rows=[0], receiver_soft=True), a10) == ("gravity_fused", (2, 10))
-    assert cs.instance_key("filter_sph", {}, None) == ("filter_sph", ())
+    # filter_sph.cu's one template parameter: WIDE, more than 32 boxes of
+    # 16 targets a group
+    fsrc = open(os.path.join(ROOT, "planetmodel_sph_tpu_torch", "csrc",
+                             "filter_sph.cu")).read()
+    assert "template <bool WIDE>" in fsrc
+    assert cs.instance_key("filter_sph", {"b": 512}, None) == \
+        ("filter_sph", (0,))
+    assert cs.instance_key("filter_sph", {"b": 1024}, None) == \
+        ("filter_sph", (1,))
 
 
 @pytest.mark.parametrize("blk", [False, True], ids=["far_only", "blk"])
@@ -420,3 +428,25 @@ def test_pairwise_nan_agreement_plants_nans_that_reach(name):
                                              cfg)
     assert msg is None and reached == want
     assert all(bool(torch.isfinite(t).all()) for t in args)
+
+
+def test_sass_pair_loops_counts_the_innermost_sweep_loops():
+    """Two instances: an in-range loop (two MUFU.RSQ in 9 instructions)
+    inside an outer tile loop, and an exact one that calls the square
+    root's slow path (one MUFU.RSQ in 6)."""
+    line = "        /*{:04x}*/                   {} ;"
+    def fn(name, body):
+        return [f"\t\tFunction : {name}"] + [line.format(16 * k, t)
+                                             for k, t in enumerate(body)]
+    a = fn("kernelA", ["MOV R1, R2", "LDS.128 R4, [R0]", "MUFU.RSQ R5, R4",
+                       "FMUL R6, R5, R4", "MUFU.RSQ R7, R4", "FADD R8, R6,"
+                       " R7", "ISETP.GE.AND P0, PT, R1, R2, PT",
+                       "IADD3 R1, R1, 0x1, RZ", "FADD R9, R8, R9",
+                       "@!P0 BRA 0x10", "BAR.SYNC.DEFER_BLOCKING 0x0",
+                       "@!P1 BRA 0x0", "EXIT"])
+    b = fn("kernelB", ["MUFU.RSQ R1, R2", "@P0 BRA 0x40",
+                       "CALL.REL.NOINC 0x100", "FMUL R3, R1, R1",
+                       "ISETP.NE.AND P1, PT, R3, RZ, PT", "@P1 BRA 0x0",
+                       "EXIT"])
+    got = cs.sass_pair_loops("\n".join(a + b))
+    assert got == {"kernelA": [(4.5, False)], "kernelB": [(6.0, True)]}
