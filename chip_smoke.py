@@ -144,7 +144,29 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    beside ``packed[idx]``) and runs the production step, `sym100k`,
    `sg100k` and `dense32k` (README's commands) from both checkouts, each
    in its own processes, in the same turns (``bench --repeat 3``), and
-   each checkout's sorted and unsorted chunks against each other.
+   each checkout's sorted and unsorted chunks against each other;
+8. long horizon (this checkout only, after phase 7), each run a process of
+   its own started as a user starts it (``python -m ...``), its launch
+   counts reset before and read after, every kernel its path runs
+   required to have launched: (a) ``tools.drift100k`` at its defaults (a
+   2,000-step settle from ``ics.polytrope``, then a 10,000-step drift of
+   the ``jupiter_100k`` preset in 500-step chunks) into a fresh directory
+   under ``chiprun_out/long_horizon``, whose ship gate must pass (the four
+   gate numbers, each phase's steps/s and any retried chunk printed);
+   (b) ``tools.rotating_l_check`` from the settled state, omega 0.01, 3,000
+   steps, windows x1.5: overflow 0, energy finite, |dL|/|L| and the energy
+   drift per 10k steps printed; (c) ``tools.equilibrium_run --preset
+   jupiter_3k --steps 10000``: its four artifacts, the PNG mostly lit;
+   (d) ``tools.drift_probe --probe ctrl --steps 1000`` from (a)'s final
+   checkpoint; (e) ``bench --lines``: two JSON lines with a value above 0
+   and no error; (f) ``cli run --preset jupiter_3k --steps 40`` with frames
+   every 10 steps, a GIF, a final PNG, ``--render-blocks`` (skipped on the
+   dense step, as the reference does) and ``--serve 0``, paused from the
+   viewer once its first frame is up while ``/diag.json`` and
+   ``/points.bin`` are read, then resumed; and ``cli run --restore`` of the
+   settled state for 8 steps with ``--render-blocks``, whose overlay adds
+   one ``filter_sph`` launch to the chunk's two. The reference's published
+   results are printed beside these, never in their place.
 
 The second-to-last line of standard output is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. A full
@@ -3328,6 +3350,356 @@ def probe_entry(name, source, replaces, probe_reports, launches):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the long horizon, each run in a process of its own
+# ---------------------------------------------------------------------------
+
+LONG_DIR = os.path.join(OUT_DIR, "long_horizon")
+LONG_KERNELS = ("pass1_gradh", "pass2", "gravity_fused", "filter_sph")
+DENSE_KERNELS = ("pairwise_pass1", "pairwise_pass2")
+PNG_NON_BLACK = 0.5       # "mostly non-black": the share of lit pixels
+# the reference's published results (docs/results/RESULTS.md:38-43,
+# :150-156, :339-343), printed beside this run's, never in their place
+REFERENCE = dict(energy_per_10k=1.54e-5, max_momentum=7.26e-5,
+                 spin_per_10k=1.38e-5, rotating_l_rel_per_10k=1.38e-3,
+                 rotating_energy_per_10k=6.6e-5,
+                 equilibrium_relax_per_10k=1.0e-2)
+
+# `python -c` of one entry point as a user runs it (`python -m MODULE
+# ARGS`), its launch counts reset before and written to COUNTS after
+COUNTED_RUN = """
+import json, runpy, sys
+from planetmodel_sph_tpu_torch.ops.cuda import launch
+counts, mod = sys.argv[1], sys.argv[2]
+sys.argv = [mod] + sys.argv[3:]
+launch.reset_launches()
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+finally:
+    with open(counts, "w") as f:
+        json.dump(launch.LAUNCHES, f)
+"""
+
+
+def _counted_cmd(label, module, args):
+    counts = os.path.join(LONG_DIR, f"{label}.launches.json")
+    return [sys.executable, "-c", COUNTED_RUN, counts, module, *args], counts
+
+
+def _env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def counted_run(label, module, args, timeout=900):
+    """`python -m module args` from the root in a process of its own, its
+    output in LONG_DIR/<label>.log: dict(rc, wall_s, launches, out)."""
+    cmd, counts = _counted_cmd(label, module, args)
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=_env(), capture_output=True,
+                       text=True, timeout=timeout)
+    with open(os.path.join(LONG_DIR, f"{label}.log"), "w") as f:
+        f.write(r.stdout + "\n--- stderr\n" + r.stderr)
+    launches = json.load(open(counts)) if os.path.exists(counts) else {}
+    return dict(args=[module, *args], rc=r.returncode,
+                wall_s=time.perf_counter() - t0, launches=launches,
+                out=r.stdout, err_tail=r.stderr[-2000:])
+
+
+def _http(port, path, payload=None):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.read()
+
+
+def served_run(label, args, timeout=600):
+    """:func:`counted_run` of ``cli run ... --serve 0``: on the line that
+    names the viewer's port, pause the run from the viewer, wait for the
+    first frame, GET /diag.json and /points.bin, steer a knob, resume."""
+    cmd, counts = _counted_cmd(label, "planetmodel_sph_tpu_torch.cli", args)
+    t0 = time.perf_counter()
+    got = dict(diag=None, points_n=None, points_bytes=None, error=None)
+    err = []
+    with open(os.path.join(LONG_DIR, f"{label}.log"), "w") as log:
+        p = subprocess.Popen(cmd, cwd=ROOT, env=_env(), stdout=log,
+                             stderr=subprocess.PIPE, text=True)
+        try:
+            for line in p.stderr:
+                err.append(line)
+                if "live view -> http://127.0.0.1:" not in line or \
+                        got["diag"] is not None:
+                    continue
+                port = int(line.rsplit(":", 1)[1])
+                try:
+                    _http(port, "/control", {"cmd": "pause"})
+                    t_wait = time.perf_counter()
+                    while True:
+                        d = json.loads(_http(port, "/diag.json"))
+                        if "step" in d or time.perf_counter() - t_wait > 120:
+                            break
+                        time.sleep(0.2)
+                    got["diag"] = d
+                    pts = _http(port, "/points.bin")
+                    got["points_n"] = int.from_bytes(pts[:4], "little")
+                    got["points_bytes"] = len(pts)
+                    _http(port, "/control", {"cmd": "set", "overrides":
+                                             {"vel_damping": 0.0}})
+                    _http(port, "/control", {"cmd": "resume"})
+                except OSError as e:
+                    got["error"] = f"{type(e).__name__}: {e}"
+            rc = p.wait(timeout=timeout)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        log.write("--- stderr\n" + "".join(err))
+    launches = json.load(open(counts)) if os.path.exists(counts) else {}
+    return dict(args=["planetmodel_sph_tpu_torch.cli", *args], rc=rc,
+                wall_s=time.perf_counter() - t0, launches=launches,
+                err_tail="".join(err)[-2000:], **got)
+
+
+def png_non_black(path) -> float:
+    """The share of pixels of a PNG that are not black."""
+    from PIL import Image
+    import numpy as np
+    with Image.open(path) as im:
+        a = np.asarray(im.convert("RGB"))
+    return float((a.sum(axis=-1) > 0).mean())
+
+
+def _phase_rates(out):
+    """The drift tool's lines 'phase P: N steps in S s of stepping =
+    R steps/s; retried chunks T s' as {P: dict(steps, s, steps_per_s,
+    retried_s)}."""
+    rates = {}
+    for ln in out.splitlines():
+        if ln.startswith("phase ") and "steps/s" in ln:
+            name, rest = ln[len("phase "):].split(":", 1)
+            w = rest.split()
+            rates[name] = dict(steps=int(w[0]), s=float(w[3]),
+                               steps_per_s=float(w[8]),
+                               retried_s=float(w[12]))
+    return rates
+
+
+def failed_gates(g, budgets=(1e-3, 1e-3, 5e-5)):
+    """The names of the ship gate's budgets that `g` (gate_numbers) misses."""
+    if g is None:
+        return ["drift rows"]
+    de, pm, sp = budgets
+    out = [name for name, bad in (
+        ("|dE|/|E|", not g["energy_per_10k"] <= de),
+        ("max |p|", not g["max_momentum"] <= pm),
+        ("overflow", g["overflow"] != 0),
+        ("dL/I", g["spin_per_10k"] is not None
+         and not g["spin_per_10k"] <= sp)) if bad]
+    return out
+
+
+def long_horizon_failures(rep):
+    """What phase 8's report `rep` fails: a run that exited non-zero, a
+    kernel its path runs that was not launched, the ship gate, the
+    rotating body's overflow or energy, the equilibrium artifacts, the
+    bench lines, the command line's artifacts and served frames, the block
+    overlay's filter launch."""
+    fails = []
+    for label, r in rep["runs"].items():
+        if r["rc"] != 0 and label != "drift100k":
+            fails.append(f"phase 8 {label}: exit code {r['rc']}: "
+                         f"{r.get('err_tail', '')[-300:]}")
+        idle = [k for k in r["expect_launched"]
+                if not r["launches"].get(k)]
+        if idle:
+            fails.append(f"phase 8 {label}: no launch of {idle} "
+                         f"(launches {r['launches']})")
+    d = rep["runs"]["drift100k"]
+    bad = failed_gates(d.get("gate"))
+    if d["rc"] != 0 or bad:
+        fails.append(f"phase 8 drift100k: ship gate FAIL ({', '.join(bad)}"
+                     f"; exit code {d['rc']})")
+    r = rep["runs"]["rotating_l_check"]
+    s = r.get("summary") or {}
+    if s.get("overflow") != 0 or not math.isfinite(
+            s.get("energy_drift_per_10k", math.nan)):
+        fails.append(f"phase 8 rotating_l_check: overflow "
+                     f"{s.get('overflow')}, energy drift "
+                     f"{s.get('energy_drift_per_10k')}")
+    e = rep["runs"]["equilibrium_run"]
+    if e.get("missing") or not (e.get("png_non_black") or 0) \
+            >= PNG_NON_BLACK:
+        fails.append(f"phase 8 equilibrium_run: missing {e.get('missing')}, "
+                     f"PNG lit share {e.get('png_non_black')}")
+    lines = rep["runs"]["bench_lines"].get("lines", [])
+    if len(lines) != 2 or any("error" in ln or not ln.get("value", 0) > 0
+                              for ln in lines):
+        fails.append(f"phase 8 bench --lines: {lines}")
+    c = rep["runs"]["cli"]
+    if c.get("error") or not (c.get("diag") or {}).get("step") or \
+            c.get("points_n") != c.get("n") or c.get("missing"):
+        fails.append(f"phase 8 cli: served {c.get('diag')}, points "
+                     f"{c.get('points_n')}, missing {c.get('missing')}, "
+                     f"error {c.get('error')}")
+    b = rep["runs"]["cli_blocks"]
+    if b["launches"].get("filter_sph") != b.get("expect_filter") or \
+            b.get("missing"):
+        fails.append(f"phase 8 cli --render-blocks: filter_sph "
+                     f"{b['launches'].get('filter_sph')} != "
+                     f"{b.get('expect_filter')}, missing {b.get('missing')}")
+    return fails
+
+
+def _missing(paths):
+    return [os.path.relpath(p, LONG_DIR) for p in paths
+            if not os.path.exists(p)]
+
+
+def long_horizon_phase(card):
+    """Phase 8: the long-horizon tools, bench lines and the command
+    line's rendering and viewer, each in a process of its own with its
+    launch counts read after it (README's commands). Returns (report,
+    failures)."""
+    from planetmodel_sph_tpu_torch.tools import drift100k
+    shutil.rmtree(LONG_DIR, ignore_errors=True)
+    os.makedirs(LONG_DIR)
+    t_all = time.perf_counter()
+    runs = {}
+    print(f"phase 8 (long horizon) on {card}", flush=True)
+
+    # a. the drift protocol at its defaults, into a fresh directory
+    ddir = os.path.join(LONG_DIR, "drift100k")
+    r = counted_run("drift100k", "planetmodel_sph_tpu_torch.tools.drift100k",
+                    ["--out", ddir], timeout=1100)
+    jsonl = os.path.join(ddir, "metrics.jsonl")
+    r.update(expect_launched=LONG_KERNELS,
+             gate=drift100k.gate_numbers(jsonl) if os.path.exists(jsonl)
+             else None, phases=_phase_rates(r["out"]),
+             retried=[ln for ln in r["out"].splitlines()
+                      if "chunk retried" in ln or "back to preset" in ln],
+             gate_line=next((ln for ln in r["out"].splitlines()
+                             if ln.startswith("SHIP GATE")), None))
+    runs["drift100k"] = r
+    g = r["gate"] or {}
+    print(f"  drift100k: {r['gate_line']} ({r['wall_s']:.1f} s)", flush=True)
+    print(f"    gate numbers {g} (reference: |dE|/|E| "
+          f"{REFERENCE['energy_per_10k']:g}, max |p| "
+          f"{REFERENCE['max_momentum']:g}, dL/I "
+          f"{REFERENCE['spin_per_10k']:g})", flush=True)
+    for name, ph in r["phases"].items():
+        print(f"    {name}: {ph['steps']} steps at {ph['steps_per_s']:.3f} "
+              f"steps/s ({ph['retried_s']:.3f} s of retried chunks)",
+              flush=True)
+    print(f"    retried chunks: {r['retried'] or 'none'}; launches "
+          f"{r['launches']}", flush=True)
+
+    # b. the rotating body from the settled state
+    rot = os.path.join(LONG_DIR, "rotating_l_100k.json")
+    r = counted_run("rotating_l_check",
+                    "planetmodel_sph_tpu_torch.tools.rotating_l_check",
+                    ["--omega", "0.01", "--steps", "3000", "--widen", "1.5",
+                     "--out", rot])
+    r.update(expect_launched=LONG_KERNELS, summary={
+        k: v for k, v in json.load(open(rot)).items() if k != "rows"}
+        if os.path.exists(rot) else None)
+    runs["rotating_l_check"] = r
+    s = r["summary"] or {}
+    print(f"  rotating_l_check: |dL|/|L| {s.get('l_rel_drift_per_10k')} and "
+          f"energy {s.get('energy_drift_per_10k')} per 10k steps, overflow "
+          f"{s.get('overflow')} (reference: "
+          f"{REFERENCE['rotating_l_rel_per_10k']:g} and "
+          f"{REFERENCE['rotating_energy_per_10k']:g}); launches "
+          f"{r['launches']} ({r['wall_s']:.1f} s)", flush=True)
+
+    # c. the 3k hydrostatic equilibrium (relax-mode h: the all-pairs
+    # kernels)
+    edir = os.path.join(LONG_DIR, "equilibrium")
+    r = counted_run("equilibrium_run",
+                    "planetmodel_sph_tpu_torch.tools.equilibrium_run",
+                    ["--preset", "jupiter_3k", "--steps", "10000", "--out",
+                     edir])
+    arts = [os.path.join(edir, f) for f in (
+        "equilibrium_diags.npz", "equilibrium_state.psph",
+        "equilibrium.png", "profile.json")]
+    png, prof = arts[2], arts[3]
+    r.update(expect_launched=DENSE_KERNELS, missing=_missing(arts),
+             png_non_black=png_non_black(png) if os.path.exists(png)
+             else None,
+             energy_drift=json.load(open(prof))["energy_drift"]
+             if os.path.exists(prof) else None,
+             lines=[ln for ln in r["out"].splitlines()
+                    if "steps/s" in ln or "drift" in ln])
+    runs["equilibrium_run"] = r
+    print(f"  equilibrium_run jupiter_3k: drift {r['energy_drift']} over "
+          f"10000 steps; {'; '.join(r['lines'])}; PNG lit "
+          f"{r['png_non_black']}; launches {r['launches']} "
+          f"({r['wall_s']:.1f} s)", flush=True)
+
+    # d. a drift probe from a's final checkpoint
+    pjsonl = os.path.join(LONG_DIR, "drift_probe.jsonl")
+    r = counted_run("drift_probe",
+                    "planetmodel_sph_tpu_torch.tools.drift_probe",
+                    ["--probe", "ctrl", "--steps", "1000", "--settled",
+                     os.path.join(ddir, "state.psph"), "--out", pjsonl])
+    r.update(expect_launched=LONG_KERNELS, row=json.loads(
+        open(pjsonl).readline()) if os.path.exists(pjsonl) else None)
+    runs["drift_probe"] = r
+    print(f"  drift_probe ctrl: {r['row']}; launches {r['launches']} "
+          f"({r['wall_s']:.1f} s)", flush=True)
+
+    # e. the two bench lines
+    r = counted_run("bench_lines", "planetmodel_sph_tpu_torch.bench",
+                    ["--lines"])
+    r.update(expect_launched=LONG_KERNELS + DENSE_KERNELS,
+             lines=[json.loads(ln) for ln in r["out"].splitlines()
+                    if ln.startswith("{")])
+    runs["bench_lines"] = r
+    for ln in r["lines"]:
+        print(f"  bench --lines: {json.dumps(ln)}", flush=True)
+
+    # f. the command line: frames, GIF, final PNG and the live viewer
+    frames = os.path.join(LONG_DIR, "frames")
+    gif = os.path.join(LONG_DIR, "run.gif")
+    final = os.path.join(LONG_DIR, "final.png")
+    r = served_run("cli", ["run", "--preset", "jupiter_3k", "--steps", "40",
+                           "--render-every", "10", "--render-every-dir",
+                           frames, "--animate", gif, "--render", final,
+                           "--render-blocks", "--serve", "0"])
+    r.update(expect_launched=DENSE_KERNELS, n=3000, missing=_missing(
+        [gif, final] + [os.path.join(frames, f"frame_{i:05d}.png")
+                        for i in range(4)]))
+    runs["cli"] = r
+    print(f"  cli run --serve: /diag.json step {(r['diag'] or {}).get('step')}"
+          f" paused {(r['diag'] or {}).get('paused')}, /points.bin "
+          f"{r['points_n']} points ({r['points_bytes']} B); missing "
+          f"{r['missing']}; launches {r['launches']} ({r['wall_s']:.1f} s)",
+          flush=True)
+    # ... and the block overlay on the settled 100k state: one chunk's two
+    # builds (the Newton solve's and the chunk's), then the overlay's
+    blocks = os.path.join(LONG_DIR, "blocks.png")
+    r = counted_run("cli_blocks", "planetmodel_sph_tpu_torch.cli",
+                    ["run", "--restore", STATE, "--steps", "8",
+                     "--diag-every", "8", "--render", blocks,
+                     "--render-blocks", "--render-color-by", "material"])
+    r.update(expect_launched=LONG_KERNELS, expect_filter=3,
+             missing=_missing([blocks]))
+    runs["cli_blocks"] = r
+    print(f"  cli run --render-blocks (100k): launches {r['launches']} "
+          f"(filter_sph 2 + 1 for the overlay) ({r['wall_s']:.1f} s)",
+          flush=True)
+
+    for r in runs.values():
+        r.pop("out", None)
+    rep = dict(runs=runs, reference=REFERENCE,
+               total_s=time.perf_counter() - t_all)
+    print(f"phase 8: {rep['total_s']:.1f} s", flush=True)
+    return rep, long_horizon_failures(rep)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3650,6 +4022,13 @@ def main(argv=None) -> int:
     if args.parent:
         report["parent"], fails = parent_phase(args.parent, state, cfg)
         failures += fails
+
+    # 8. the long horizon: the drift gate and the validation tools, the
+    # bench lines, rendering and the live viewer (this checkout only)
+    del state
+    torch.cuda.empty_cache()
+    report["long_horizon"], fails = long_horizon_phase(card)
+    failures += fails
 
     report["total_s"] = time.perf_counter() - t_all
     report["failures"] = failures

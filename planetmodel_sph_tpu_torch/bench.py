@@ -19,9 +19,20 @@ enqueue, and the result names the device it ran on.
 
 prints the card's name and power limit, then one JSON line per repeat.
 
+    python -m planetmodel_sph_tpu_torch.bench --lines
+
+prints the two lines of the repository's benchmark and nothing else: a
+cold ``jupiter_3k`` start (n = 3000, 200 steps) and the settled 100k state
+(64 steps, metric ``particle_steps_per_sec_n100000``), each a JSON object
+that also names the card and its power limit. A run that fails prints a
+line with value 0 and its error in its place; the other line still
+prints, and the exit code is 1.
+
 `vs_baseline` divides by 150,000 particle-steps/s: the rate the Unity
 project this system was modelled on targets on a gaming laptop (3000
 particles at its fixed 50 steps/s). It is not a rate of any accelerator.
+Line 2 of ``--lines`` divides by the north star's 6,000,000 instead (60
+steps/s at n = 100,000): 1.0 meets it.
 """
 
 from __future__ import annotations
@@ -37,9 +48,11 @@ import torch
 from . import config as config_mod
 from .models import ics, planet
 from .ops import eos as eos_ops
+from .state import resolve_device
 from .utils import checkpoint
 
 REFERENCE_PARTICLE_STEPS_PER_SEC = 3000 * 50.0
+NORTH_STAR_PARTICLE_STEPS_PER_SEC = 100_000 * 60.0
 SETTLED = "docs/results/drift100k_r5ship/state.psph"
 
 
@@ -208,6 +221,41 @@ def run_bench(checkpoint_path: str | None = SETTLED, steps: int = 64,
     }
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip()
+
+
+def bench_lines(device="cuda", card: str | None = None) -> list:
+    """The two benchmark lines: a cold ``jupiter_3k`` start at n = 3000
+    for 200 steps, and the settled 100k state for 64 steps (``vs_baseline``
+    over the north star's rate). A run that raises gives a line with value
+    0 and its error in its place."""
+    runs = (("particle_steps_per_sec_n3000",
+             dict(preset="jupiter_3k", n=3000, steps=200)),
+            ("particle_steps_per_sec_n100000",
+             dict(checkpoint_path=SETTLED, steps=64)))
+    lines = []
+    for metric, kw in runs:
+        try:
+            line = run_bench(device=device, **kw)
+            if kw.get("checkpoint_path"):
+                line["vs_baseline"] = (line["value"]
+                                       / NORTH_STAR_PARTICLE_STEPS_PER_SEC)
+        except Exception as e:  # noqa: BLE001 -- every line prints
+            line = {"metric": metric, "value": 0.0,
+                    "unit": "particle-steps/s", "vs_baseline": 0.0,
+                    "error": f"{type(e).__name__}: {e}"[:300]}
+        line["metric"] = metric
+        if card is not None:
+            line["card"] = card
+        lines.append(line)
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkpoint", default=SETTLED)
@@ -227,12 +275,20 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="one more run under torch.profiler: device busy "
                     "time and the largest device times by kernel")
+    ap.add_argument("--lines", action="store_true",
+                    help="the two benchmark lines (cold jupiter_3k, the "
+                    "settled 100k state) and nothing else")
     args = ap.parse_args(argv)
-    if torch.device(args.device).type == "cuda":
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60)
-        print(smi.stdout.strip(), flush=True)
+    card = None
+    if resolve_device(args.device).type == "cuda":
+        card = card_line()
+    if args.lines:
+        lines = bench_lines(args.device, card)
+        for line in lines:
+            print(json.dumps(line), flush=True)
+        return 1 if any("error" in line for line in lines) else 0
+    if card is not None:
+        print(card, flush=True)
     kw = dict(checkpoint_path=args.checkpoint, steps=args.steps,
               warmup_steps=args.warmup_steps, device=args.device,
               preset=args.preset, n=args.n,

@@ -2,17 +2,22 @@
 
 Counterpart of ``planetmodel_sph_tpu/cli.py`` for the paths the port runs:
 deterministic runs from a preset's initial conditions or a checkpoint,
-diagnostics every N steps, metrics as JSON lines, checkpoint/resume. Runs
-on the card unless ``--device cpu`` is given.
+diagnostics every N steps, metrics as JSON lines, checkpoint/resume, PNG
+frames and a GIF, and the live browser viewer with its steering. Runs on the
+card unless ``--device cpu`` is given.
 
     python -m planetmodel_sph_tpu_torch.cli run --preset jupiter_3k \\
         --steps 300 --diag-every 100
     python -m planetmodel_sph_tpu_torch.cli bench --n 3000 --steps 200
 
-What the reference's CLI has and this one refuses by name: rendering and
-the live viewer, and ``--devices`` (data parallelism). Checkpoints are
+What the reference's CLI has and this one refuses by name: ``--devices``
+(data parallelism) and ``--debug-nans`` (a JAX switch). Checkpoints are
 PSPH1 for a ``.psph`` path and npz otherwise, read and written as the
 reference does (``utils/checkpoint.py``).
+
+    python -m planetmodel_sph_tpu_torch.cli run --steps 200 \\
+        --render-every 20 --animate run.gif --render final.png
+    python -m planetmodel_sph_tpu_torch.cli run --steps 5000 --serve 8000
 
     python -m planetmodel_sph_tpu_torch.cli run --preset parity --steps 100
     python -m planetmodel_sph_tpu_torch.cli run --preset auto --n 50000 \\
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -41,7 +47,7 @@ from . import bench as bench_mod
 from . import config as config_mod
 from .models import ics, planet
 from .state import resolve_device
-from .utils import checkpoint, diagnostics
+from .utils import checkpoint, diagnostics, render
 
 _PRESETS = {name: getattr(config_mod, name) for name in bench_mod.PRESETS}
 _ICS = ("jupiter", "two_planet_collision", "rotating_planet",
@@ -50,8 +56,6 @@ _ICS = ("jupiter", "two_planet_collision", "rotating_planet",
 # options of the reference's CLI that select something not ported: accepted
 # by the parser so the refusal can name them
 _UNPORTED = {
-    "render": "rendering", "render_every": "rendering",
-    "animate": "rendering", "serve": "the live viewer",
     "devices": "data parallelism over several devices",
     "debug_nans": "a JAX debugging switch",
 }
@@ -113,6 +117,66 @@ def _refuse_unported(args):
         if v is not None and v is not False:
             raise SystemExit(f"--{name.replace('_', '-')}: {what} is not "
                              "ported")
+    if args.animate and not args.render_every:
+        raise SystemExit("--animate assembles the frames of --render-every: "
+                         "give both")
+
+
+def _viewer_control(viewer, cfg):
+    """Apply the live viewer's steering between chunks: hold while paused
+    (frames keep serving), fold the steered knobs into the config with
+    ``cfg.replace`` (nothing is compiled again)."""
+
+    def fold(c):
+        paused, overrides, dirty = viewer.control()
+        if dirty and overrides:
+            c = c.replace(**overrides)
+            _log(f"live knobs applied: {overrides}")
+        return c, paused
+
+    cfg, paused = fold(cfg)
+    if paused:
+        _log("paused from the live viewer")
+        while paused:
+            time.sleep(0.25)
+            cfg, paused = fold(cfg)
+        _log("resumed")
+    return cfg
+
+
+def _run_frames(args, state, cfg, start_step, viewer, t0):
+    """Frame-by-frame mode: chunks of --render-every (or --diag-every)
+    steps, a PNG frame after each with --render-every, each pushed to the
+    live viewer with --serve, whose steering is applied between chunks.
+    Returns (state, cfg, [diagnostics per chunk], [step numbers])."""
+    render_kw = dict(color_by=args.render_color_by,
+                     quiver=args.render_quiver, extent=args.render_extent)
+    if args.render_every:
+        os.makedirs(args.render_every_dir, exist_ok=True)
+    r_every = max(1, min(args.render_every or args.diag_every, args.steps))
+    n_frames, rem = divmod(args.steps, r_every)
+    diags_list, step_nos, cur = [], [], start_step
+    for fi in range(n_frames + (1 if rem else 0)):
+        k = r_every if fi < n_frames else rem
+        state, d = planet.run_with_diagnostics(state, cfg, 1, k)
+        cur += k
+        diags_list.append(d)
+        step_nos.append(cur)
+        if args.render_every:
+            render.render_png(state, os.path.join(
+                args.render_every_dir, f"frame_{fi:05d}.png"), **render_kw)
+        if viewer is not None:
+            row = {k2: float(v[-1]) for k2, v in d.items()}
+            row["step"] = cur
+            row["steps_per_sec"] = (cur - start_step) / max(
+                time.perf_counter() - t0, 1e-9)
+            viewer.update(state, row, **render_kw)
+            cfg = _viewer_control(viewer, cfg)
+    if args.animate:
+        out = render.assemble_gif(args.render_every_dir, args.animate,
+                                  fps=args.animate_fps)
+        _log(f"animation -> {out}")
+    return state, cfg, diags_list, step_nos
 
 
 def cmd_run(args) -> int:
@@ -140,23 +204,36 @@ def cmd_run(args) -> int:
         # resume keeps appending to its own)
         open(args.metrics_jsonl, "w").close()
 
+    viewer = None
+    if args.serve is not None:
+        from .utils.liveview import LiveViewer
+        viewer = LiveViewer(args.serve)
+        _log(f"live view -> http://127.0.0.1:{viewer.port}")
+
     # run exactly --steps: full diag chunks plus a DIAGNOSED remainder chunk
     t0 = time.perf_counter()
-    every = max(1, min(args.diag_every, args.steps))
-    n_chunks, rem = divmod(args.steps, every)
-    diags_list, step_nos = [], []
-    cur = start_step
-    if n_chunks:
-        state, d = planet.run_with_diagnostics(state, cfg, n_chunks, every)
-        diags_list.append(d)
-        step_nos.extend(start_step + (i + 1) * every
-                        for i in range(n_chunks))
-        cur = start_step + n_chunks * every
-    if rem:
-        state, d = planet.run_with_diagnostics(state, cfg, 1, rem)
-        cur += rem
-        diags_list.append(d)
-        step_nos.append(cur)
+    try:
+        if args.render_every or viewer is not None:
+            state, cfg, diags_list, step_nos = _run_frames(
+                args, state, cfg, start_step, viewer, t0)
+        else:
+            every = max(1, min(args.diag_every, args.steps))
+            n_chunks, rem = divmod(args.steps, every)
+            diags_list, step_nos = [], []
+            if n_chunks:
+                state, d = planet.run_with_diagnostics(state, cfg, n_chunks,
+                                                       every)
+                diags_list.append(d)
+                step_nos.extend(start_step + (i + 1) * every
+                                for i in range(n_chunks))
+            if rem:
+                state, d = planet.run_with_diagnostics(state, cfg, 1, rem)
+                diags_list.append(d)
+                step_nos.append(start_step + args.steps)
+    finally:
+        if viewer is not None:
+            viewer.close()
+    cur = step_nos[-1]
     diags = {k: torch.cat([d[k] for d in diags_list]).cpu()
              for k in diags_list[0]}
     if device.type == "cuda":
@@ -181,6 +258,16 @@ def cmd_run(args) -> int:
     if args.checkpoint:
         checkpoint.save(args.checkpoint, state, cfg, start_step + total)
         _log(f"checkpoint -> {args.checkpoint}")
+    if args.render:
+        blocks = cfg if (args.render_blocks
+                         and cfg.neighbor_mode == "grid") else None
+        if args.render_blocks and blocks is None:
+            _log("--render-blocks needs the grid pipeline; overlay skipped")
+        out = render.render_png(state, args.render,
+                                color_by=args.render_color_by,
+                                quiver=args.render_quiver,
+                                extent=args.render_extent, blocks=blocks)
+        _log(f"render -> {out}")
     for key in ("nbr_overflow", "tree_overflow"):
         if key in diags and int(diags[key].sum()) > 0:
             _log(f"WARNING: {key}={int(diags[key].sum())} interactions "
@@ -252,11 +339,32 @@ def main(argv=None) -> int:
                          "differentiated_planet (e.g. basalt,ice)")
     pr.add_argument("--freeze-velocity", action="store_true",
                     help="compute fields but never apply accelerations")
+    pr.add_argument("--render", default=None, help="write the final "
+                    "state as a PNG")
+    pr.add_argument("--render-every", type=int, default=None,
+                    help="write a PNG frame every N steps")
+    pr.add_argument("--render-every-dir", default="frames")
+    pr.add_argument("--render-color-by", default="rho",
+                    help="field to colour particles by, 'id' for stable "
+                         "per-particle random colours or 'material'")
+    pr.add_argument("--render-quiver", action="store_true",
+                    help="overlay velocity arrows on a particle subsample")
+    pr.add_argument("--render-extent", type=float, default=None,
+                    help="fixed half-width of the view (stable framing "
+                         "across frames)")
+    pr.add_argument("--render-blocks", action="store_true",
+                    help="overlay the Morton-block boxes of the neighbour "
+                         "structure (grid pipeline)")
+    pr.add_argument("--animate", default=None, metavar="GIF",
+                    help="assemble the --render-every frames into a GIF "
+                         "after the run")
+    pr.add_argument("--animate-fps", type=float, default=10.0)
+    pr.add_argument("--serve", type=int, default=None, metavar="PORT",
+                    help="live browser viewer of the evolving state at "
+                         "http://localhost:PORT (0: a free port), a frame "
+                         "every --render-every (or --diag-every) steps, "
+                         "with pause/resume and steered knobs")
     # refused by name in cmd_run (see _UNPORTED)
-    for flag in ("--render", "--render-every", "--animate"):
-        pr.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    pr.add_argument("--serve", type=int, default=None,
-                    help=argparse.SUPPRESS)
     pr.add_argument("--devices", type=int, default=None,
                     help=argparse.SUPPRESS)
     pr.add_argument("--debug-nans", action="store_true",

@@ -1,1 +1,2 @@
-"""Runtime I/O: the PSPH1 snapshot format in pure numpy."""
+"""Runtime I/O: PSPH1 snapshots through the native C++ writer (built with
+g++ at first use) or, without a compiler, the same bytes in numpy."""

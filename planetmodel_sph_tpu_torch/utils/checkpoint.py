@@ -5,9 +5,10 @@ ParticleState, the SimConfig and the step counter in one file, npz or
 PSPH1 (``runtime/snapshot.py``, chosen by a ``.psph`` suffix on save and by
 the file's magic on load). An npz holds one array per state field,
 ``__config__`` (the config as JSON bytes) and ``__step__``, so files
-written by either package load in the other. The reference writes
-``.psph`` files through its native background writer; the port writes
-them synchronously in numpy.
+written by either package load in the other. ``.psph`` files go through
+the port's copy of the reference's native writer (C++, built with g++ at
+first use; a background thread streams each frame with its CRC), and where
+it cannot be built numpy writes the same bytes.
 """
 
 from __future__ import annotations

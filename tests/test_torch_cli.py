@@ -4,6 +4,7 @@ the step count, the cold-start bench, and the refusal by name of every
 option the port does not serve."""
 
 import json
+import os
 
 import pytest
 import torch
@@ -170,21 +171,76 @@ def test_bench_set_overrides_preset_and_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,word", [
-    (["--render", "x.png"], "--render"),
-    (["--render-every", "5"], "--render-every"),
-    (["--serve", "0"], "--serve"),
     (["--devices", "2"], "--devices"),
-    (["--animate", "x.gif"], "--animate"),
     (["--materials", "basalt,ice"], "--materials"),
     (["--materials", "basalt", "--ic", "two_planet_collision"],
      "--materials"),
     (["--debug-nans"], "--debug-nans"),
-    (["--serve", "8080", "--devices", "1"], "--serve"),
+    (["--devices", "1", "--serve", "8080"], "--devices"),
 ])
 def test_unported_flags_exit_nonzero_naming_the_flag(extra, word):
     with pytest.raises(SystemExit) as e:
         cli.main(RUN + extra)
     assert e.value.code not in (0, None) and word in str(e.value.code)
+
+
+def _png(path):
+    with open(path, "rb") as f:
+        return f.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+@pytest.mark.parametrize("flag", ["--render", "--render-every", "--animate",
+                                  "--serve"])
+def test_rendering_and_viewer_flags_produce_their_artifact(
+        flag, tmp_path, monkeypatch, capsys):
+    """Each flag the port once refused runs and produces its artifact: the
+    final PNG, the frames, the GIF, a /diag.json served during the run
+    (read from inside the run loop, where the viewer holds the chunk's
+    diagnostics)."""
+    import urllib.request
+    frames = tmp_path / "frames"
+    extra = {
+        "--render": ["--render", str(tmp_path / "x.png"),
+                     "--render-color-by", "id", "--render-quiver"],
+        "--render-every": ["--render-every", "2", "--render-every-dir",
+                           str(frames)],
+        "--animate": ["--render-every", "1", "--render-every-dir",
+                      str(frames), "--animate", str(tmp_path / "x.gif"),
+                      "--animate-fps", "5"],
+        "--serve": ["--serve", "0"],
+    }[flag]
+    served = []
+    real_control = cli._viewer_control
+
+    def control(viewer, cfg):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{viewer.port}/diag.json", timeout=10) as r:
+            served.append(json.loads(r.read()))
+        return real_control(viewer, cfg)
+
+    monkeypatch.setattr(cli, "_viewer_control", control)
+    assert cli.main(RUN + extra) == 0
+    if flag == "--render":
+        assert _png(tmp_path / "x.png")
+    elif flag == "--render-every":
+        assert sorted(os.listdir(frames)) == ["frame_00000.png",
+                                              "frame_00001.png"]
+        assert all(_png(frames / f) for f in os.listdir(frames))
+    elif flag == "--animate":
+        assert len(os.listdir(frames)) == 4
+        with open(tmp_path / "x.gif", "rb") as f:
+            assert f.read(6) == b"GIF89a"
+    else:
+        assert [d["step"] for d in served] == [2, 4]
+        assert served[0]["paused"] is False
+        assert served[0]["neighbors_avg"] > 0
+        assert "live view -> http://127.0.0.1:" in capsys.readouterr().err
+
+
+def test_animate_needs_frames():
+    with pytest.raises(SystemExit) as e:
+        cli.main(RUN + ["--animate", "x.gif"])
+    assert "--animate" in str(e.value.code)
 
 
 @pytest.mark.parametrize("extra,word", [

@@ -16,7 +16,9 @@ import torch
 from planetmodel_sph_tpu_torch import bench, cli, state
 from planetmodel_sph_tpu_torch.models import ics
 from planetmodel_sph_tpu_torch.runtime import snapshot
-from planetmodel_sph_tpu_torch.tools import microbench, roofline
+from planetmodel_sph_tpu_torch.tools import drift100k, drift_probe
+from planetmodel_sph_tpu_torch.tools import equilibrium_run, microbench
+from planetmodel_sph_tpu_torch.tools import roofline, rotating_l_check
 from planetmodel_sph_tpu_torch.utils import checkpoint
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,7 +65,12 @@ def test_scan_sees_the_package():
             "config.py", "ops/cuda/build.py", "ops/cuda/launch.py",
             "ops/gravity.py", "ops/grouping.py", "ops/eos.py",
             "ops/cuda/probes.py", "tools/roofline.py",
-            "tools/microbench.py", "utils/checkpoint.py"} <= names
+            "tools/microbench.py", "utils/checkpoint.py",
+            "tools/drift100k.py", "tools/rotating_l_check.py",
+            "tools/equilibrium_run.py", "tools/drift_probe.py",
+            "utils/profiling.py", "utils/render.py", "utils/liveview.py",
+            "runtime/native.py"} <= names
+    assert os.path.exists(os.path.join(PKG, "runtime", "psph_io.cpp"))
 
 
 def test_every_kernel_has_its_source_signature_and_counter():
@@ -93,7 +100,7 @@ def test_every_kernel_has_its_source_signature_and_counter():
                                 roofline.measure_launch,
                                 microbench.bench_gathers,
                                 microbench.bench_kernel_tiles,
-                                bench.run_bench,
+                                bench.run_bench, bench.bench_lines,
                                 ics.jupiter, ics.polytrope,
                                 ics.two_planet_collision,
                                 ics.rotating_planet])
@@ -112,9 +119,17 @@ def test_entry_points_default_to_cuda(fn):
     lambda: roofline.main(["--smoke"]),
     lambda: microbench.main(["--g", "8"]),
     lambda: checkpoint.load(snapshot.__file__),
+    lambda: bench.main(["--lines"]),
+    lambda: drift100k.main(["--out", "out/never"]),
+    lambda: rotating_l_check.main([]),
+    lambda: equilibrium_run.main(["--out", "out/never"]),
+    lambda: drift_probe.main([]),
+    lambda: cli.main(["run", "--n", "8", "--steps", "1", "--serve", "0"]),
 ], ids=["jupiter", "polytrope", "rotating_planet", "two_planet_collision",
         "bench_cold_start", "cli_run", "cli_bench", "tools_roofline",
-        "tools_microbench", "checkpoint_load"])
+        "tools_microbench", "checkpoint_load", "bench_lines",
+        "tools_drift100k", "tools_rotating_l_check",
+        "tools_equilibrium_run", "tools_drift_probe", "cli_serve"])
 def test_new_entry_points_raise_without_a_card(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

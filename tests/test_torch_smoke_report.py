@@ -450,3 +450,92 @@ def test_sass_pair_loops_counts_the_innermost_sweep_loops():
                        "EXIT"])
     got = cs.sass_pair_loops("\n".join(a + b))
     assert got == {"kernelA": [(4.5, False)], "kernelB": [(6.0, True)]}
+
+
+# ---- phase 8: the long horizon --------------------------------------------
+
+PHASE8 = os.path.join(ROOT, "tests", "chip_smoke_phase8_report.json")
+
+
+def _phase8():
+    import json
+    with open(PHASE8) as f:
+        return json.load(f)
+
+
+def test_phase8_recorded_report_passes():
+    """Phase 8's keys in a report recorded on the card: every run, its
+    launches and the kernels it must launch, the ship gate's numbers, the
+    rotating body's summary, the equilibrium artifacts, the bench lines,
+    the served frame and the overlay's filter launch."""
+    rep = _phase8()
+    assert set(rep["runs"]) == {"drift100k", "rotating_l_check",
+                                "equilibrium_run", "drift_probe",
+                                "bench_lines", "cli", "cli_blocks"}
+    assert cs.long_horizon_failures(rep) == []
+    d = rep["runs"]["drift100k"]
+    assert cs.failed_gates(d["gate"]) == []
+    assert d["gate_line"].startswith("SHIP GATE [PASS]")
+    assert set(d["phases"]) == {"settle", "drift"}
+    assert set(rep["runs"]["drift100k"]["expect_launched"]) == \
+        set(cs.LONG_KERNELS)
+    assert [ln["metric"] for ln in rep["runs"]["bench_lines"]["lines"]] == [
+        "particle_steps_per_sec_n3000", "particle_steps_per_sec_n100000"]
+
+
+def _spoil(rep, path, value):
+    *head, last = path
+    d = rep
+    for k in head:
+        d = d[k]
+    d[last] = value
+
+
+@pytest.mark.parametrize("path,value,word", [
+    (("runs", "drift100k", "gate", "energy_per_10k"), 2e-3, "|dE|/|E|"),
+    (("runs", "drift100k", "gate", "spin_per_10k"), 1e-4, "dL/I"),
+    (("runs", "drift100k", "gate", "overflow"), 3, "overflow"),
+    (("runs", "drift100k", "gate"), None, "drift rows"),
+    (("runs", "drift100k", "rc"), 2, "exit code 2"),
+    (("runs", "rotating_l_check", "launches", "filter_sph"), 0,
+     "no launch of ['filter_sph']"),
+    (("runs", "rotating_l_check", "summary", "overflow"), 12,
+     "rotating_l_check: overflow 12"),
+    (("runs", "rotating_l_check", "summary", "energy_drift_per_10k"),
+     float("nan"), "rotating_l_check"),
+    (("runs", "equilibrium_run", "png_non_black"), 0.1, "PNG lit"),
+    (("runs", "equilibrium_run", "missing"), ["equilibrium.png"],
+     "missing"),
+    (("runs", "drift_probe", "rc"), 1, "drift_probe: exit code 1"),
+    (("runs", "bench_lines", "lines", 1, "error"), "boom", "bench --lines"),
+    (("runs", "bench_lines", "lines", 0, "value"), 0.0, "bench --lines"),
+    (("runs", "cli", "points_n"), 12, "phase 8 cli"),
+    (("runs", "cli", "diag"), None, "phase 8 cli"),
+    (("runs", "cli_blocks", "launches", "filter_sph"), 2, "filter_sph 2"),
+], ids=lambda v: str(v)[:24])
+def test_phase8_failures_name_what_failed(path, value, word):
+    rep = _phase8()
+    _spoil(rep, path, value)
+    fails = cs.long_horizon_failures(rep)
+    assert any(word in f for f in fails), fails
+
+
+def test_phase8_reads_the_drift_tools_lines():
+    out = ("step 500 [settle]: E=-125.228 ...\n"
+           "phase settle: 2000 steps in 12.257 s of stepping = 163.173 "
+           "steps/s; retried chunks 2.905 s\n"
+           "phase drift: 10000 steps in 25.951 s of stepping = 385.341 "
+           "steps/s; retried chunks 0.000 s\n")
+    assert cs._phase_rates(out) == {
+        "settle": dict(steps=2000, s=12.257, steps_per_s=163.173,
+                       retried_s=2.905),
+        "drift": dict(steps=10000, s=25.951, steps_per_s=385.341,
+                      retried_s=0.0)}
+
+
+def test_png_non_black_share(tmp_path):
+    from PIL import Image
+    a = np.zeros((10, 10, 3), np.uint8)
+    a[:3] = 200
+    Image.fromarray(a).save(tmp_path / "x.png")
+    assert cs.png_non_black(str(tmp_path / "x.png")) == pytest.approx(0.3)
