@@ -166,7 +166,26 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    ``/points.bin`` are read, then resumed; and ``cli run --restore`` of the
    settled state for 8 steps with ``--render-blocks``, whose overlay adds
    one ``filter_sph`` launch to the chunk's two. The reference's published
-   results are printed beside these, never in their place.
+   results are printed beside these, never in their place;
+9. the replicated data-parallel path (``parallel/dp.py``), each leg's ranks
+   processes of their own started by ``parallel.mesh.spawn`` (the kernels
+   are built in phase 2, so no rank runs ``nvcc``): ``dp.make_run_info``
+   for 64 steps of the settled state at the production flags, (a) at world
+   size 1 over NCCL, held against phase 5's ``planet.run_info`` of the
+   same state (pos rtol 2e-3 atol 2e-3, rho rtol 2e-3: dp against one
+   device in ``tests/test_parallel.py``; overflow 0 in both), and (b) at 2
+   and 4 ranks sharing the one card over gloo (NCCL refuses two ranks on
+   one card), 50,000 and 25,000 targets a rank from the state's rows in
+   Morton order, each held against (a) by the same bounds; rank 0 of (b)
+   records the four kernels' inputs on its first evaluation, where its G
+   target groups differ from the NB source blocks, and each is held
+   against its plain version as in phase 4. Every rank's launch counts
+   must be the single path's for its steps; the legs print their steps/s,
+   G and NB and the launches summed over the ranks beside the single
+   path's. (c) ``cli run --preset jupiter_3k --devices 2 --steps 64
+   --diag-every 32`` must exit 0 with the clamp to the one card, its
+   steps/s and drift lines, and ``--n 511 --devices 2`` on the CPU exit 2.
+   This is no scaling measurement: one card holds every rank.
 
 The second-to-last line of standard output is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. A full
@@ -185,6 +204,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STATE = os.path.join(ROOT, "docs", "results", "drift100k_r5ship",
@@ -3700,6 +3720,317 @@ def long_horizon_phase(card):
     return rep, long_horizon_failures(rep)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the replicated data-parallel path, each leg's ranks processes of
+# their own
+# ---------------------------------------------------------------------------
+
+DP_DIR = os.path.join(OUT_DIR, "dp")
+# (leg, ranks, device, windows widened by): world size 1 over NCCL, as the
+# reference's CLI runs on a one-device host; then ranks that share the one
+# card over gloo (NCCL refuses two ranks on one card), the card's stand-in
+# for the reference's virtual CPU mesh, where a rank's G target groups
+# differ from the NB source blocks. At 25,000 targets a rank the grouping
+# drops a level (grouping.effective_level: 8^3 cells > 25,000 / 64), so a
+# group may cross the level-3 cells the single set's never cross, and the
+# production windows overflow (its near window most): the four-rank leg's
+# windows are three times the production ones (capacities only: with
+# nothing dropped the sums are the same)
+DP_LEGS = (("dp1", 1, "cuda", 1.0), ("dp2", 2, "cuda:0", 1.0),
+           ("dp4", 4, "cuda:0", 3.0))
+# dp against one device (tests/test_parallel.py:161-164)
+DP_RTOL, DP_ATOL = 2e-3, 2e-3
+DP_TIMEOUT_S = 300        # one collective's longest wait in a phase-9 rank
+DP_CLI = ["run", "--preset", "jupiter_3k", "--devices", "2", "--steps",
+          "64", "--diag-every", "32"]
+DP_CLI_INDIVISIBLE = ["run", "--device", "cpu", "--n", "511", "--devices",
+                      "2", "--steps", "2"]
+
+
+def morton_order(pos):
+    """The particles' order along the Morton curve of the cubic box about
+    them, as the reference's ``halo.morton_shard_state`` sorts a state
+    before cutting its shards."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops import morton
+    lo = pos.amin(0)
+    hi = lo + (pos.amax(0) - lo).max()
+    return torch.sort(morton.encode(pos, lo, hi), stable=True).indices
+
+
+def dp_rank(mesh, work, steps, record, widen):
+    """One rank of a phase-9 leg: the settled state's shard, one warm-up
+    chunk, then `steps` steps of ``dp.make_run_info`` from the shard timed
+    between two collectives, the launch counts reset just before and read
+    just after. On more than one rank the state's rows are first put in
+    Morton order, so each rank's targets are a compact part of the planet
+    (in the file's order a rank's targets are a random subset, each group
+    of 64 spans a larger extent and the production windows overflow).
+    The windows are widened by `widen`. Rank 0 with `record` keeps the four kernels' inputs of its first
+    evaluation (the last call of each up to the first pass 2: the chunk
+    build's filter, the seed far force, the first near force's density
+    and pass 2). Writes work/rank<r>.json; rank 0 also work/state.pt (the
+    gathered pos and rho, back in the file's order) and work/inputs.pt."""
+    import torch
+    from planetmodel_sph_tpu_torch.models import planet
+    from planetmodel_sph_tpu_torch.ops import grouping
+    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    from planetmodel_sph_tpu_torch.ops.cuda import launch
+    from planetmodel_sph_tpu_torch.parallel import dp, mesh as mesh_mod
+    from planetmodel_sph_tpu_torch.runtime import snapshot
+    from planetmodel_sph_tpu_torch.tools.rotating_l_check import widened
+    state, cfg, _ = snapshot.load(STATE, device=mesh.device)
+    cfg = widened(cfg, widen)
+    order = None
+    if mesh.size > 1:
+        order = morton_order(state.pos)
+        state = planet._permute_state(state, order)
+    local = mesh_mod.shard_state(state, mesh)
+    del state
+    run = dp.make_run_info(cfg, mesh)
+    run(local, cfg.rebuild_every)       # warm-up: libraries, allocations
+    rec, orig = {}, {}
+    if record and mesh.rank == 0:
+        def spy(name, fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                if "pass2" not in rec:
+                    rec[name] = (a, kw)
+                return out
+            return call
+        orig = {k: getattr(gk2, k) for k in LONG_KERNELS}
+        for k, fn in orig.items():
+            setattr(gk2, k, spy(k, fn))
+
+    def sync():
+        mesh_mod.psum(torch.zeros((), device=mesh.device), mesh)
+        torch.cuda.synchronize(mesh.device)
+
+    sync()
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    out, info = run(local, steps)
+    torch.cuda.synchronize(mesh.device)
+    launches = dict(launch.LAUNCHES)
+    sync()
+    wall = time.perf_counter() - t0
+    for k, fn in orig.items():
+        setattr(gk2, k, fn)
+    full = mesh_mod.gather_state(out, mesh)
+    if order is not None:
+        full = planet._permute_state(full, torch.argsort(order))
+    bsz, lg = cfg.nbr_group_size, cfg.nbr_group_level
+    rep = dict(rank=mesh.rank, backend=mesh.backend, device=str(mesh.device),
+               wall_s=wall, launches=launches,
+               expected=expected_launches(cfg, steps),
+               info={k: int(v) for k, v in info.items()},
+               groups=grouping.n_groups_static(local.n, bsz, lg),
+               blocks=grouping.n_groups_static(cfg.n, bsz, lg),
+               local_n=local.n)
+    with open(os.path.join(work, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(rep, f)
+    if mesh.rank == 0:
+        torch.save(dict(pos=full.pos.cpu(), rho=full.rho.cpu(),
+                        non_finite=all_finite(full)),
+                   os.path.join(work, "state.pt"))
+        if rec:
+            torch.save(rec, os.path.join(work, "inputs.pt"))
+
+
+def dp_agreement(pos, rho, ref):
+    """Entries of pos and rho outside the phase-9 bounds against `ref`
+    (pos rtol DP_RTOL atol DP_ATOL, rho rtol DP_RTOL), and the largest
+    errors."""
+    dp_ = (pos.double() - ref["pos"].double()).abs()
+    dr = (rho.double() - ref["rho"].double()).abs()
+    return dict(
+        pos_bad=int((dp_ > DP_ATOL + DP_RTOL * ref["pos"].double().abs())
+                    .sum()),
+        rho_bad=int((dr > DP_RTOL * ref["rho"].double().abs()).sum()),
+        pos_max_abs_err=float(dp_.max()),
+        rho_max_rel_err=float((dr / ref["rho"].double().abs()).max()))
+
+
+def dp_leg(leg, d, device, widen, ref, ptxas):
+    """One leg: its ranks started by ``parallel.mesh.spawn``, their files
+    read back, the result held against `ref` and, at D > 1, the four
+    kernels held against their plain versions on rank 0's inputs. Returns
+    (report, {"pos", "rho"} of the gathered state, kernel case reports)."""
+    import tempfile
+    import torch
+    from planetmodel_sph_tpu_torch.parallel import mesh as mesh_mod
+    # the recorded inputs are some 100-400 MB: kept out of OUT_DIR
+    work = tempfile.mkdtemp(prefix=f"psph_{leg}_")
+    t0 = time.perf_counter()
+    rep = dict(leg=leg, ranks=d, device=device, widen=widen)
+    got, cases = None, []
+    try:
+        mesh_mod.spawn(dp_rank, d, device=device,
+                       args=(work, STEPS, d > 1, widen),
+                       timeout_s=DP_TIMEOUT_S)
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(d)]
+        st = torch.load(os.path.join(work, "state.pt"), weights_only=True)
+        got = {"pos": st["pos"], "rho": st["rho"]}
+        wall = max(r["wall_s"] for r in ranks)
+        rep.update(
+            backend=ranks[0]["backend"], wall_s=wall,
+            steps_per_s=STEPS / wall, rank_launches=[r["launches"]
+                                                     for r in ranks],
+            launches={k: sum(r["launches"][k] for r in ranks)
+                      for k in ranks[0]["launches"]},
+            expected=ranks[0]["expected"], info=ranks[0]["info"],
+            groups=ranks[0]["groups"], blocks=ranks[0]["blocks"],
+            local_n=ranks[0]["local_n"], non_finite=st["non_finite"],
+            **dp_agreement(got["pos"], got["rho"], ref))
+        if d > 1:
+            rec = torch.load(os.path.join(work, "inputs.pt"),
+                             map_location="cuda:0", weights_only=True)
+            rep["recorded"] = sorted(rec)
+            for name in LONG_KERNELS:
+                if name not in rec:
+                    continue
+                a, kw = rec[name]
+                case = "@".join(filter(None, (MAIN_CASE.get(name), leg)))
+                c = check_one(name, case, a, kw, ptxas)
+                c["legs"] = [leg]
+                cases.append(c)
+            del rec
+    except Exception as e:            # noqa: BLE001 - reported, exits 1
+        rep["error"] = f"{type(e).__name__}: {e}"
+        rep["traceback"] = traceback.format_exc()[-3000:]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rep["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return rep, got, cases
+
+
+def dp_cli_run(label, args, timeout=300):
+    """``python -m planetmodel_sph_tpu_torch.cli ARGS`` from the root:
+    dict(rc, wall_s, lines), its output in DP_DIR/<label>.log."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "planetmodel_sph_tpu_torch.cli",
+                        *args], cwd=ROOT, env=_env(), capture_output=True,
+                       text=True, timeout=timeout)
+    with open(os.path.join(DP_DIR, f"{label}.log"), "w") as f:
+        f.write(r.stdout + "\n--- stderr\n" + r.stderr)
+    return dict(args=args, rc=r.returncode, wall_s=time.perf_counter() - t0,
+                lines=[ln for ln in r.stderr.splitlines() if any(
+                    w in ln for w in ("clamped", "steps/s", "energy drift",
+                                      "not divisible", "WARNING", "Error"))],
+                err_tail=r.stderr[-1500:])
+
+
+def dp_phase(card, main_ref, ptxas):
+    """Phase 9: the dp path at D = 1 (NCCL) and D = 2, 4 (gloo ranks on
+    the one card), each held against the single path's run (`main_ref`:
+    its pos, rho, overflow, launches and steps/s), the four kernels on the
+    shared-card legs' inputs, and the command line's --devices. Returns
+    (report, failures, kernel case reports)."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    t_all = time.perf_counter()
+    print(f"phase 9 (data parallel) on {card}", flush=True)
+    legs, cases, first = {}, [], None
+    for leg, d, device, widen in DP_LEGS:
+        # D = 1 against the single path, the shared-card legs against D = 1
+        ref = main_ref if first is None else first
+        legs[leg], got, c = dp_leg(leg, d, device, widen, ref, ptxas)
+        cases += c
+        if leg == "dp1":
+            first = got
+        r = legs[leg]
+        if "error" in r:
+            print(f"  {leg}: FAILED {r['error']}", flush=True)
+            continue
+        print(f"  {leg} ({d} rank(s), {r['backend']} on {device}, windows "
+              f"x{widen}): "
+              f"{STEPS} steps in {r['wall_s']:.3f} s = "
+              f"{r['steps_per_s']:.3f} steps/s (single path "
+              f"{main_ref['steps_per_s']:.3f}); G = {r['groups']} target "
+              f"groups a rank, NB = {r['blocks']} source blocks", flush=True)
+        against = "the single path" if leg == "dp1" else "dp1"
+        print(f"    launches, summed over the ranks: {r['launches']} "
+              f"(single path {main_ref['launches']}); overflow "
+              f"{r['info']}; against {against}"
+              f": pos max abs err {r['pos_max_abs_err']:.3e}, rho max rel "
+              f"err {r['rho_max_rel_err']:.3e}, outside the bounds "
+              f"{r['pos_bad']} / {r['rho_bad']}", flush=True)
+    cli = dp_cli_run("cli_devices", DP_CLI)
+    cli_bad = dp_cli_run("cli_indivisible", DP_CLI_INDIVISIBLE)
+    for label, r in (("cli --devices 2", cli), ("cli --n 511", cli_bad)):
+        print(f"  {label}: exit {r['rc']}; {'; '.join(r['lines'])} "
+              f"({r['wall_s']:.1f} s)", flush=True)
+    rep = dict(legs=legs, cli=cli, cli_indivisible=cli_bad,
+               single=dict(steps_per_s=main_ref["steps_per_s"],
+                           launches=main_ref["launches"],
+                           overflow=main_ref["overflow"]),
+               cases=[{k: c[k] for k in ("name", "case", "ok", "legs",
+                                         "max_abs_err", "shapes", "shares")}
+                      for c in cases],
+               total_s=time.perf_counter() - t_all)
+    print(f"phase 9: {rep['total_s']:.1f} s", flush=True)
+    return rep, dp_failures(rep), cases
+
+
+def dp_failures(rep):
+    """What phase 9's report `rep` fails: a leg that raised; a rank whose
+    launches are not the single path's count for its steps, or a kernel of
+    the path not launched; overflow; non-finite fields; pos or rho outside
+    the bounds; a shared-card leg whose target groups equal the source
+    blocks; a kernel case that disagrees with its plain version or is
+    missing; the command line's exit codes and lines."""
+    fails = []
+    if any(rep["single"]["overflow"].values()):
+        fails.append(f"phase 9: the single path overflowed "
+                     f"{rep['single']['overflow']}")
+    for leg, d, _, _ in DP_LEGS:
+        r = rep["legs"].get(leg)
+        if r is None or "error" in r:
+            fails.append(f"phase 9 {leg}: {None if r is None else r['error']}")
+            continue
+        for k, rl in enumerate(r["rank_launches"]):
+            want = dict.fromkeys(rl, 0)
+            want.update(r["expected"])
+            if rl != want:
+                fails.append(f"phase 9 {leg} rank {k}: launches {rl} != "
+                             f"{want}")
+        idle = [k for k in LONG_KERNELS if not r["launches"].get(k)]
+        if idle:
+            fails.append(f"phase 9 {leg}: no launch of {idle}")
+        if any(r["info"].values()):
+            fails.append(f"phase 9 {leg}: overflow {r['info']}")
+        if r["non_finite"]:
+            fails.append(f"phase 9 {leg}: non-finite {r['non_finite']}")
+        if r["pos_bad"] or r["rho_bad"]:
+            fails.append(f"phase 9 {leg}: {r['pos_bad']} pos and "
+                         f"{r['rho_bad']} rho entries outside rtol "
+                         f"{DP_RTOL} atol {DP_ATOL}")
+        if d > 1 and r["groups"] == r["blocks"]:
+            fails.append(f"phase 9 {leg}: G == NB ({r['groups']})")
+    want = {(n, leg[0]) for n in LONG_KERNELS for leg in DP_LEGS
+            if leg[1] > 1}
+    seen = {(c["name"], c["legs"][0]) for c in rep["cases"]}
+    if want - seen:
+        fails.append(f"phase 9: kernel cases not checked "
+                     f"{sorted(want - seen)}")
+    for c in rep["cases"]:
+        if not c["ok"]:
+            fails.append(f"phase 9 {c['name']} [{c['case']}]: disagrees "
+                         "with its plain version")
+    c = rep["cli"]
+    text = "\n".join(c["lines"])
+    if c["rc"] != 0 or "clamped to 1" not in text or "(dp x1)" not in text \
+            or "energy drift" not in text:
+        fails.append(f"phase 9 cli --devices 2: exit code {c['rc']}, lines "
+                     f"{c['lines']}: {c.get('err_tail', '')[-300:]}")
+    if rep["cli_indivisible"]["rc"] != 2:
+        fails.append(f"phase 9 cli --n 511 --devices 2: exit code "
+                     f"{rep['cli_indivisible']['rc']}, not 2")
+    return fails
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3921,6 +4252,9 @@ def main(argv=None) -> int:
     if not abs(de) < 1e-2:
         failures.append(f"total energy moved by {de:.3e} in {STEPS} steps")
     main_out, main_wall = out, wall
+    # phase 9 holds the dp path against this run
+    main_ref = dict(pos=out.pos.cpu(), rho=out.rho.cpu(), overflow=overflow,
+                    launches=launches, steps_per_s=STEPS / wall)
     del out
     torch.cuda.empty_cache()
 
@@ -4030,6 +4364,11 @@ def main(argv=None) -> int:
     report["long_horizon"], fails = long_horizon_phase(card)
     failures += fails
 
+    # 9. the replicated data-parallel path: D = 1 over NCCL, D = 2 and 4
+    # ranks sharing the card over gloo
+    report["dp"], fails, dp_cases = dp_phase(card, main_ref, ptxas)
+    failures += fails
+
     report["total_s"] = time.perf_counter() - t_all
     report["failures"] = failures
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4052,10 +4391,24 @@ def main(argv=None) -> int:
         # (0 for an extra that only the kernel phase drives)
         return sum(legs[leg][name] for leg in case_report["legs"])
 
+    def add_dp_legs(entry, name):
+        # the dp legs: their launches, summed over the ranks, and at D > 1
+        # the kernel held against its plain version on rank 0's inputs
+        for leg, *_ in DP_LEGS:
+            entry[leg] = dict(
+                launches=report["dp"]["legs"][leg]["launches"][name])
+            for c in dp_cases:
+                if c["name"] == name and c["legs"] == [leg]:
+                    entry[leg].update(case=c["case"],
+                                      **{k: c[k] for k in keys},
+                                      library_ms=None)
+        return entry
+
     for name, (source, replaces) in KERNELS.items():
         if name in PROBES:
-            kernels.append(probe_entry(name, source, replaces,
-                                       probe_reports, tools["launches"]))
+            kernels.append(add_dp_legs(probe_entry(
+                name, source, replaces, probe_reports, tools["launches"]),
+                name))
             continue
         own = [r for r in mode_reports if r["name"] == name]
         if name in kreports:
@@ -4088,7 +4441,7 @@ def main(argv=None) -> int:
             entry["case_parity3k"] = dict(
                 launches=legs["parity3k"][name], legs=["parity3k"],
                 **{k: par[k] for k in keys}, library_ms=None)
-        kernels.append(entry)
+        kernels.append(add_dp_legs(entry, name))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,10 +10,18 @@ card unless ``--device cpu`` is given.
         --steps 300 --diag-every 100
     python -m planetmodel_sph_tpu_torch.cli bench --n 3000 --steps 200
 
-What the reference's CLI has and this one refuses by name: ``--devices``
-(data parallelism) and ``--debug-nans`` (a JAX switch). Checkpoints are
-PSPH1 for a ``.psph`` path and npz otherwise, read and written as the
+What the reference's CLI has and this one refuses by name: ``--debug-nans``
+(a JAX switch) and ``--set dp_mode=halo`` (the halo layout). Checkpoints
+are PSPH1 for a ``.psph`` path and npz otherwise, read and written as the
 reference does (``utils/checkpoint.py``).
+
+``--devices D`` (D > 1) runs the replicated data-parallel layout
+(``parallel/dp.py``): the command starts D ranks of its own, one a card over
+NCCL (D clamps to the visible cards, and says so), or D ranks on the CPU
+over gloo with ``--device cpu``; rank 0 logs and writes the files.
+
+    python -m planetmodel_sph_tpu_torch.cli run --device cpu --n 512 \\
+        --devices 2 --steps 8 --diag-every 4
 
     python -m planetmodel_sph_tpu_torch.cli run --steps 200 \\
         --render-every 20 --animate run.gif --render final.png
@@ -46,7 +54,7 @@ import torch
 from . import bench as bench_mod
 from . import config as config_mod
 from .models import ics, planet
-from .state import resolve_device
+from .state import resolve_device, to_numpy
 from .utils import checkpoint, diagnostics, render
 
 _PRESETS = {name: getattr(config_mod, name) for name in bench_mod.PRESETS}
@@ -56,9 +64,10 @@ _ICS = ("jupiter", "two_planet_collision", "rotating_planet",
 # options of the reference's CLI that select something not ported: accepted
 # by the parser so the refusal can name them
 _UNPORTED = {
-    "devices": "data parallelism over several devices",
     "debug_nans": "a JAX debugging switch",
 }
+# what the data-parallel runner does not do (the reference's skips them)
+_NOT_DP = ("render", "render_every", "animate", "serve")
 
 
 def _make_ic(args, cfg, device):
@@ -120,6 +129,13 @@ def _refuse_unported(args):
     if args.animate and not args.render_every:
         raise SystemExit("--animate assembles the frames of --render-every: "
                          "give both")
+    if args.devices is not None and args.devices > 1:
+        used = [f"--{k.replace('_', '-')}" for k in _NOT_DP
+                if getattr(args, k) is not None]
+        if used:
+            raise SystemExit(f"--devices runs no {', '.join(used)}: the "
+                             "data-parallel runner renders and serves "
+                             "nothing")
 
 
 def _viewer_control(viewer, cfg):
@@ -196,13 +212,17 @@ def cmd_run(args) -> int:
             # name it, exit non-zero
             _log(f"error: {e}")
             return 2
-        state = planet.prime(state, cfg)
         start_step = 0
 
     if args.metrics_jsonl and not args.restore:
         # fresh run: truncate, so unrelated runs never mix in one trail (a
         # resume keeps appending to its own)
         open(args.metrics_jsonl, "w").close()
+
+    if args.devices is not None and args.devices > 1:
+        return _run_dp(args, cfg, state, start_step, device)
+    if not args.restore:
+        state = planet.prime(state, cfg)
 
     viewer = None
     if args.serve is not None:
@@ -275,6 +295,85 @@ def cmd_run(args) -> int:
     drift = diagnostics.energy_drift(diags)
     _log(f"energy drift: {float(drift[-1]):.3e}")
     return 0
+
+
+def _run_dp(args, cfg, state, start_step, device) -> int:
+    """The data-parallel run: D ranks of this command's own, each priming
+    and stepping its shard (``parallel/dp.py``), rank 0 logging and writing
+    the files."""
+    from .parallel import mesh as mesh_mod
+    if cfg.dp_mode == "halo":
+        raise SystemExit("--set dp_mode=halo: the halo layout "
+                         "(parallel/halo.py) is not ported; the replicated "
+                         "layout is dp_mode=replicated")
+    n_dev = args.devices
+    if device.type == "cuda":
+        # one rank a card: the count clamps to the visible cards, as the
+        # reference's clamps to its devices
+        n_dev = min(args.devices, torch.cuda.device_count())
+        if n_dev < args.devices:
+            _log(f"--devices {args.devices}: {n_dev} card(s) visible, "
+                 f"clamped to {n_dev}")
+    if cfg.n % n_dev:
+        _log(f"error: n={cfg.n} not divisible by {n_dev} devices")
+        return 2
+    mesh_mod.spawn(_dp_rank, n_dev, device=device.type,
+                   args=(args, cfg, to_numpy(state), start_step))
+    return 0
+
+
+def _dp_rank(mesh, args, cfg, arrays, start_step):
+    """One rank of :func:`_run_dp`."""
+    from .parallel import dp, mesh as mesh_mod
+    from .state import from_numpy
+    lead = mesh.rank == 0
+    if lead:
+        _log(f"dp mesh over {mesh.size} rank(s): {mesh.backend}, rank 0 on "
+             f"{mesh.device}")
+    state = mesh_mod.shard_state(from_numpy(arrays, device=mesh.device),
+                                 mesh)
+    state = dp.make_prime(cfg, mesh)(state)
+    runner = dp.make_run_diag(cfg, mesh)
+
+    # as the single path: full diag chunks plus a diagnosed remainder
+    every = max(1, min(args.diag_every, args.steps))
+    n_chunks, rem = divmod(args.steps, every)
+    t0 = time.perf_counter()
+    diags_list, step_nos = [], []
+    if n_chunks:
+        state, d = runner(state, n_chunks, every)
+        diags_list.append(d)
+        step_nos.extend(start_step + (i + 1) * every
+                        for i in range(n_chunks))
+    if rem:
+        state, d = runner(state, 1, rem)
+        diags_list.append(d)
+        step_nos.append(start_step + args.steps)
+    diags = {k: torch.cat([d[k] for d in diags_list]).cpu()
+             for k in diags_list[0]}
+    dt_wall = time.perf_counter() - t0
+    total = args.steps
+    full = mesh_mod.gather_state(state, mesh) if args.checkpoint else None
+    if not lead:
+        return
+    _log(f"{total} steps in {dt_wall:.2f}s = {total/dt_wall:.1f} steps/s "
+         f"(dp x{mesh.size})")
+    for i, step_no in enumerate(step_nos):
+        row = {k: float(v[i]) for k, v in sorted(diags.items())}
+        _log(f"step {step_no}: total_energy={row['total_energy']:.5g} "
+             f"neighbors_avg={row['neighbors_avg']:.4g}")
+        if args.metrics_jsonl:
+            with open(args.metrics_jsonl, "a") as f:
+                f.write(json.dumps({"step": step_no, **row}) + "\n")
+    if args.checkpoint:
+        checkpoint.save(args.checkpoint, full, cfg, start_step + total)
+        _log(f"checkpoint -> {args.checkpoint}")
+    for key in ("nbr_overflow", "tree_overflow"):
+        if int(diags[key].sum()) > 0:
+            _log(f"WARNING: {key}={int(diags[key].sum())} interactions "
+                 "dropped — raise the corresponding capacity")
+    drift = diagnostics.energy_drift(diags)
+    _log(f"energy drift: {float(drift[-1]):.3e}")
 
 
 def cmd_bench(args) -> int:
@@ -364,9 +463,11 @@ def main(argv=None) -> int:
                          "http://localhost:PORT (0: a free port), a frame "
                          "every --render-every (or --diag-every) steps, "
                          "with pause/resume and steered knobs")
-    # refused by name in cmd_run (see _UNPORTED)
     pr.add_argument("--devices", type=int, default=None,
-                    help=argparse.SUPPRESS)
+                    help="data parallelism over D ranks (the replicated "
+                         "layout): one a card, clamped to the visible "
+                         "cards; D ranks on the CPU with --device cpu")
+    # refused by name in cmd_run (see _UNPORTED)
     pr.add_argument("--debug-nans", action="store_true",
                     help=argparse.SUPPRESS)
     pr.set_defaults(fn=cmd_run)

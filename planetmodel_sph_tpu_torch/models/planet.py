@@ -27,6 +27,10 @@ port runs:
 - the cached-step API: :func:`init_carry` and :func:`step_carry`, one
   cached step at a time from Python.
 
+`axis=` (``current_dt``, ``com_correct`` and the steps) is the data-parallel
+mesh of ``parallel/mesh.py`` when a rank steps its shard (``parallel/dp.py``):
+the CFL minimum and the centre-of-mass sums are then reduced over the ranks.
+
 The reference's ``lax.scan`` loops are Python loops here and its
 ``lax.cond`` an ``if``; the eager operations run on whatever device holds
 the state's tensors, and nothing in a step reads a value back to the host.
@@ -43,6 +47,7 @@ import torch
 from ..config import SimConfig, check_slice
 from ..ops import dense, eos as eos_ops, structure
 from ..ops.cuda import pairwise
+from ..parallel import mesh as mesh_mod
 from ..state import ParticleState
 
 
@@ -82,11 +87,13 @@ def update_h(h, n_neighbors, cfg: SimConfig):
     return h_next
 
 
-def current_dt(state: ParticleState, cfg: SimConfig):
+def current_dt(state: ParticleState, cfg: SimConfig, axis=None):
     """The timestep the next step will take, a 0-d tensor on the state's
     device. dt_mode='fixed': cfg.dt. dt_mode='cfl': C * min_i(h_i/(c_i +
     |v_i|), sqrt(h_i/|a_i|)) from the state's last-step fields, clipped to
-    [cfg.dt_min, cfg.dt]; particles with mass 0 are excluded."""
+    [cfg.dt_min, cfg.dt]; particles with mass 0 are excluded. `axis`: the
+    mesh when a rank steps its shard: the minimum is then taken over every
+    rank, so all integrate with the same dt."""
     dtype, dev = state.pos.dtype, state.pos.device
     if cfg.dt_mode == "fixed":
         # filled on the device: no host-to-device copy in the step
@@ -101,14 +108,18 @@ def current_dt(state: ParticleState, cfg: SimConfig):
     dt_c = torch.where(live, state.h / (cs + v + 1e-30), 3e30)
     dt_f = torch.where(
         live, torch.sqrt(state.h / torch.clamp(a, min=1e-30)), 3e30)
-    dt = cfg.cfl_number * torch.minimum(dt_c.min(), dt_f.min())
+    local_min = torch.minimum(dt_c.min(), dt_f.min())
+    if axis is not None:
+        local_min = mesh_mod.pmin(local_min, axis)
+    dt = cfg.cfl_number * local_min
     return torch.clamp(dt, cfg.dt_min, cfg.dt).to(dtype)
 
 
-def _step_dt(state: ParticleState, cfg: SimConfig):
+def _step_dt(state: ParticleState, cfg: SimConfig, axis=None):
     """dt as the integrators use it: the Python float under dt_mode='fixed'
     (no device op), else :func:`current_dt`'s 0-d tensor."""
-    return cfg.dt if cfg.dt_mode == "fixed" else current_dt(state, cfg)
+    return cfg.dt if cfg.dt_mode == "fixed" \
+        else current_dt(state, cfg, axis=axis)
 
 
 def h_eta(cfg: SimConfig) -> float:
@@ -117,16 +128,23 @@ def h_eta(cfg: SimConfig) -> float:
             / cfg.kappa)
 
 
-def com_correct(grad_phi, mass, cfg: SimConfig):
+def com_correct(grad_phi, mass, cfg: SimConfig, axis=None):
     """Opt-in exact momentum conservation for tree gravity: subtract the
     mass-weighted mean potential gradient so sum(m_i a_grav,i) = 0. The
     two sums are taken in float64, so the correction does not depend on
     the order of the particles (a sorted chunk's padded layout and the
-    state's own order give the same float32 result)."""
+    state's own order give the same float32 result). `axis`: the mesh when
+    a rank corrects its shard: each rank's float64 partial sums are
+    all-reduced in float64, so a fixed rank count gives the same bits on
+    every run."""
     if not (cfg.grav_com_correction and cfg.gravity_solver == "tree"):
         return grad_phi
     f = (mass[:, None].double() * grad_phi.double()).sum(dim=0)
-    mean = (f / mass.double().sum()).to(grad_phi.dtype)
+    m = mass.double().sum()
+    if axis is not None:
+        f = mesh_mod.psum(f, axis)
+        m = mesh_mod.psum(m, axis)
+    mean = (f / m).to(grad_phi.dtype)
     return grad_phi - mean[None, :]
 
 
@@ -485,13 +503,14 @@ def _step_info(f: Forces, device):
 
 
 def step_staggered(state: ParticleState, cfg: SimConfig, forces_fn=None,
-                   update_smoothing=True, return_info=False):
+                   update_smoothing=True, axis=None, return_info=False):
     """Reference-ordered step: forces at x_n, then x_{n+1} = x_n + v_n dt
     (the OLD velocity), then v_{n+1} = v_n + a(x_n) dt. `return_info=True`
     also returns the overflow counters of any structure built inside the
-    force evaluation (zeros when none was)."""
+    force evaluation (zeros when none was). `axis`: the mesh under data
+    parallelism (see :func:`current_dt`)."""
     forces_fn = forces_fn or _default_forces(cfg)
-    dt = _step_dt(state, cfg)
+    dt = _step_dt(state, cfg, axis=axis)
     h = update_h(state.h, state.n_neighbors, cfg) if update_smoothing \
         else state.h
     f = forces_fn(state.pos, h, state.mass, vel=state.vel,
@@ -508,7 +527,7 @@ def step_staggered(state: ParticleState, cfg: SimConfig, forces_fn=None,
 
 
 def step_kdk(state: ParticleState, cfg: SimConfig, forces_fn=None,
-             update_smoothing=True, return_info=False):
+             update_smoothing=True, axis=None, return_info=False):
     """Leapfrog kick-drift-kick; state.accel carries a(x_n) from the last
     step. `update_smoothing=False` keeps the state's h (the cached runner
     updates it at chunk boundaries and by tracking).
@@ -520,9 +539,10 @@ def step_kdk(state: ParticleState, cfg: SimConfig, forces_fn=None,
     doing expansion work as u -> 0, so a floor would inject energy at every
     clamp. u may run a small negative debt instead; the EOS functions clamp
     u >= 0 for evaluation, so the pressure stays physical while the ledger
-    sum(m u) stays exact."""
+    sum(m u) stays exact. `axis`: the mesh under data parallelism (see
+    :func:`current_dt`)."""
     forces_fn = forces_fn or _default_forces(cfg)
-    dt = _step_dt(state, cfg)
+    dt = _step_dt(state, cfg, axis=axis)
     v_half = state.vel if cfg.freeze_velocity \
         else state.vel + 0.5 * dt * state.accel
     pos = state.pos + dt * v_half
@@ -541,10 +561,12 @@ def step_kdk(state: ParticleState, cfg: SimConfig, forces_fn=None,
 
 
 def step(state: ParticleState, cfg: SimConfig, forces_fn=None,
-         return_info=False):
+         axis=None, return_info=False):
     if cfg.integrator == "staggered_euler":
-        return step_staggered(state, cfg, forces_fn, return_info=return_info)
-    return step_kdk(state, cfg, forces_fn, return_info=return_info)
+        return step_staggered(state, cfg, forces_fn, axis=axis,
+                              return_info=return_info)
+    return step_kdk(state, cfg, forces_fn, axis=axis,
+                    return_info=return_info)
 
 
 def _permute_state(state: ParticleState, idx):

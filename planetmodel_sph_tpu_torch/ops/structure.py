@@ -16,7 +16,13 @@ and the Balsara limiter, the conjugate energy equation, with near gravity
 fused into it (and the residual-P2P window merged) or swept on its own; the
 gravity tiers in one launch, near only or far only, with or without the
 supergroup far tier; and the standalone gravity sweep of dense-SPH runs.
-Still out: data-parallel source sets.
+
+Two particle sets (`src=`, the replicated data-parallel layout of
+``parallel/dp.py``): the targets are a rank's shard, the sources the
+all-gathered global set, each with its own Morton grouping in a shared
+bounding box. The windows then index the SOURCE blocks (NB of them) from
+the TARGET groups (G of them, G != NB), and the far-scan mask is [G, NBpad]
+over the source blocks; the kernels take both as they are.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ from .gravity import accept_bmax
 
 class BlockStructure(NamedTuple):
     """Frozen interaction structure (sub-block granularity windows)."""
-    groups: grouping.Groups
+    groups: grouping.Groups      # target grouping
+    src_groups: grouping.Groups  # source grouping (the same object for a
+                                 # single-set build)
     sph_idx: torch.Tensor        # [G, Ws] SPH-window sub-block ids, or
                                  # sorted-layout particle ids under exact
                                  # lists (-1 pad)
@@ -215,66 +223,107 @@ def _block_stats(pos_b, h_b, m_b, live):
     return mass, cm, amin, amax, bmax2, hmax
 
 
-def build(pos, h, mass, cfg: SimConfig, skin=0.0, h_margin: float = 0.0,
-          groups=None, sph_only: bool = False) -> BlockStructure:
+def build(pos, h, mass, cfg: SimConfig, skin=0.0, src=None,
+          target_offset: int = 0, h_margin: float = 0.0, groups=None,
+          sph_only: bool = False, skin_src=None) -> BlockStructure:
     """Build windows + MAC mask for the current positions/smoothing lengths.
 
     `skin`: per-particle motion bound [N] (or a scalar) reduced to per-block
     and per-sub-block maxima; adjacency cutoffs widen by both sides' skins
-    and the MAC stays conservative over the rebuild period. `h_margin`:
-    cutoffs widened by (1+h_margin) on h. `groups`: a frozen grouping to
-    reuse instead of re-sorting (cfg.sort_every). `sph_only`: skip the
-    gravity partition (throwaway structures of the Newton h-solve)."""
+    and the MAC stays conservative over the rebuild period. `src`: an
+    optional (pos, h, mass) source set (data parallelism: the targets are
+    the local shard, the sources the all-gathered global set); a tensor
+    `skin` then covers the targets only, and `skin_src` (the gathered
+    skins) the sources, zero without it. `target_offset`: the targets'
+    first index in the source set, carried as the reference carries it
+    (the windows do not need it: self pairs are included and corrected).
+    `h_margin`: cutoffs widened by (1+h_margin) on h. `groups`: a frozen
+    grouping to reuse instead of re-sorting (cfg.sort_every): one Groups
+    for a single-set build, a (target, source) pair under `src`.
+    `sph_only`: skip the gravity partition (throwaway structures of the
+    Newton h-solve)."""
     check_slice(cfg)
+    single = src is None
     dev, fdt = pos.device, pos.dtype
-    n = pos.shape[0]
+    pos_s, h_s, mass_s = (pos, h, mass) if single else src[:3]
     bsz = cfg.nbr_group_size
     chunk = cfg.block_chunk
     do_grav = cfg.gravity_solver == "tree" and not sph_only
 
-    if groups is None:
+    if groups is not None:
+        if isinstance(groups, grouping.Groups):
+            if not single:
+                raise ValueError("dp builds need a (target, source) "
+                                 "groups pair")
+            tgrp = sgrp = groups
+        else:
+            if single:
+                raise ValueError("single-set builds take one Groups")
+            tgrp, sgrp = groups
+    else:
+        # one Morton box for both sets: the live sources' and every
+        # target's (the targets are a subset of the sources under dp; the
+        # union is taken all the same, as the reference does)
         big = 3e30
-        live_s = mass > 0.0
-        lo = torch.minimum(torch.where(live_s[:, None], pos, big).amin(0),
+        live_s = mass_s > 0.0
+        lo = torch.minimum(torch.where(live_s[:, None], pos_s, big).amin(0),
                            pos.amin(0))
-        hi = torch.maximum(torch.where(live_s[:, None], pos, -big).amax(0),
+        hi = torch.maximum(torch.where(live_s[:, None], pos_s, -big).amax(0),
                            pos.amax(0))
-        groups = grouping.cell_groups(pos, lo, hi, bsz, cfg.nbr_group_level)
-    grp = groups
-    g = grp.live.shape[0]
-    nb = g
+        tgrp = grouping.cell_groups(pos, lo, hi, bsz, cfg.nbr_group_level)
+        # the source grouping takes the same stable sort
+        sgrp = tgrp if single else grouping.cell_groups(
+            pos_s, lo, hi, bsz, cfg.nbr_group_level)
+    g = tgrp.live.shape[0]
+    nb = sgrp.live.shape[0]
     sub = cfg.nbr_sub
     if bsz % sub:
         raise ValueError("nbr_sub must divide nbr_group_size")
     spb = bsz // sub
     nsub = nb * spb
 
+    # per-particle motion bounds of both sets (a scalar broadcasts)
     skin = torch.as_tensor(skin, dtype=fdt, device=dev)
     if skin.ndim == 0:
-        skin = skin.expand(n)
-    tix = grp.tgt_idx.long()
+        skin_t = skin.expand(pos.shape[0])
+        skin_s = skin.expand(pos_s.shape[0])
+    else:
+        skin_t = skin
+        if single:
+            skin_s = skin
+        elif skin_src is not None:
+            skin_s = skin_src           # dp cached: the gathered skins
+        else:
+            skin_s = torch.zeros(pos_s.shape[0], dtype=fdt, device=dev)
+    tix = tgrp.tgt_idx.long()
 
     # target-block AABBs + max h (duplicate slots replicate real members)
     pos_t = pos[tix].reshape(g, bsz, 3)
     h_t = h[tix].reshape(g, bsz)
     tlo = pos_t.amin(dim=1)
     thi = pos_t.amax(dim=1)
-    t_hmax = torch.where(grp.live, h_t, 0.0).amax(dim=1)
-    tvalid = grp.live.any(dim=1)
-    sk_t = skin[tix].reshape(g, bsz)
-    d_t = torch.where(grp.live, sk_t, 0.0).amax(dim=1)
+    t_hmax = torch.where(tgrp.live, h_t, 0.0).amax(dim=1)
+    tvalid = tgrp.live.any(dim=1)
+    sk_t = skin_t[tix].reshape(g, bsz)
+    d_t = torch.where(tgrp.live, sk_t, 0.0).amax(dim=1)
 
     # source summaries at block (far MAC) and sub-block granularity
-    pos_sb, h_sb = pos_t, h_t
-    m_sb = mass[tix].reshape(nb, bsz)
+    if single:
+        pos_sb, h_sb, sk_s = pos_t, h_t, sk_t
+    else:
+        six = sgrp.tgt_idx.long()
+        pos_sb = pos_s[six].reshape(nb, bsz, 3)
+        h_sb = h_s[six].reshape(nb, bsz)
+        sk_s = skin_s[six].reshape(nb, bsz)
+    m_sb = mass_s[sgrp.tgt_idx.long()].reshape(nb, bsz)
     b_mass, b_cm, _, _, b_bmax2, _ = _block_stats(pos_sb, h_sb, m_sb,
-                                                  grp.live)
+                                                  sgrp.live)
     bvalid = b_mass > 0.0
     s_mass, s_cm, s_amin, s_amax, s_bmax2, s_hmax = _block_stats(
         pos_sb.reshape(nsub, sub, 3), h_sb.reshape(nsub, sub),
-        m_sb.reshape(nsub, sub), grp.live.reshape(nsub, sub))
+        m_sb.reshape(nsub, sub), sgrp.live.reshape(nsub, sub))
     svalid = s_mass > 0.0
-    sk_sb = torch.where(grp.live, sk_t, 0.0)
+    sk_sb = torch.where(sgrp.live, sk_s, 0.0)
     d_b = sk_sb.amax(dim=1)
     d_s = sk_sb.reshape(nsub, sub).amax(dim=1)
 
@@ -293,11 +342,11 @@ def build(pos, h, mass, cfg: SimConfig, skin=0.0, h_margin: float = 0.0,
     del sph_adj
     if cfg.sph_exact_window > 0:
         sph_idx, n_sph, sph_over = _refine_exact(
-            sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb, grp.live,
+            sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb, sgrp.live,
             pos_t, h_t, sk_t, cfg, h_margin, nsub, sub, chunk)
     elif cfg.sph_refine_subblock:
         sph_idx, n_sph, sph_over = _refine_subblock(
-            sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb, grp.live,
+            sph_idx, n_sph, sph_over, pos_sb, h_sb, m_sb, sk_sb, sgrp.live,
             pos_t, h_t, sk_t, cfg, h_margin, nsub, sub, chunk)
 
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -305,7 +354,7 @@ def build(pos, h, mass, cfg: SimConfig, skin=0.0, h_margin: float = 0.0,
     no_idx = lambda w: torch.full((g, w), -1, dtype=torch.int32, device=dev)
     if not do_grav:
         return BlockStructure(
-            grp, sph_idx, n_sph, no_idx(cfg.p2p_window), none_n,
+            tgrp, sgrp, sph_idx, n_sph, no_idx(cfg.p2p_window), none_n,
             no_idx(cfg.m2p_window), none_n,
             torch.zeros((g, _nbpad(nb, chunk)), dtype=torch.float32,
                         device=dev), no_idx(1), none_n, sph_over, zero, zero,
@@ -402,7 +451,7 @@ def build(pos, h, mass, cfg: SimConfig, skin=0.0, h_margin: float = 0.0,
     accept = accept_sg if accept_sg is not None else \
         torch.nn.functional.pad(covered.to(torch.float32),
                                 (0, _nbpad(nb, chunk) - nb))
-    return BlockStructure(grp, sph_idx, n_sph, _i32(p2p_idx), n_p2p,
+    return BlockStructure(tgrp, sgrp, sph_idx, n_sph, _i32(p2p_idx), n_p2p,
                           _i32(m2p_idx), n_m2p, accept.contiguous(),
                           _i32(blk_idx), n_blk, sph_over, p2p_over,
                           m2p_over, blk_over)
@@ -428,19 +477,32 @@ class BlockForces(NamedTuple):
 
 
 class _Ctx(NamedTuple):
-    """Sorted-layout fields shared by the sweeps of one evaluation (one
-    particle set: targets and sources alias)."""
-    t: dict
-    s: dict
+    """Sorted-layout fields shared by the sweeps of one evaluation. Under
+    data parallelism the targets are the local shard and the sources the
+    all-gathered global set, each sorted by its own grouping; a single set
+    aliases the two."""
+    t: dict                  # target-sorted fields [G*B]
+    s: dict                  # source-sorted fields [NB*B]
+    single: bool
     g: int
     nb: int
 
 
+def _sort_set(grp, arrs):
+    """A list of [N] fields in the sorted [G*B] layout of `grp` (one
+    packed gather)."""
+    return packed_permute(arrs, grp.tgt_idx)
+
+
 def _prep_ctx(pos, h, mass, cfg: SimConfig, st: BlockStructure,
-              vel=None, sorted_io=False, u=None, matid=None,
-              fbal=None) -> _Ctx:
-    grp = st.groups
-    g = grp.live.shape[0]
+              vel=None, src=None, target_offset=0, sorted_io=False, u=None,
+              matid=None, fbal=None) -> _Ctx:
+    """The sorted target and source fields. `src`: (pos, h, mass[, vel])
+    of the source set, sorted by ``st.src_groups`` (its velocities with
+    them when given); None for a single set."""
+    single = src is None
+    tgrp = st.groups
+    g = tgrp.live.shape[0]
     names = ["x", "y", "z", "h", "m"]
     fields = [pos[:, 0], pos[:, 1], pos[:, 2], h, mass]
     if vel is not None:
@@ -457,14 +519,39 @@ def _prep_ctx(pos, h, mass, cfg: SimConfig, st: BlockStructure,
         # inputs are already in the padded sorted [G*B] layout
         t = {k: v.contiguous() for k, v in zip(names, fields)}
     else:
-        t = dict(zip(names, packed_permute(fields, grp.tgt_idx)))
+        t = dict(zip(names, _sort_set(tgrp, fields)))
     t["ih"] = 1.0 / torch.where(t["h"] > 0, t["h"], 1.0)
-    s = dict(t)
-    s["live"] = grp.live.reshape(-1).to(pos.dtype)
+    if single:
+        s = dict(t)
+        s["live"] = tgrp.live.reshape(-1).to(pos.dtype)
+        nb = g
+    else:
+        pos_s, h_s, mass_s = src[:3]
+        sgrp = st.src_groups
+        nb = sgrp.live.shape[0]
+        names = ["x", "y", "z", "h", "m"]
+        fields = [pos_s[:, 0], pos_s[:, 1], pos_s[:, 2], h_s, mass_s]
+        if len(src) > 3:
+            names += ["vx", "vy", "vz"]
+            fields += [src[3][:, 0], src[3][:, 1], src[3][:, 2]]
+        s = dict(zip(names, _sort_set(sgrp, fields)))
+        s["ih"] = 1.0 / torch.where(s["h"] > 0, s["h"], 1.0)
+        s["live"] = sgrp.live.reshape(-1).to(pos.dtype)
     # replica/padding slots carry zero SOURCE mass; the TARGET mass keeps
     # the real value (h-solve and the self-phi correction)
     s["m"] = s["m"] * s["live"]
-    return _Ctx(t, s, g, g)
+    return _Ctx(t, s, single, g, nb)
+
+
+def _to_source_layout(x, st: BlockStructure, gather_fn):
+    """A target-sorted [G*B] per-particle field in the source-sorted
+    [NB*B] layout: the identity for a single set; under dp unsorted to the
+    local order, all-gathered (`gather_fn`), sorted by the source
+    grouping."""
+    if gather_fn is None:
+        return x
+    local = x[st.groups.unsort_idx.long()]
+    return gather_fn(local)[st.src_groups.tgt_idx.long()]
 
 
 def _window_gather(sorted_cols, idx, nb, bsz, chunk):
@@ -581,7 +668,8 @@ def _gravity_sweeps(ctx: _Ctx, cfg: SimConfig, st: BlockStructure,
     t, s = ctx.t, ctx.s
     nb = ctx.nb
     nsub = nb * (bsz // sub)
-    live = st.groups.live
+    # moments and far rows over the source blocks
+    live = st.groups.live if ctx.single else st.src_groups.live
     receiver = cfg.softening_mode == "receiver_h"
     tgt = _cols(t["x"], t["y"], t["z"], t["ih"])
 
@@ -688,7 +776,8 @@ def _unsort(st: BlockStructure, fields):
 
 
 def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
-           u=None, sorted_io=False, matid=None, fbal=None,
+           u=None, src=None, target_offset=0, gather_fn=None,
+           sorted_io=False, matid=None, fbal=None,
            grav_tiers: str = "all") -> BlockForces:
     """Field evaluation against current fields: pass 1 (density, with the
     grad-h Omega under grad_h), the configured EOS, pass 2 (pressure
@@ -708,7 +797,15 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
     previous step's
     Balsara factors (ones when absent). `sorted_io`: inputs are in the
     padded sorted [G*B] layout and outputs stay in it (the cached
-    runner's chunk format)."""
+    runner's chunk format).
+
+    `src`/`target_offset`/`gather_fn`: data parallelism. The targets are
+    the local shard, `src` = (pos, h, mass[, vel]) the all-gathered global
+    set (its velocities with viscosity or an evolved u), and `gather_fn`
+    all-gathers a local per-particle field into the global set's order
+    (the source side of pass 2's coefficients). `sorted_io` composes with
+    it: the targets stay in their sorted layout while the sources are
+    sorted by the source grouping at every call."""
     check_slice(cfg)
     bsz = cfg.nbr_group_size
     do_grav = cfg.gravity_solver == "tree"
@@ -725,9 +822,11 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
                          "conserving pressure form (see ops/dense.pass2)")
 
     ctx = _prep_ctx(pos, h, mass, cfg, st, vel=vel if av or energy else None,
+                    src=src, target_offset=target_offset,
                     sorted_io=sorted_io, u=u, matid=matid,
                     fbal=fbal if balsara else None)
     t, s = ctx.t, ctx.s
+    to_src = lambda x: _to_source_layout(x, st, gather_fn)
     eos_kw = dict(u=t.get("u"), matid=t.get("mid"))
 
     # geometry rows gathered ONCE; pass 1 and pass 2 reuse them
@@ -753,17 +852,18 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
         cc = torch.where(rho_ok, prs_t / (rho_t * rho_t), 0.0)
         tgt2 += _cols(cc)
         p_scale = rho_t
-    s_extra = [cc]
+    s_extra = [to_src(cc)]
     if av:
         cs_t = eos_ops.sound_speed_cfg(rho_t, cfg, **eos_kw)
         tgt2 += _cols(t["vx"], t["vy"], t["vz"], t["h"], cs_t, rho_t)
-        s_extra += [s["vx"], s["vy"], s["vz"], s["h"], cs_t, rho_t]
+        s_extra += [s["vx"], s["vy"], s["vz"], s["h"], to_src(cs_t),
+                    to_src(rho_t)]
         if balsara:
             fb_t = t.get("fb")
             if fb_t is None:
                 fb_t = torch.ones_like(rho_t)
             tgt2 += _cols(fb_t)
-            s_extra += [fb_t]
+            s_extra += [to_src(fb_t)]
     elif energy:
         # the energy equation without viscosity still needs the pairwise
         # velocities
@@ -844,30 +944,35 @@ def forces(pos, h, mass, cfg: SimConfig, st: BlockStructure, vel=None,
     return BlockForces(*_unsort(st, fields))
 
 
-def gravity(pos, h, mass, cfg: SimConfig, st: BlockStructure):
+def gravity(pos, h, mass, cfg: SimConfig, st: BlockStructure, src=None,
+            target_offset=0):
     """Tree gravity only: (phi, grad_phi, n_direct, n_approx) in original
     order, every tier in one launch — for runs whose SPH goes through the
     dense pipeline while gravity uses the block tree (the parity
-    preset)."""
+    preset). `src`: (pos, h, mass) of a global source set (dp)."""
     check_slice(cfg)
-    ctx = _prep_ctx(pos, h, mass, cfg, st)
+    ctx = _prep_ctx(pos, h, mass, cfg, st, src=src,
+                    target_offset=target_offset)
     return tuple(_unsort(st, list(_gravity_sweeps(ctx, cfg, st))))
 
 
 def gravity_far(pos, h, mass, cfg: SimConfig, st: BlockStructure,
-                sorted_io=False):
+                sorted_io=False, src=None, target_offset=0):
     """Far-tier tree gravity only (ring sub-block multipoles + dense block
-    scan): (phi_far, grad_phi_far, n_approx) — the RESPA outer force."""
+    scan): (phi_far, grad_phi_far, n_approx) — the RESPA outer force.
+    `src`: (pos, h, mass) of a global source set (dp): the moments then
+    sum over the global source blocks."""
     check_slice(cfg)
-    ctx = _prep_ctx(pos, h, mass, cfg, st, sorted_io=sorted_io)
+    ctx = _prep_ctx(pos, h, mass, cfg, st, sorted_io=sorted_io, src=src,
+                    target_offset=target_offset)
     phi_t, grad_phi_t, _, na_t = _gravity_sweeps(ctx, cfg, st, tiers="far")
     if sorted_io:
         return phi_t, grad_phi_t, na_t
     return tuple(_unsort(st, [phi_t, grad_phi_t, na_t]))
 
 
-def solve_h_newton(pos, h, mass, cfg: SimConfig, eta: float, groups=None,
-                   rho0=None):
+def solve_h_newton(pos, h, mass, cfg: SimConfig, eta: float, src=None,
+                   target_offset=0, groups=None, rho0=None):
     """Fixed-point solve of h = eta (m/rho(h))^(1/3) on the block pipeline.
 
     Builds a throwaway structure whose cutoffs are widened by the clamp
@@ -875,8 +980,10 @@ def solve_h_newton(pos, h, mass, cfg: SimConfig, eta: float, groups=None,
     density with h clamped to [h/(1+c), h*(1+c)]. `rho0` warm-starts with
     one fixed-point step from the state's density before the build (and
     one fewer sweep). Under exact lists the solve builds its own, at
-    cfg.h_solve_window or the exact window scaled by (1+c)^3. Returns the
-    new h in original order."""
+    cfg.h_solve_window or the exact window scaled by (1+c)^3. `src`: (pos,
+    h, mass) of a global source set (dp), whose densities the targets'
+    sums take; `groups` is then a (target, source) pair. Returns the new h
+    in original order."""
     c = cfg.h_newton_clamp
     if cfg.h_max > 0.0:
         h = torch.clamp(h, max=cfg.h_max)
@@ -896,8 +1003,10 @@ def solve_h_newton(pos, h, mass, cfg: SimConfig, eta: float, groups=None,
                       nbr_window=scale(cfg.nbr_window, 16),
                       sph_refined_window=(scale(cfg.sph_refined_window, 16)
                                           if cfg.sph_refined_window else 0))
-    st = build(pos, h, mass, cfg, h_margin=c, groups=groups, sph_only=True)
-    ctx = _prep_ctx(pos, h, mass, cfg, st)
+    st = build(pos, h, mass, cfg, src=src, target_offset=target_offset,
+               h_margin=c, groups=groups, sph_only=True)
+    ctx = _prep_ctx(pos, h, mass, cfg, st, src=src,
+                    target_offset=target_offset)
     h0 = ctx.t["h"]
     lo, hi = h0 / (1.0 + c), h0 * (1.0 + c)
     if cfg.h_max > 0.0:

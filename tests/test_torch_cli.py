@@ -171,12 +171,12 @@ def test_bench_set_overrides_preset_and_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,word", [
-    (["--devices", "2"], "--devices"),
+    (["--devices", "2", "--set", "dp_mode=halo"], "dp_mode"),
     (["--materials", "basalt,ice"], "--materials"),
     (["--materials", "basalt", "--ic", "two_planet_collision"],
      "--materials"),
     (["--debug-nans"], "--debug-nans"),
-    (["--devices", "1", "--serve", "8080"], "--devices"),
+    (["--debug-nans", "--serve", "8080"], "--debug-nans"),
 ])
 def test_unported_flags_exit_nonzero_naming_the_flag(extra, word):
     with pytest.raises(SystemExit) as e:
@@ -366,3 +366,38 @@ def test_state_from_a_polytropic_run_gets_a_thermal_state():
                           eos_ops.pressure_cfg(st.rho, poly))
     assert bench.with_thermal_state(st, adia, adia).u is st.u
     assert bench.with_thermal_state(st, poly, poly).u is st.u
+
+
+def test_devices_runs_the_data_parallel_path(tmp_path, capfd):
+    """--devices 2 on the CPU: two gloo ranks started by the command, rank
+    0 logging the steps/s line "(dp x2)", the diagnostics rows, the metrics
+    trail, the checkpoint and the drift line."""
+    metrics = str(tmp_path / "m.jsonl")
+    ck = str(tmp_path / "dp.psph")
+    assert cli.main(["run", "--device", "cpu", "--n", "512", "--devices",
+                     "2", "--steps", "4", "--diag-every", "2",
+                     "--metrics-jsonl", metrics, "--checkpoint", ck]) == 0
+    err = capfd.readouterr().err
+    assert "4 steps in" in err and "(dp x2)" in err
+    assert "energy drift:" in err and "WARNING" not in err
+    rows = _rows(metrics)
+    assert [r["step"] for r in rows] == [2, 4]
+    assert rows[-1]["nbr_overflow"] == 0 == rows[-1]["tree_overflow"]
+    state, cfg, step = snapshot.load(ck, device="cpu")
+    assert step == 4 and cfg.n == 512 and state.n == 512
+    assert bool(torch.isfinite(state.pos).all())
+
+
+def test_devices_refusals(capfd):
+    """An n the ranks cannot share exits 2; the halo layout and the
+    frame options are refused by name."""
+    assert cli.main(["run", "--device", "cpu", "--n", "511", "--devices",
+                     "2", "--steps", "2"]) == 2
+    assert "not divisible by 2" in capfd.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        cli.main(RUN + ["--devices", "4", "--set", "dp_mode=halo"])
+    assert "dp_mode=halo" in str(e.value.code)
+    with pytest.raises(SystemExit) as e:
+        cli.main(RUN + ["--devices", "2", "--render-every", "2"])
+    assert "--devices" in str(e.value.code) \
+        and "--render-every" in str(e.value.code)

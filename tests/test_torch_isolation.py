@@ -15,6 +15,7 @@ import torch
 
 from planetmodel_sph_tpu_torch import bench, cli, state
 from planetmodel_sph_tpu_torch.models import ics
+from planetmodel_sph_tpu_torch.parallel import mesh
 from planetmodel_sph_tpu_torch.runtime import snapshot
 from planetmodel_sph_tpu_torch.tools import drift100k, drift_probe
 from planetmodel_sph_tpu_torch.tools import equilibrium_run, microbench
@@ -69,7 +70,7 @@ def test_scan_sees_the_package():
             "tools/drift100k.py", "tools/rotating_l_check.py",
             "tools/equilibrium_run.py", "tools/drift_probe.py",
             "utils/profiling.py", "utils/render.py", "utils/liveview.py",
-            "runtime/native.py"} <= names
+            "runtime/native.py", "parallel/mesh.py", "parallel/dp.py"} <= names
     assert os.path.exists(os.path.join(PKG, "runtime", "psph_io.cpp"))
 
 
@@ -103,7 +104,8 @@ def test_every_kernel_has_its_source_signature_and_counter():
                                 bench.run_bench, bench.bench_lines,
                                 ics.jupiter, ics.polytrope,
                                 ics.two_planet_collision,
-                                ics.rotating_planet])
+                                ics.rotating_planet, mesh.placement,
+                                mesh.make_mesh, mesh.spawn])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

@@ -539,3 +539,82 @@ def test_png_non_black_share(tmp_path):
     a[:3] = 200
     Image.fromarray(a).save(tmp_path / "x.png")
     assert cs.png_non_black(str(tmp_path / "x.png")) == pytest.approx(0.3)
+
+
+# ---- phase 9: the replicated data-parallel path ----------------------------
+
+PHASE9 = os.path.join(ROOT, "tests", "chip_smoke_phase9_report.json")
+
+
+def _phase9():
+    import json
+    with open(PHASE9) as f:
+        return json.load(f)
+
+
+def test_phase9_recorded_report_passes():
+    """Phase 9's keys in a report recorded on the card: the three legs
+    (world size 1 over NCCL, 2 and 4 ranks sharing the card over gloo),
+    each rank's launches the single path's, G != NB on the shared-card
+    legs, the four kernels held against their plain versions there, and
+    the command line's two runs."""
+    rep = _phase9()
+    assert cs.dp_failures(rep) == []
+    legs = rep["legs"]
+    assert [(k, legs[k]["ranks"], legs[k]["backend"]) for k in legs] == [
+        ("dp1", 1, "nccl"), ("dp2", 2, "gloo"), ("dp4", 4, "gloo")]
+    assert legs["dp1"]["groups"] == legs["dp1"]["blocks"]
+    assert legs["dp4"]["groups"] < legs["dp2"]["groups"] \
+        < legs["dp2"]["blocks"]
+    for leg in legs.values():
+        assert leg["launches"] == {k: leg["ranks"] * v for k, v in
+                                   rep["single"]["launches"].items()}
+    assert {(c["name"], c["legs"][0]) for c in rep["cases"]} == {
+        (n, leg) for n in cs.LONG_KERNELS for leg in ("dp2", "dp4")}
+
+
+@pytest.mark.parametrize("path,value,word", [
+    (("legs", "dp1", "error"), "RuntimeError: boom", "phase 9 dp1"),
+    (("legs", "dp2", "info", "tree_overflow"), 3, "overflow"),
+    (("legs", "dp4", "pos_bad"), 5, "outside rtol"),
+    (("legs", "dp2", "rho_bad"), 1, "outside rtol"),
+    (("legs", "dp4", "non_finite"), ["vel"], "non-finite"),
+    (("legs", "dp2", "groups"), 2067, "G == NB"),
+    (("legs", "dp4", "rank_launches", 2, "pass2"), 63, "rank 2"),
+    (("legs", "dp1", "launches", "filter_sph"), 0, "no launch"),
+    (("cases", 0, "ok"), False, "disagrees"),
+    (("single", "overflow", "nbr_overflow"), 1, "single path"),
+    (("cli", "rc"), 1, "cli --devices 2"),
+    (("cli", "lines"), [], "cli --devices 2"),
+    (("cli_indivisible", "rc"), 0, "not 2"),
+], ids=lambda v: str(v)[:24])
+def test_phase9_failures_name_what_failed(path, value, word):
+    rep = _phase9()
+    _spoil(rep, path, value)
+    fails = cs.dp_failures(rep)
+    assert any(word in f for f in fails), fails
+
+
+def test_phase9_missing_kernel_cases_fail():
+    rep = _phase9()
+    rep["cases"] = [c for c in rep["cases"] if c["legs"] != ["dp4"]]
+    assert any("not checked" in f for f in cs.dp_failures(rep))
+
+
+def test_dp_agreement_counts_entries_outside_the_bounds():
+    ref = {"pos": torch.ones(4, 3), "rho": torch.ones(4)}
+    pos = ref["pos"].clone()
+    pos[1, 2] += 5e-3            # past atol + rtol * 1
+    rho = ref["rho"].clone()
+    rho[3] *= 1.0 + 1e-3         # inside rtol
+    got = cs.dp_agreement(pos, rho, ref)
+    assert (got["pos_bad"], got["rho_bad"]) == (1, 0)
+    assert got["pos_max_abs_err"] == pytest.approx(5e-3, rel=1e-3)
+    assert got["rho_max_rel_err"] == pytest.approx(1e-3, rel=1e-3)
+
+
+def test_morton_order_is_the_cubic_box_curve():
+    pos = torch.tensor([[1.0, 1.0, 1.0], [0.0, 0.0, 0.0], [0.9, 0.0, 0.0],
+                        [0.0, 0.2, 0.0]])
+    # a cubic box of side 1: x = 0.9 sorts past y = 0.2 on the curve
+    assert cs.morton_order(pos).tolist() == [1, 3, 2, 0]
