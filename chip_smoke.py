@@ -185,7 +185,34 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    path's. (c) ``cli run --preset jupiter_3k --devices 2 --steps 64
    --diag-every 32`` must exit 0 with the clamp to the one card, its
    steps/s and drift lines, and ``--n 511 --devices 2`` on the CPU exit 2.
-   This is no scaling measurement: one card holds every rank.
+   This is no scaling measurement: one card holds every rank;
+10. the halo layout (``parallel/halo.py``), each run a process of its own
+   started as a user starts it: (a) ``tools.settle_ball --n 32768`` (leg
+   0: the n/2 ball settled on the card, its occupancy line and the probe
+   at the legs' windows, overflow 0, saved under ``chiprun_out/halo``);
+   (b) ``tools.halo_collision --n 32768 --ball-ck <a's ball> --device
+   cuda:0``: 8 gloo ranks sharing the card, R = 3, leg 1 (8 segments of 8
+   steps in both layouts: finite, overflow 0 in both, |dpos| p99 <= 1e-3
+   of the scale; |dvel| p99, the share off by more than 1e-3 of the scale,
+   the violations a segment and ``pair_duplicates`` printed beside the
+   reference's 32k run; the tool's exit 2 accepted only when its own
+   |dvel| bar is what it missed) and leg 2 (2,000 steps through the impact
+   under ``halo.run_resharded``: finite, overflow 0, re-shards, violations,
+   energy, momentum and steps/s printed), every halo kernel launched on
+   each leg (the ranks' counts, summed), and rank 0's inputs of each
+   windowed kernel's first call held against its plain version as in
+   phase 4; (c) ``tools.halo_debug 2048``: the unbounded-occupancy line
+   and 8 finite segments; (d) ``cli run --set dp_mode=halo --devices 8``,
+   clamped to the one card, must exit non-zero refusing 2R >= D by name;
+11. the developer tools, each a process of its own at one setting:
+   ``profile_build`` on the settled state, ``scaling_bench`` (the dense
+   path at n = 3000 and 10,000, the grid path at 30,000 and 100,000),
+   ``neighbors_of`` (no true neighbour missing), ``span_stats``, one
+   ``ksweep`` and one ``ksweep2`` variant, ``micro_gather``: exit 0 and
+   their table lines.
+
+``--halo-only`` runs phases 1, 2, 10 and 11 alone (a trial: no kernel
+line, no final line).
 
 The second-to-last line of standard output is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. A full
@@ -3401,8 +3428,8 @@ finally:
 """
 
 
-def _counted_cmd(label, module, args):
-    counts = os.path.join(LONG_DIR, f"{label}.launches.json")
+def _counted_cmd(label, module, args, logdir=LONG_DIR):
+    counts = os.path.join(logdir, f"{label}.launches.json")
     return [sys.executable, "-c", COUNTED_RUN, counts, module, *args], counts
 
 
@@ -3412,14 +3439,15 @@ def _env():
     return env
 
 
-def counted_run(label, module, args, timeout=900):
+def counted_run(label, module, args, timeout=900, logdir=LONG_DIR):
     """`python -m module args` from the root in a process of its own, its
-    output in LONG_DIR/<label>.log: dict(rc, wall_s, launches, out)."""
-    cmd, counts = _counted_cmd(label, module, args)
+    output in <logdir>/<label>.log: dict(rc, wall_s, launches, out); the
+    launches are that process's own (not those of ranks it spawns)."""
+    cmd, counts = _counted_cmd(label, module, args, logdir)
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=ROOT, env=_env(), capture_output=True,
                        text=True, timeout=timeout)
-    with open(os.path.join(LONG_DIR, f"{label}.log"), "w") as f:
+    with open(os.path.join(logdir, f"{label}.log"), "w") as f:
         f.write(r.stdout + "\n--- stderr\n" + r.stderr)
     launches = json.load(open(counts)) if os.path.exists(counts) else {}
     return dict(args=[module, *args], rc=r.returncode,
@@ -4031,6 +4059,365 @@ def dp_failures(rep):
     return fails
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the halo layout (parallel/halo.py) through its tools, each run
+# a process of its own; phase 11: the developer tools
+# ---------------------------------------------------------------------------
+
+HALO_DIR = os.path.join(OUT_DIR, "halo")
+TOOLS_DIR = os.path.join(OUT_DIR, "tools")
+TOOLS_PKG = "planetmodel_sph_tpu_torch.tools."
+# the halo step's kernels: the production set, and p2p (the collision's
+# configuration leaves the fusion flags at False: an unfused near tier)
+HALO_KERNELS = LONG_KERNELS + ("p2p",)
+HALO_N = 32768            # the reference's 32k validation, 8 ranks, R = 3
+HALO_DEBUG_N = 2048
+HALO_STEPS = 2000         # leg 2: through approach and impact
+# leg 2's windows times this (capacities only: where nothing overflows the
+# sums are the same). At build_cfg's own windows the merged state
+# overflows on the halo layout from step 1,500 on (9,809 SPH and 417 tree
+# entries dropped over the 2,000 steps; at the end a rank's groups need up
+# to 819 SPH sub-blocks of the 768), while one device runs the same
+# trajectory at those windows without overflow: 4,096 targets a rank are
+# grouped at level 2 (grouping.effective_level), one device's 32,768 at
+# level 3, so a rank's groups span more. The reference never reached the
+# impact (its 32k leg 2 never ran, its 8k one stopped at step 200).
+HALO_LEG2_WIDEN = 2.0
+HALO_SEGMENT = 100        # its segments (the tool's default)
+HALO_RANKS = 8
+# leg 1's position gate (|dpos| p99 <= HALO_POS_GATE * scale) and the
+# tool's own |dvel| p99 bar, which the reference's 32k run fails too
+HALO_POS_GATE = 1e-3
+HALO_DVEL_BAR = 1e-2
+# the reference's 32k leg 1 (docs/results/halo32k/leg1.log), printed
+# beside this run's, never in its place
+REFERENCE_HALO = dict(dpos_p99=0.0193, dpos_max=0.121, scale=67.7,
+                      dvel_p99=0.0274, dvel_max=0.189, frac_off=0.0013,
+                      viol_per_segment=808)
+# the halo layout on the one card: --devices 8 clamps to 1 rank, and a
+# ring of radius 1 over 1 rank would collect the rank itself: refused
+HALO_CLI = ["run", "--n", "4096", "--neighbor", "grid", "--gravity", "tree",
+            "--devices", "8", "--steps", "2", "--set", "dp_mode=halo"]
+
+
+def single_device_leg2(ball_path):
+    """Leg 2's start (the settled ball, two copies approaching, primed, as
+    ``tools.halo_collision`` builds it) run on one device for HALO_STEPS
+    steps in HALO_SEGMENT-step segments: the overflow counters of each."""
+    import torch
+    from planetmodel_sph_tpu_torch.models import planet
+    from planetmodel_sph_tpu_torch.tools import halo_collision as hc
+    from planetmodel_sph_tpu_torch.utils import checkpoint
+    cfg = hc.build_cfg(HALO_N)
+    ball, _, _ = checkpoint.load(ball_path, device="cuda")
+    st = planet.prime(hc.two_body(ball, 60.0, 0.6), cfg)
+    over = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HALO_STEPS // HALO_SEGMENT):
+        st, info = planet.run_info(st, cfg, HALO_SEGMENT)
+        over.append([int(info["nbr_overflow"]), int(info["tree_overflow"])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first = next(((k + 1) * HALO_SEGMENT for k, o in enumerate(over)
+                  if any(o)), None)
+    del st, ball
+    torch.cuda.empty_cache()
+    return dict(steps=HALO_STEPS, overflow=over, first_overflow_step=first,
+                finite=True, wall_s=wall, steps_per_s=HALO_STEPS / wall)
+
+
+def _lines_with(out, *words):
+    return [ln for ln in out.splitlines() if any(w in ln for w in words)]
+
+
+def halo_phase(card, ptxas):
+    """Phase 10: settle_ball, halo_collision (8 gloo ranks on the card,
+    rank 0 recording the kernels' inputs, each then held against its plain
+    version), halo_debug and the command line's refusal of a ring that
+    would collect the one rank itself. Returns (report, failures, kernel
+    case reports)."""
+    import tempfile
+    import torch
+    shutil.rmtree(HALO_DIR, ignore_errors=True)
+    os.makedirs(HALO_DIR)
+    t_all = time.perf_counter()
+    print(f"phase 10 (the halo layout) on {card}", flush=True)
+    runs, cases = {}, []
+
+    # a. leg 0: the n/2 ball, settled on the card
+    ball = os.path.join(HALO_DIR, "ball.psph")
+    r = counted_run("settle_ball", TOOLS_PKG + "settle_ball",
+                    ["--n", str(HALO_N), "--out", ball], timeout=600,
+                    logdir=HALO_DIR)
+    r.update(expect_launched=LONG_KERNELS, lines=_lines_with(
+        r["out"], "settled", "occupancy", "probe", "ball ->"),
+        saved=os.path.exists(ball))
+    runs["settle_ball"] = r
+    print(f"  settle_ball --n {HALO_N}: exit {r['rc']}; "
+          f"{'; '.join(r['lines'])}; launches {r['launches']} "
+          f"({r['wall_s']:.1f} s)", flush=True)
+
+    # b. the collision: leg 1 (both layouts, 64 steps) and leg 2
+    cdir = os.path.join(HALO_DIR, "collision")
+    work = tempfile.mkdtemp(prefix="psph_halo_")
+    rec = os.path.join(work, "inputs.pt")
+    try:
+        r = counted_run("halo_collision", TOOLS_PKG + "halo_collision",
+                        ["--n", str(HALO_N), "--ball-ck", ball, "--device",
+                         "cuda:0", "--steps", str(HALO_STEPS),
+                         "--leg2-widen", str(HALO_LEG2_WIDEN), "--out",
+                         cdir, "--record-inputs", rec], timeout=900,
+                        logdir=HALO_DIR)
+        spath = os.path.join(cdir, "summary.json")
+        s = json.load(open(spath)) if os.path.exists(spath) else None
+        seg_viol = [int(ln.rsplit("viol=", 1)[1]) for ln in
+                    r["out"].splitlines() if ln.startswith("leg1 seg")]
+        r.update(summary=s, leg1_viol=seg_viol, lines=_lines_with(
+            r["out"], "ranks up", "leg1", "leg2", "re-shard", "persist"))
+        runs["halo_collision"] = r
+        if os.path.exists(rec):
+            inputs = torch.load(rec, map_location="cuda:0",
+                                weights_only=True)
+            r["recorded"] = sorted(inputs)
+            for name in HALO_KERNELS:
+                if name in inputs:
+                    a, kw = inputs[name]
+                    c = check_one(name, "halo32k", a, kw, ptxas)
+                    c["legs"] = ["halo"]
+                    cases.append(c)
+            del inputs
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    s = r.get("summary") or {}
+    print(f"  halo_collision --n {HALO_N} (8 gloo ranks on cuda:0): exit "
+          f"{r['rc']} ({r['wall_s']:.1f} s)", flush=True)
+    for ln in r["lines"]:
+        print(f"    {ln}", flush=True)
+    if s:
+        ref = REFERENCE_HALO
+        print(f"    leg 1: |dpos| p99 {s['dpos_p99']:.4g} of scale "
+              f"{s['scale']:.4g} (gate {HALO_POS_GATE:g} x scale; "
+              f"reference {ref['dpos_p99']:g} of {ref['scale']:g}), |dvel| "
+              f"p99 {s['dvel_p99']:.4g} (reference {ref['dvel_p99']:g}; the "
+              f"tool's bar {HALO_DVEL_BAR:g}), share off by more than 1e-3 "
+              f"scale {s['frac_off']:.4g} (reference {ref['frac_off']:g}), "
+              f"violations a segment {r['leg1_viol']} (reference "
+              f"{ref['viol_per_segment']}), pair_duplicates "
+              f"{s['pair_duplicates']}, overflow {s['leg1_overflow']}, "
+              f"{s['leg1_wall_s']:.1f} s", flush=True)
+        print(f"    leg 2 (windows x{s['leg2_widen']:g}, capacities: see "
+              f"HALO_LEG2_WIDEN): {s['steps']} steps, finite "
+              f"{s['leg2_finite']}, "
+              f"overflow {s['leg2_overflow']}, re-shards {s['reshards']}, "
+              f"violations {s['halo_violations']}, energy_rel_change "
+              f"{s['energy_rel_change']:.4g}, momentum_max "
+              f"{s['momentum_max']:.4g}, {s['leg2_steps_per_s']:.3f} "
+              f"steps/s (8 ranks time-slice one card, gloo stages every "
+              f"collective through host memory: no scaling number)",
+              flush=True)
+        print(f"    launches summed over the ranks: {s['launches']}; the "
+              f"main process (leg 0 load, prime) {r['launches']}",
+              flush=True)
+
+    # b2. the same two-body state on one device through leg 2's steps:
+    # where the configuration's windows stop holding the merger, apart
+    # from the layout
+    runs["single"] = r = single_device_leg2(ball)
+    print(f"  one device, the same two-body state, {r['steps']} steps: "
+          f"overflow (nbr, tree) by {HALO_SEGMENT}-step segment "
+          f"{r['overflow']}, first at step {r['first_overflow_step']}; "
+          f"{r['steps_per_s']:.1f} steps/s ({r['wall_s']:.1f} s)",
+          flush=True)
+
+    # c. halo_debug at 2048: occupancy, then 8 segments of both layouts
+    r = counted_run("halo_debug", TOOLS_PKG + "halo_debug",
+                    [str(HALO_DEBUG_N)], timeout=600, logdir=HALO_DIR)
+    r.update(lines=_lines_with(r["out"], "occupancy", "seg ", "finite"))
+    runs["halo_debug"] = r
+    print(f"  halo_debug {HALO_DEBUG_N}: exit {r['rc']} "
+          f"({r['wall_s']:.1f} s)", flush=True)
+    for ln in r["lines"]:
+        print(f"    {ln}", flush=True)
+
+    # d. the command line on the one card: refused by name
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "planetmodel_sph_tpu_torch.cli",
+                        *HALO_CLI], cwd=ROOT, env=_env(), capture_output=True,
+                       text=True, timeout=300)
+    with open(os.path.join(HALO_DIR, "cli.log"), "w") as f:
+        f.write(p.stdout + "\n--- stderr\n" + p.stderr)
+    r = dict(args=HALO_CLI, rc=p.returncode, wall_s=time.perf_counter() - t0,
+             lines=_lines_with(p.stderr, "clamped", "2R >= D"))
+    runs["cli"] = r
+    print(f"  cli {' '.join(HALO_CLI)}: exit {r['rc']}; "
+          f"{'; '.join(r['lines'])} ({r['wall_s']:.1f} s)", flush=True)
+
+    for r in runs.values():
+        r.pop("out", None)
+    rep = dict(runs=runs, reference=REFERENCE_HALO,
+               cases=[{k: c[k] for k in ("name", "case", "ok", "legs",
+                                         "max_abs_err", "shapes", "shares")
+                       if k in c} for c in cases],
+               total_s=time.perf_counter() - t_all)
+    print(f"phase 10: {rep['total_s']:.1f} s", flush=True)
+    return rep, halo_failures(rep), cases
+
+
+def halo_failures(rep):
+    """What phase 10's report fails: a run's exit code (halo_collision
+    may exit 2 only when the tool's |dvel| bar is the one thing it
+    misses); leg 1 non-finite, overflowing or outside the position gate;
+    leg 2 non-finite or overflowing; a halo kernel not launched on a leg
+    or disagreeing with its plain version; halo_debug's lines; the
+    command line not refusing the ring by name."""
+    fails = []
+    runs = rep["runs"]
+    r = runs["settle_ball"]
+    if r["rc"] != 0 or not r["saved"]:
+        fails.append(f"phase 10 settle_ball: exit {r['rc']}, ball saved "
+                     f"{r['saved']}: {r.get('err_tail', '')[-300:]}")
+    idle = [k for k in r["expect_launched"] if not r["launches"].get(k)]
+    if idle:
+        fails.append(f"phase 10 settle_ball: no launch of {idle}")
+    r = runs["halo_collision"]
+    s = r.get("summary")
+    if not s:
+        fails.append(f"phase 10 halo_collision: exit {r['rc']}, no summary: "
+                     f"{r.get('err_tail', '')[-500:]}")
+    else:
+        pos_ok = s["dpos_p99"] <= HALO_POS_GATE * s["scale"]
+        if not pos_ok:
+            fails.append(f"phase 10 halo_collision: |dpos| p99 "
+                         f"{s['dpos_p99']:.4g} > {HALO_POS_GATE:g} x scale "
+                         f"{s['scale']:.4g}")
+        only_dvel = pos_ok and s["dvel_p99"] > HALO_DVEL_BAR
+        if r["rc"] not in ((0, 2) if only_dvel else (0,)):
+            fails.append(f"phase 10 halo_collision: exit {r['rc']}")
+        if any(v for leg in s["leg1_overflow"].values() for v in leg):
+            fails.append(f"phase 10 leg 1 overflow {s['leg1_overflow']}")
+        if any(s["leg2_overflow"]) or not s["leg2_finite"]:
+            fails.append(f"phase 10 leg 2: overflow {s['leg2_overflow']}, "
+                         f"finite {s['leg2_finite']}")
+        for leg in ("leg1_replicated", "leg1_halo", "leg2"):
+            idle = [k for k in HALO_KERNELS if not s["launches"][leg][k]]
+            if idle:
+                fails.append(f"phase 10 {leg}: no launch of {idle}")
+        if len(r["leg1_viol"]) != 8:
+            fails.append(f"phase 10 leg 1: {len(r['leg1_viol'])} segments")
+    seen = {c["name"] for c in rep["cases"]}
+    if set(HALO_KERNELS) - seen:
+        fails.append(f"phase 10: kernel cases not checked "
+                     f"{sorted(set(HALO_KERNELS) - seen)}")
+    for c in rep["cases"]:
+        if not c["ok"]:
+            fails.append(f"phase 10 {c['name']} [{c['case']}]: disagrees "
+                         "with its plain version")
+    r = runs["halo_debug"]
+    segs = [ln for ln in r["lines"] if ln.startswith("seg ")]
+    if r["rc"] != 0 or len(segs) != 8 or not all(
+            ln.count("finite=True") == 2 for ln in segs) or not any(
+            "occupancy (unbounded)" in ln for ln in r["lines"]):
+        fails.append(f"phase 10 halo_debug: exit {r['rc']}, lines "
+                     f"{r['lines']}: {r.get('err_tail', '')[-300:]}")
+    r = runs["cli"]
+    if r["rc"] == 0 or not any("2R >= D" in ln and "halo_ring_radius" in ln
+                               for ln in r["lines"]):
+        fails.append(f"phase 10 cli: exit {r['rc']}, lines {r['lines']}")
+    return fails
+
+
+# phase 11: each developer tool at one small setting, (module, arguments,
+# the lines it must print)
+A8_TOOLS = (
+    ("profile_build", ["--ck", STATE, "--k", "4"],
+     ("build (full)", "morton encode+argsort", "cell_groups (incl sort)",
+      "block stats + [G,NB] geometry", "_compact_rows")),
+    ("scaling_bench", ["--dense-n", "3000,10000", "--grid-n",
+                       "30000,100000", "--steps", "100"],
+     ("'n': 3000, 'pipeline': 'dense+direct",
+      "'n': 10000, 'pipeline': 'dense+direct",
+      "'n': 30000, 'pipeline': 'grid+tree", "'n': 100000")),
+    ("neighbors_of", ["--restore", STATE, "--particle", "12345",
+                      "--max-print", "5"],
+     ("dense oracle:", "window pipeline: group",
+      "OK: window candidates cover the oracle exactly")),
+    ("span_stats", ["--ck", STATE],
+     ("SPH exact window (particle ids):", "P2P window (sub-block ids):",
+      "M2P ring window (sub-block ids):")),
+    ("ksweep", ["--sub", "32", "--k", "16"], ("sub=32 K=16:",)),
+    ("ksweep2", ["--var", "r3ship"], ("r3ship      :",)),
+    ("micro_gather", [], ("packed [132288,6] row-gather -> [2067,512]",
+                          "same, Morton-local ids",
+                          "take_along_axis [2067,5120]->[,512] x6",
+                          "entry-gather [4134,160] (640B rows)")),
+)
+
+
+def tools_a8_phase(card):
+    """Phase 11: the developer tools at one setting each (README's
+    commands), each tool's ``main`` called in this process (a process of
+    its own would cost its start-up again) with its printed lines captured
+    and its launches counted from 0. Returns (report, failures)."""
+    import contextlib
+    import importlib
+    import io
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import launch
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    t_all = time.perf_counter()
+    print(f"phase 11 (developer tools) on {card}", flush=True)
+    runs = {}
+    for name, args, want in A8_TOOLS:
+        mod = importlib.import_module(TOOLS_PKG + name)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        launch.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(args)
+            err = None
+        except Exception as e:          # noqa: BLE001 - reported, fails
+            rc, err = 1, f"{type(e).__name__}: {e}"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        with open(os.path.join(TOOLS_DIR, f"{name}.log"), "w") as f:
+            f.write(text + (f"\n--- error\n{err}\n" if err else ""))
+        lines = [ln for ln in text.splitlines() if ln.strip()]
+        missing = [w for w in want if not any(w in ln for ln in lines)]
+        r = dict(args=[name, *args], rc=rc, error=err, wall_s=wall,
+                 launches={k: v for k, v in launch.LAUNCHES.items() if v},
+                 lines=lines[-24:], missing=missing)
+        runs[name] = r
+        print(f"  {name} {' '.join(args)}: exit {rc}, launches "
+              f"{r['launches']} ({wall:.1f} s)", flush=True)
+        for ln in lines[-12:]:
+            print(f"    {ln}", flush=True)
+        r["failed_lines"] = [ln for ln in lines if "FAILED" in ln]
+        torch.cuda.empty_cache()
+    rep = dict(runs=runs, total_s=time.perf_counter() - t_all)
+    print(f"phase 11: {rep['total_s']:.1f} s", flush=True)
+    return rep, tools_a8_failures(rep)
+
+
+def tools_a8_failures(rep):
+    """What phase 11's report fails: a tool missing from it, one that
+    raised or exited non-zero, a line it did not print, a variant it
+    reports FAILED."""
+    fails = []
+    for name, _, _ in A8_TOOLS:
+        r = rep["runs"].get(name)
+        if r is None:
+            fails.append(f"phase 11 {name}: not run")
+        elif r["rc"] != 0 or r["missing"] or r["failed_lines"]:
+            fails.append(f"phase 11 {name}: exit {r['rc']}, missing "
+                         f"{r['missing']}, {r['failed_lines']}: "
+                         f"{r['error']}")
+    return fails
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4040,6 +4427,9 @@ def main(argv=None) -> int:
                     "redesigned and all-pairs kernels are timed in turns "
                     "with this one's in phase 4, and phase 7 compares the "
                     "two checkouts' production, sym100k and sg100k steps")
+    ap.add_argument("--halo-only", action="store_true",
+                    help="a trial of phases 10 and 11 alone after the "
+                    "build (no kernel line, no final line)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4140,6 +4530,21 @@ def main(argv=None) -> int:
             flush=True)
     if not any(report["tile_sass"].values()):
         return fail("no sweep loop found in probe_pass1_tile's SASS")
+
+    if args.halo_only:
+        failures = []
+        report["halo"], fails, _ = halo_phase(card, ptxas)
+        failures += fails
+        report["tools_a8"], fails = tools_a8_phase(card)
+        failures += fails
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_halo.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        for m in failures:
+            print(f"FAIL: {m}", file=sys.stderr, flush=True)
+        print(f"total {time.perf_counter() - t_all:.1f} s (phases 1, 2, "
+              "10 and 11 only)", flush=True)
+        return 1 if failures else 0
 
     # 3. load
     t0 = time.perf_counter()
@@ -4369,6 +4774,15 @@ def main(argv=None) -> int:
     report["dp"], fails, dp_cases = dp_phase(card, main_ref, ptxas)
     failures += fails
 
+    # 10. the halo layout through its tools: the 32k collision on 8 gloo
+    # ranks sharing the card, halo_debug, the command line's refusal
+    report["halo"], fails, halo_cases = halo_phase(card, ptxas)
+    failures += fails
+
+    # 11. the developer tools
+    report["tools_a8"], fails = tools_a8_phase(card)
+    failures += fails
+
     report["total_s"] = time.perf_counter() - t_all
     report["failures"] = failures
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4391,9 +4805,12 @@ def main(argv=None) -> int:
         # (0 for an extra that only the kernel phase drives)
         return sum(legs[leg][name] for leg in case_report["legs"])
 
+    halo_sum = report["halo"]["runs"]["halo_collision"]["summary"]
+
     def add_dp_legs(entry, name):
         # the dp legs: their launches, summed over the ranks, and at D > 1
-        # the kernel held against its plain version on rank 0's inputs
+        # the kernel held against its plain version on rank 0's inputs;
+        # the same for the halo collision's legs (phase 10)
         for leg, *_ in DP_LEGS:
             entry[leg] = dict(
                 launches=report["dp"]["legs"][leg]["launches"][name])
@@ -4402,6 +4819,13 @@ def main(argv=None) -> int:
                     entry[leg].update(case=c["case"],
                                       **{k: c[k] for k in keys},
                                       library_ms=None)
+        entry["halo"] = dict(launches={
+            leg: n[name] for leg, n in halo_sum["launches"].items()})
+        for c in halo_cases:
+            if c["name"] == name:
+                entry["halo"].update(case=c["case"],
+                                     **{k: c[k] for k in keys},
+                                     library_ms=None)
         return entry
 
     for name, (source, replaces) in KERNELS.items():

@@ -11,7 +11,7 @@ card unless ``--device cpu`` is given.
     python -m planetmodel_sph_tpu_torch.cli bench --n 3000 --steps 200
 
 What the reference's CLI has and this one refuses by name: ``--debug-nans``
-(a JAX switch) and ``--set dp_mode=halo`` (the halo layout). Checkpoints
+(a JAX switch). Checkpoints
 are PSPH1 for a ``.psph`` path and npz otherwise, read and written as the
 reference does (``utils/checkpoint.py``).
 
@@ -19,6 +19,9 @@ reference does (``utils/checkpoint.py``).
 (``parallel/dp.py``): the command starts D ranks of its own, one a card over
 NCCL (D clamps to the visible cards, and says so), or D ranks on the CPU
 over gloo with ``--device cpu``; rank 0 logs and writes the files.
+``--set dp_mode=halo`` runs the halo layout (``parallel/halo.py``) the same
+way; it refuses a ring that would collect some shard twice (2R >= D, so at
+least 2 * halo_ring_radius + 1 ranks) before starting any rank.
 
     python -m planetmodel_sph_tpu_torch.cli run --device cpu --n 512 \\
         --devices 2 --steps 8 --diag-every 4
@@ -302,10 +305,6 @@ def _run_dp(args, cfg, state, start_step, device) -> int:
     and stepping its shard (``parallel/dp.py``), rank 0 logging and writing
     the files."""
     from .parallel import mesh as mesh_mod
-    if cfg.dp_mode == "halo":
-        raise SystemExit("--set dp_mode=halo: the halo layout "
-                         "(parallel/halo.py) is not ported; the replicated "
-                         "layout is dp_mode=replicated")
     n_dev = args.devices
     if device.type == "cuda":
         # one rank a card: the count clamps to the visible cards, as the
@@ -317,6 +316,12 @@ def _run_dp(args, cfg, state, start_step, device) -> int:
     if cfg.n % n_dev:
         _log(f"error: n={cfg.n} not divisible by {n_dev} devices")
         return 2
+    if cfg.dp_mode == "halo":
+        from .parallel import halo
+        try:
+            halo.check_config(cfg, n_dev)
+        except ValueError as e:
+            raise SystemExit(f"--set dp_mode=halo: {e}") from None
     mesh_mod.spawn(_dp_rank, n_dev, device=device.type,
                    args=(args, cfg, to_numpy(state), start_step))
     return 0
@@ -324,7 +329,7 @@ def _run_dp(args, cfg, state, start_step, device) -> int:
 
 def _dp_rank(mesh, args, cfg, arrays, start_step):
     """One rank of :func:`_run_dp`."""
-    from .parallel import dp, mesh as mesh_mod
+    from .parallel import dp, halo, mesh as mesh_mod
     from .state import from_numpy
     lead = mesh.rank == 0
     if lead:
@@ -332,8 +337,15 @@ def _dp_rank(mesh, args, cfg, arrays, start_step):
              f"{mesh.device}")
     state = mesh_mod.shard_state(from_numpy(arrays, device=mesh.device),
                                  mesh)
-    state = dp.make_prime(cfg, mesh)(state)
-    runner = dp.make_run_diag(cfg, mesh)
+    if cfg.dp_mode == "halo":
+        # sharded sources: Morton-range bricks, the ring halo exchange and
+        # all-gathered far-chunk moments (parallel/halo.py)
+        state = halo.morton_shard_state(state, mesh)
+        state = halo.make_prime(cfg, mesh)(state)
+        runner = halo.make_run_diag(cfg, mesh)
+    else:
+        state = dp.make_prime(cfg, mesh)(state)
+        runner = dp.make_run_diag(cfg, mesh)
 
     # as the single path: full diag chunks plus a diagnosed remainder
     every = max(1, min(args.diag_every, args.steps))
@@ -368,10 +380,14 @@ def _dp_rank(mesh, args, cfg, arrays, start_step):
     if args.checkpoint:
         checkpoint.save(args.checkpoint, full, cfg, start_step + total)
         _log(f"checkpoint -> {args.checkpoint}")
-    for key in ("nbr_overflow", "tree_overflow"):
-        if int(diags[key].sum()) > 0:
-            _log(f"WARNING: {key}={int(diags[key].sum())} interactions "
-                 "dropped — raise the corresponding capacity")
+    for key in ("nbr_overflow", "tree_overflow", "halo_violations"):
+        tot = int(diags[key].sum()) if key in diags else 0
+        if tot > 0:
+            hint = ("re-shard with halo.morton_shard_state (particles "
+                    "migrated bricks) or raise halo_ring_radius"
+                    if key == "halo_violations" else "interactions dropped "
+                    "— raise the corresponding capacity")
+            _log(f"WARNING: {key}={tot} — {hint}")
     drift = diagnostics.energy_drift(diags)
     _log(f"energy drift: {float(drift[-1]):.3e}")
 

@@ -142,8 +142,9 @@ def com_correct(grad_phi, mass, cfg: SimConfig, axis=None):
     f = (mass[:, None].double() * grad_phi.double()).sum(dim=0)
     m = mass.double().sum()
     if axis is not None:
-        f = mesh_mod.psum(f, axis)
-        m = mesh_mod.psum(m, axis)
+        # both partial sums in one all-reduce
+        fm = mesh_mod.psum(torch.cat([f, m[None]]), axis)
+        f, m = fm[:3], fm[3]
     mean = (f / m).to(grad_phi.dtype)
     return grad_phi - mean[None, :]
 

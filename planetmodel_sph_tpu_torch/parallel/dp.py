@@ -269,6 +269,21 @@ def _unsort_geom(grp, pos, h, vel=None):
     return out[0], out[1], (out[2] if vel is not None else None)
 
 
+def _collect_many(collect, *xs):
+    """``[collect(x) for x in xs]`` in one call: the [n] and [n, k] fields
+    (one dtype) as columns of one tensor, split back (one message a peer
+    instead of one a field; the same values)."""
+    cols = [x.reshape(x.shape[0], -1) for x in xs]
+    both = collect(torch.cat(cols, dim=1))
+    out, c = [], 0
+    for x, col in zip(xs, cols):
+        w = col.shape[1]
+        out.append(both[:, c:c + w].reshape((-1,) + x.shape[1:])
+                   .contiguous())
+        c += w
+    return out
+
+
 def run_chunk_cached(s, cfg: SimConfig, axis: Mesh, kk: int, groups=None,
                      return_groups=False, collect=None, far_hook=None,
                      target_offset=None):
@@ -302,7 +317,7 @@ def run_chunk_cached(s, cfg: SimConfig, axis: Mesh, kk: int, groups=None,
     # ---- chunk boundary: h update ----
     if cfg.adaptive_h:
         if cfg.h_mode == "newton" and cfg.grad_p_mode == "grad_h":
-            src3 = (collect(s.pos), collect(s.h), collect(s.mass))
+            src3 = tuple(_collect_many(collect, s.pos, s.h, s.mass))
             h = structure.solve_h_newton(s.pos, s.h, s.mass, cfg,
                                          planet.h_eta(cfg), src=src3,
                                          target_offset=off, rho0=s.rho,
@@ -313,10 +328,11 @@ def run_chunk_cached(s, cfg: SimConfig, axis: Mesh, kk: int, groups=None,
 
     # ---- one skinned build per chunk ----
     skin = planet._skin(cfg, s.vel, s.accel)
-    mass_c = collect(s.mass)         # static through the chunk
-    src3 = (collect(s.pos), collect(s.h), mass_c)
+    pos_c, h_c, mass_c, skin_c = _collect_many(collect, s.pos, s.h, s.mass,
+                                               skin)   # mass: static
+    src3 = (pos_c, h_c, mass_c)
     st = structure.build(s.pos, s.h, s.mass, cfg, skin=skin, src=src3,
-                         target_offset=off, skin_src=collect(skin),
+                         target_offset=off, skin_src=skin_c,
                          h_margin=cfg.h_track_margin, groups=groups)
     info = structure.overflow_info(st)
 
@@ -335,11 +351,13 @@ def run_chunk_cached(s, cfg: SimConfig, axis: Mesh, kk: int, groups=None,
         return pos, hh, vel if need_vel else None
 
     def current_src(pos_o, h_o, vel_o):
-        """Collected (pos, h, mass[, vel]) of the CURRENT step."""
-        base = (collect(pos_o), collect(h_o), mass_c)
+        """Collected (pos, h, mass[, vel]) of the CURRENT step (one
+        collect)."""
         if need_vel and vel_o is not None:
-            return base + (collect(vel_o),)
-        return base
+            pos_g, h_g, vel_g = _collect_many(collect, pos_o, h_o, vel_o)
+            return (pos_g, h_g, mass_c, vel_g)
+        pos_g, h_g = _collect_many(collect, pos_o, h_o)
+        return (pos_g, h_g, mass_c)
 
     def make_forces(tiers):
         def forces_fn(pos, hh, mm, vel=None, u=None, matid=None,

@@ -14,7 +14,9 @@ Where the ranks run is chosen by the device, never by catching an error:
 - ``device="cuda:K"``: every rank on card K. NCCL refuses two ranks on one
   card, so more than one rank there goes over gloo, which takes CUDA
   tensors (it stages them through host memory itself). A one-card machine
-  runs several ranks this way;
+  runs several ranks this way (:func:`ppermute`'s point-to-point
+  messages stage through host memory explicitly there: gloo's ``isend`` /
+  ``irecv`` take CPU tensors);
 - ``device="cpu"``: gloo, as many ranks as asked for (the reference's
   virtual CPU mesh has as many devices as it is told).
 
@@ -33,6 +35,7 @@ import datetime
 import os
 import shutil
 import tempfile
+import time
 from typing import NamedTuple
 
 import torch
@@ -40,6 +43,10 @@ import torch.distributed as dist
 
 DP_AXIS = "dp"
 TIMEOUT_S = 600.0          # the default wait of one collective
+# a spawned rank's start-up, host clock (time.time()): this module
+# imported, the rank's entry into _rank_main, its device set, its process
+# group up
+STARTUP: dict = {"imported": time.time()}
 
 
 class Mesh(NamedTuple):
@@ -106,16 +113,19 @@ def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
 
 def _rank_main(rank, fn, size, store_file, device, timeout_s, args):
     """One spawned rank: join the default process group through the file
-    store, build the mesh, run fn."""
+    store, build the mesh, run fn (its start-up stamped in STARTUP)."""
+    STARTUP["entered"] = time.time()
     backend, devices = placement(size, device)
     if devices[rank].type == "cuda":
         torch.cuda.set_device(devices[rank])
     else:
         # CPU ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // size))
+    STARTUP["device"] = time.time()
     dist.init_process_group(
         backend, init_method=f"file://{store_file}", rank=rank,
         world_size=size, timeout=datetime.timedelta(seconds=timeout_s))
+    STARTUP["group"] = time.time()
     try:
         fn(make_mesh(size, device), *args)
     finally:
@@ -128,9 +138,13 @@ def spawn(fn, n_ranks: int, device="cuda", args=(),
     (SPMD: every rank calls the same function on its own shard), and wait
     for all of them. `fn` must be importable by name (a module-level
     function). Raises when a rank raises; every process ends before this
-    returns."""
+    returns. On a card, the kernels are built here first (those not built
+    yet), so that no two ranks run ``nvcc`` on the same library."""
     import torch.multiprocessing as mp
     placement(n_ranks, device)          # refuse before starting anything
+    if torch.device(device).type == "cuda":
+        from ..ops.cuda import build
+        build.build_all()
     tmp = tempfile.mkdtemp(prefix="psph_dp_")
     try:
         mp.start_processes(
@@ -148,6 +162,66 @@ def spawn(fn, n_ranks: int, device="cuda", args=(),
 def axis_index(axis: Mesh) -> int:
     """This rank's index on the mesh."""
     return axis.rank
+
+
+def axis_size(axis: Mesh) -> int:
+    """The number of ranks on the mesh."""
+    return axis.size
+
+
+def ppermute(x, axis: Mesh, perm):
+    """``jax.lax.ppermute``: `perm` is a list of (source, destination)
+    rank pairs; this rank sends `x` to every destination its rank is the
+    source of and returns what its source sent it, zeros where no pair
+    names it as a destination. A pair (r, r) copies locally. See
+    :func:`ppermutes` for the transport."""
+    return ppermutes(x, axis, [perm])[0]
+
+
+def ppermutes(x, axis: Mesh, perms):
+    """``[ppermute(x, axis, p) for p in perms]`` as one exchange: every
+    message of every permutation is posted before any is waited for (the
+    message of permutation k carries tag k).
+
+    Under NCCL the messages go as one ``batch_isend_irecv``; under gloo as
+    ``isend`` / ``irecv`` pairs with every receive posted before any wait,
+    so a ring cannot deadlock. Gloo's point-to-point path takes CPU
+    tensors only, so on a card the gloo branch stages `x` through host
+    memory once and the received messages back in one copy (chosen by
+    `axis.backend`)."""
+    r = axis.rank
+    x = x.contiguous()
+    outs, sends, recvs = [], [], []
+    for k, perm in enumerate(perms):
+        srcs = [s for s, d in perm if d == r]
+        if len(srcs) > 1:
+            raise ValueError(f"ppermute: rank {r} receives from {srcs}")
+        outs.append(x.clone() if srcs == [r] else None)
+        sends += [(d, k) for s, d in perm if s == r and d != r]
+        if srcs and srcs[0] != r:
+            recvs.append((srcs[0], k))
+    host = axis.backend != "nccl" and x.device.type != "cpu"
+    xs = x.cpu() if host else x
+    bufs = torch.empty((len(recvs),) + xs.shape, dtype=xs.dtype,
+                       device=xs.device)
+    if axis.backend == "nccl":
+        ops = [dist.P2POp(dist.isend, x, d, group=axis.group, tag=k)
+               for d, k in sends]
+        ops += [dist.P2POp(dist.irecv, bufs[i], s, group=axis.group, tag=k)
+                for i, (s, k) in enumerate(recvs)]
+        works = dist.batch_isend_irecv(ops) if ops else []
+    else:
+        works = [dist.irecv(bufs[i], s, group=axis.group, tag=k)
+                 for i, (s, k) in enumerate(recvs)]
+        works += [dist.isend(xs, d, group=axis.group, tag=k)
+                  for d, k in sends]
+    for w in works:
+        w.wait()
+    if host and recvs:
+        bufs = bufs.to(x.device)
+    for i, (_, k) in enumerate(recvs):
+        outs[k] = bufs[i]
+    return [torch.zeros_like(x) if o is None else o for o in outs]
 
 
 def all_gather(x, axis: Mesh):

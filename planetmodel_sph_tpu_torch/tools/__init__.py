@@ -1,5 +1,9 @@
 """The port's tools: the measurement tools ``roofline`` (the card's ceilings
 against the production step's modeled floor), ``microbench`` (gather
-variants and pass-1 tile widths) and ``launch_cost``, and the long-horizon
+variants and pass-1 tile widths) and ``launch_cost``; the long-horizon
 validation tools ``drift100k`` (the drift protocol and its ship gate),
-``rotating_l_check``, ``equilibrium_run`` and ``drift_probe``."""
+``rotating_l_check``, ``equilibrium_run`` and ``drift_probe``; the halo
+layout's tools ``settle_ball``, ``halo_collision`` (the two-planet
+collision on 8 ranks) and ``halo_debug``; and the developer tools
+``profile_build``, ``scaling_bench``, ``neighbors_of``, ``span_stats``,
+``ksweep``, ``ksweep2`` and ``micro_gather``."""

@@ -4,7 +4,9 @@
 the card's kernels where one is present) and exports a Chrome trace,
 viewable in Perfetto or ``chrome://tracing``. :func:`steps_per_sec` times a
 run with the device synchronized before each clock read, so the time is the
-device's work and not the enqueue. ``bench._device_times`` sums a profiler
+device's work and not the enqueue; :func:`seconds_per_call` times calls of
+a function with CUDA events after a warm-up call (the developer tools'
+timer). ``bench._device_times`` sums a profiler
 run's device time by kernel.
 """
 
@@ -48,3 +50,29 @@ def steps_per_sec(run_fn, state, n_steps: int, warmup: int = 1):
     out = run_fn(state, n_steps)
     _sync(out)
     return n_steps / (time.perf_counter() - t0), out
+
+
+def seconds_per_call(fn, dev, k: int = 1, warmup: int = 1):
+    """Seconds a call of ``fn()`` takes, the mean over `k` calls after
+    `warmup` untimed ones: on a card between two CUDA events recorded on
+    the current stream around the k calls (read after a synchronize), on
+    the CPU by the host clock. Returns (seconds, the last call's
+    result)."""
+    dev = torch.device(dev)
+    out = None
+    for _ in range(warmup):
+        out = fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(k):
+            out = fn()
+        return (time.perf_counter() - t0) / k, out
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(k):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / 1e3 / k, out

@@ -389,8 +389,9 @@ def test_devices_runs_the_data_parallel_path(tmp_path, capfd):
 
 
 def test_devices_refusals(capfd):
-    """An n the ranks cannot share exits 2; the halo layout and the
-    frame options are refused by name."""
+    """An n the ranks cannot share exits 2; the halo layout on dense
+    neighbours (which it cannot serve) and the frame options are refused by
+    name."""
     assert cli.main(["run", "--device", "cpu", "--n", "511", "--devices",
                      "2", "--steps", "2"]) == 2
     assert "not divisible by 2" in capfd.readouterr().err

@@ -20,6 +20,11 @@ from planetmodel_sph_tpu_torch.runtime import snapshot
 from planetmodel_sph_tpu_torch.tools import drift100k, drift_probe
 from planetmodel_sph_tpu_torch.tools import equilibrium_run, microbench
 from planetmodel_sph_tpu_torch.tools import roofline, rotating_l_check
+from planetmodel_sph_tpu_torch.tools import halo_collision, halo_debug
+from planetmodel_sph_tpu_torch.tools import ksweep, ksweep2, micro_gather
+from planetmodel_sph_tpu_torch.tools import neighbors_of, profile_build
+from planetmodel_sph_tpu_torch.tools import scaling_bench, settle_ball
+from planetmodel_sph_tpu_torch.tools import span_stats
 from planetmodel_sph_tpu_torch.utils import checkpoint
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,7 +75,13 @@ def test_scan_sees_the_package():
             "tools/drift100k.py", "tools/rotating_l_check.py",
             "tools/equilibrium_run.py", "tools/drift_probe.py",
             "utils/profiling.py", "utils/render.py", "utils/liveview.py",
-            "runtime/native.py", "parallel/mesh.py", "parallel/dp.py"} <= names
+            "runtime/native.py", "parallel/mesh.py", "parallel/dp.py",
+            "parallel/halo.py", "tools/halo_collision.py",
+            "tools/settle_ball.py", "tools/halo_debug.py",
+            "tools/profile_build.py", "tools/scaling_bench.py",
+            "tools/neighbors_of.py", "tools/span_stats.py",
+            "tools/ksweep.py", "tools/ksweep2.py",
+            "tools/micro_gather.py"} <= names
     assert os.path.exists(os.path.join(PKG, "runtime", "psph_io.cpp"))
 
 
@@ -127,11 +138,25 @@ def test_entry_points_default_to_cuda(fn):
     lambda: equilibrium_run.main(["--out", "out/never"]),
     lambda: drift_probe.main([]),
     lambda: cli.main(["run", "--n", "8", "--steps", "1", "--serve", "0"]),
+    lambda: settle_ball.main(["--out", "out/never.psph"]),
+    lambda: halo_collision.main(["--out", "out/never"]),
+    lambda: halo_debug.main([]),
+    lambda: profile_build.main([]),
+    lambda: scaling_bench.main([]),
+    lambda: neighbors_of.main([]),
+    lambda: span_stats.main([]),
+    lambda: ksweep.main([]),
+    lambda: ksweep2.main([]),
+    lambda: micro_gather.main([]),
 ], ids=["jupiter", "polytrope", "rotating_planet", "two_planet_collision",
         "bench_cold_start", "cli_run", "cli_bench", "tools_roofline",
         "tools_microbench", "checkpoint_load", "bench_lines",
         "tools_drift100k", "tools_rotating_l_check",
-        "tools_equilibrium_run", "tools_drift_probe", "cli_serve"])
+        "tools_equilibrium_run", "tools_drift_probe", "cli_serve",
+        "tools_settle_ball", "tools_halo_collision", "tools_halo_debug",
+        "tools_profile_build", "tools_scaling_bench", "tools_neighbors_of",
+        "tools_span_stats", "tools_ksweep", "tools_ksweep2",
+        "tools_micro_gather"])
 def test_new_entry_points_raise_without_a_card(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

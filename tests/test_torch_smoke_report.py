@@ -618,3 +618,83 @@ def test_morton_order_is_the_cubic_box_curve():
                         [0.0, 0.2, 0.0]])
     # a cubic box of side 1: x = 0.9 sorts past y = 0.2 on the curve
     assert cs.morton_order(pos).tolist() == [1, 3, 2, 0]
+
+
+# ---- phases 10 and 11: the halo layout, the developer tools ----------------
+
+PHASE10 = os.path.join(ROOT, "tests", "chip_smoke_phase10_report.json")
+
+
+def _phase10():
+    import json
+    with open(PHASE10) as f:
+        return json.load(f)
+
+
+def test_phase10_recorded_report_passes():
+    """Phases 10 and 11 of a report recorded on the card: the ball, the
+    collision's two legs (8 gloo ranks, R = 3), every halo kernel launched
+    on each leg and held against its plain version on rank 0's inputs,
+    the one-device run of the same state, halo_debug's lines, the
+    command line's refusal, and the seven developer tools."""
+    rep = _phase10()
+    halo, tools = rep["halo"], rep["tools_a8"]
+    assert cs.halo_failures(halo) == []
+    assert cs.tools_a8_failures(tools) == []
+    s = halo["runs"]["halo_collision"]["summary"]
+    assert (s["n"], s["ranks"], s["backend"]) == (cs.HALO_N, 8, "gloo")
+    assert s["dpos_p99"] <= cs.HALO_POS_GATE * s["scale"]
+    assert len(halo["runs"]["halo_collision"]["leg1_viol"]) == 8
+    assert {c["name"] for c in halo["cases"]} == set(cs.HALO_KERNELS)
+    assert set(tools["runs"]) == {t[0] for t in cs.A8_TOOLS}
+
+
+@pytest.mark.parametrize("path,value,word", [
+    (("runs", "settle_ball", "rc"), 3, "settle_ball"),
+    (("runs", "settle_ball", "launches", "pass2"), 0, "no launch"),
+    (("runs", "halo_collision", "summary"), None, "no summary"),
+    (("runs", "halo_collision", "summary", "dpos_p99"), 1.0, "|dpos| p99"),
+    (("runs", "halo_collision", "rc"), 5, "exit 5"),
+    (("runs", "halo_collision", "summary", "leg1_overflow", "leg1_halo"),
+     [3, 0], "leg 1 overflow"),
+    (("runs", "halo_collision", "summary", "leg2_overflow"), [0, 7],
+     "leg 2"),
+    (("runs", "halo_collision", "summary", "leg2_finite"), False, "leg 2"),
+    (("runs", "halo_collision", "summary", "launches", "leg2", "p2p"), 0,
+     "no launch"),
+    (("runs", "halo_collision", "leg1_viol"), [808], "segments"),
+    (("cases", 0, "ok"), False, "disagrees"),
+    (("runs", "halo_debug", "lines"), [], "halo_debug"),
+    (("runs", "cli", "rc"), 0, "phase 10 cli"),
+    (("runs", "cli", "lines"), ["clamped to 1"], "phase 10 cli"),
+], ids=lambda v: str(v)[:24])
+def test_phase10_failures_name_what_failed(path, value, word):
+    rep = _phase10()["halo"]
+    _spoil(rep, path, value)
+    fails = cs.halo_failures(rep)
+    assert any(word in f for f in fails), fails
+
+
+def test_phase10_accepts_the_tools_dvel_bar_alone():
+    """The collision tool exits 2 when its fixed |dvel| bar fails (the
+    reference's 32k run fails it too): phase 10 accepts that exit only
+    while the position gate passes."""
+    rep = _phase10()["halo"]
+    s = rep["runs"]["halo_collision"]["summary"]
+    rep["runs"]["halo_collision"]["rc"] = 2
+    s["dvel_p99"] = 2 * cs.HALO_DVEL_BAR
+    assert cs.halo_failures(rep) == []
+    s["dpos_p99"] = 2 * cs.HALO_POS_GATE * s["scale"]
+    assert any("exit 2" in f for f in cs.halo_failures(rep))
+
+
+@pytest.mark.parametrize("key,value", [
+    ("rc", 1), ("missing", ["build (full)"]),
+    ("failed_lines", ["xwk16bf: FAILED ..."])])
+def test_phase11_failures_name_the_tool(key, value):
+    rep = _phase10()["tools_a8"]
+    rep["runs"]["ksweep2"][key] = value
+    assert any("ksweep2" in f for f in cs.tools_a8_failures(rep))
+    del rep["runs"]["micro_gather"]
+    assert any("micro_gather: not run" in f
+               for f in cs.tools_a8_failures(rep))
