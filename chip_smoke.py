@@ -35,7 +35,17 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    ``pass2``, the far-only ``gravity_fused``) and under `sym100k`'s step
    (``pass1_sym``, ``pass2``, ``p2p``, ``gravity_fused`` with its near
    tier), b = 1024 for ``filter_sph``'s second word of boxes, and b = 33
-   for ``p2p``'s one-target tail. The two all-pairs kernels
+   for ``p2p``'s one-target tail; and the bf16 instances
+   (``grav_pair_dtype="bfloat16"``), each a twin of an f32 case on the
+   same inputs with ``bf16=True`` against its plain bf16 version:
+   ``p2p`` min-h and ``receiver_h`` at `sym100k` and at b = 33, and
+   ``gravity_fused`` far only at the production shapes and at
+   `sym100k`'s, with its near tier at `sym100k`'s every-tier inputs, with
+   the blk tier at `sg100k`'s and with monopoles under receiver softening
+   at `parity3k`'s; each as its f32 twin (two launches the same bits,
+   planted NaNs, registers and spills), plus its difference from the f32
+   twin (at least 1e-4 of max|g|) and both instances timed in turns (f32,
+   bf16, bf16, f32: wrapper ms and device ms). The two all-pairs kernels
    are held against theirs on primed ``ics.jupiter`` particles at n = 3000
    and n = 32768, every case at both sizes: pass 1 with both softenings
    and without gravity, pass 2 symmetric, asymmetric with the sign bug,
@@ -88,6 +98,18 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    phase from a raw n = 100,000 polytrope: grad-h with viscosity and
    velocity damping, 16 steps, then 8 with the Balsara limiter) and
    `parity3k` (the ``parity`` preset at n = 3000, 100 steps). Then the
+   bf16 gravity pair path, each leg primed again under its own
+   configuration and beside its f32 twin, run from the same state just
+   before it: `prod100k_bf16` (the settled state under the production
+   flags with ``grav_pair_dtype="bfloat16"``, 64 steps: every far-only
+   ``gravity_fused`` launch of the bf16 instance, pass 2's merged near
+   window f32 as in the reference) and `sym100k_bf16` (`sym100k`'s state,
+   64 RESPA steps, every ``p2p`` and far-only launch bf16, then 8
+   every-tier steps): the bf16 instances' launch counts
+   (``launch.BF16_LAUNCHES``), overflow 0, finite fields, steps/s and the
+   energy change beside the twin's, and each leg's first evaluation
+   against f32 inside the reference's band (phi rtol 5e-3, grad phi 1e-2
+   of max; ``tests/test_structure.py``). Then the
    energy equation and the supergroup far tier: `adia100k` (the settled
    100k state under the adiabatic EOS with viscosity, its internal energy
    evolved: 64 steps of the cached production chunk through the merged
@@ -358,6 +380,20 @@ OPS_GP_SUM = 10           # coef(4) three sums(6), where gw_i or gw_j != 0
 OPS_MONO = 23             # dx(3) r2(5) fmax rsqrt mag(3) phi(2) g(3)
 #                           sums(4) count
 OPS_QUAD = 41             # Q.d(15) d.Q.d(5) r^-2 r^-5(2) r^-7 term(3)
+# the bf16 instances (grav_pair_dtype="bfloat16"): of each live Dyer-Ip
+# pair's operations above these run in bf16 instead (near: x2 x3 a^-3(2)
+# mag(6) phi(10); far: m/r mag(2) -phi), and the casts to bf16 are added
+# (dx(3) x m 1/a 1/r); of each moment entry's, the monopole's mag(3), with
+# its casts (dx(3) m 1/r). The geometry, the x < 1 test, the exact last
+# products, the sums and the quadrupole stay f32.
+OPS_DYER_IP_IN_BF16 = dict(near=20, far=4)
+OPS_CAST_PAIR = 7
+OPS_MONO_IN_BF16 = 3
+OPS_CAST_MONO = 5
+# non-tensor bf16 of one H100 SXM5: packed bf16x2 operations at twice the
+# f32 rate (NVIDIA H100 Tensor Core GPU Architecture whitepaper: 133.8
+# TFLOP/s against 66.9 in f32)
+PEAK_BF16 = 133.8e12
 #                           phi(3) g(12)
 OPS_FILTER = 13           # dx(3) r2(5) fmax cut(2) cut^2 compare
 # pass1_sym, per live pair inside either support: the geometry and the
@@ -1114,10 +1150,9 @@ def _pass1_sym_ops(a):
     return ops
 
 
-def _p2p_window_ops(nv, rows, tgt, receiver, g0, g1, b):
-    """One P2P window's operations for groups [g0, g1): the geometry, the
-    count and the Dyer-Ip branch on each live pair (no fmin under receiver
-    softening)."""
+def _p2p_branches(nv, rows, tgt, receiver, g0, g1, b):
+    """The live pairs of one P2P window for groups [g0, g1) and their
+    Dyer-Ip x = r/a."""
     import torch
     tx, ty, tz, tih = (c[g0 * b:g1 * b].reshape(g1 - g0, b, 1)
                        for c in tgt[:4])
@@ -1128,8 +1163,16 @@ def _p2p_window_ops(nv, rows, tgt, receiver, g0, g1, b):
     r2 = dxx * dxx + dxy * dxy + dxz * dxz
     r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
     inv_a = tih if receiver else torch.minimum(tih, r3[3])
+    return live, r * inv_a
+
+
+def _p2p_window_ops(nv, rows, tgt, receiver, g0, g1, b):
+    """One P2P window's operations for groups [g0, g1): the geometry, the
+    count and the Dyer-Ip branch on each live pair (no fmin under receiver
+    softening)."""
+    live, x = _p2p_branches(nv, rows, tgt, receiver, g0, g1, b)
     return ((OPS_GEOM + OPS_COUNT - (1 if receiver else 0)) * b * _n(live)
-            + _dyer_ip_ops(live, r * inv_a))
+            + _dyer_ip_ops(live, x))
 
 
 def _p2p_ops(a, kw):
@@ -1213,17 +1256,14 @@ def _pass2_ops(a, kw):
     return ops
 
 
-def _gravity_ops(a, kw=None):
-    """gravity_fused's operations: one multipole evaluation per target and
-    live entry (ring and blk slots below their nv with m > 0, far entries
-    with accept and m > 0), the windows' m test per (group, slot) and the
-    far scan's accept
-    test per (group, entry) plus its m test where accepted; with the near
-    tier its window's pairs as p2p counts them."""
+def _gravity_entries(a, kw=None):
+    """gravity_fused's (live entries evaluated for every target, entry
+    tests): ring and blk slots below their nv with m > 0 and far entries
+    with accept and m > 0; the m test per slot below nv, the accept test
+    per (group, entry) and the m test where accepted."""
     import torch
     nv, tgt, ring, far, acc = a
-    g, sr = ring[0].shape
-    b = tgt[0].shape[0] // g
+    sr = ring[0].shape[1]
     slot = torch.arange(sr, device=nv.device)[None, :] < nv[:, None]
     took = acc > 0.5
     n_eval = _n(slot & (ring[0] > 0.0)) + _n(took & (far[0] > 0.0))
@@ -1236,6 +1276,46 @@ def _gravity_ops(a, kw=None):
                  < kw["nv_blk"][:, None])
         n_eval += _n(bslot & (blk[0] > 0.0))
         n_test += _n(bslot)
+    return n_eval, n_test
+
+
+def _bf16_ops(name, a, kw):
+    """(the f32 operations of the f32 instance that the bf16 instance runs
+    in bf16, the bf16 operations) of one bf16 call of p2p or
+    gravity_fused, by the branch this data takes."""
+    nv, tgt = a[0], a[1]
+    g = n_groups(a)
+    b = tgt[0].shape[0] // g
+    if name == "p2p":
+        windows, n_mono = [(nv, a[2], kw["receiver_soft"])], 0
+    else:
+        windows = ([(kw["nv_p2p"], kw["p2p_rows"],
+                     kw.get("receiver_soft", False))]
+                   if kw.get("p2p_rows") is not None else [])
+        n_mono = _gravity_entries(a, kw)[0]
+    moved = b * OPS_MONO_IN_BF16 * n_mono
+    ops = b * (OPS_MONO_IN_BF16 + OPS_CAST_MONO) * n_mono
+    for nvw, rows, receiver in windows:
+        for g0, g1 in _group_slices(g, _step(b, rows[0].shape[1])):
+            live, x = _p2p_branches(nvw, rows, tgt, receiver, g0, g1, b)
+            for branch, n in (("near", _n(live & (x < 1.0))),
+                              ("far", _n(live & (x >= 1.0)))):
+                moved += OPS_DYER_IP_IN_BF16[branch] * n
+                ops += (OPS_DYER_IP_IN_BF16[branch] + OPS_CAST_PAIR) * n
+    return moved, ops
+
+
+def _gravity_ops(a, kw=None):
+    """gravity_fused's operations: one multipole evaluation per target and
+    live entry (ring and blk slots below their nv with m > 0, far entries
+    with accept and m > 0), the windows' m test per (group, slot) and the
+    far scan's accept
+    test per (group, entry) plus its m test where accepted; with the near
+    tier its window's pairs as p2p counts them."""
+    nv, tgt, ring, far, acc = a
+    g = ring[0].shape[0]
+    b = tgt[0].shape[0] // g
+    n_eval, n_test = _gravity_entries(a, kw)
     per = OPS_MONO + (OPS_QUAD if len(ring) == 10 else 0)
     ops = b * per * n_eval + n_test
     p2p = (kw or {}).get("p2p_rows")
@@ -1382,7 +1462,8 @@ def pairwise_bound(name, args, kw, cfg, out):
 def bound(name, a, kw, out):
     """(bound_ms, bound_by, bytes, ops) for this call: the bytes the
     function must move over the HBM rate, against the f32 operations this
-    data needs over the f32 peak."""
+    data needs over the f32 peak (a bf16 call: plus its bf16 operations
+    over the packed bf16 peak; `ops` counts both)."""
     out = list(out) if isinstance(out, tuple) else [out]
     if name in PROBES:
         nbytes, ops = _probe_work(name, a, kw, out)
@@ -1420,10 +1501,14 @@ def bound(name, a, kw, out):
             windows.append((kw["nv_blk"], kw["blk_rows"]))
         nbytes = _io_bytes(cols, windows, [*far, acc], out)
         ops = _gravity_ops(a, kw)
+    ops_bf16 = 0
+    if kw.get("bf16"):
+        moved, ops_bf16 = _bf16_ops(name, a, kw)
+        ops -= moved
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32 * 1e3
+    t_ops = (ops / PEAK_F32 + ops_bf16 / PEAK_BF16) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", nbytes, ops)
+            "operations", nbytes, ops + ops_bf16)
 
 
 def _tile_ops(a, kw):
@@ -1548,19 +1633,21 @@ def sass_pair_loops(sass):
 def instance_key(name, kw, a=None):
     """The template arguments of the instance a call launches (pass2: mode,
     sign bug, viscosity, Balsara, gravity 0/1/2, receiver softening,
-    energy, as pass2.cu orders them; gravity_fused: its near tier 0/1/2
-    and the moment fields of the ring rows `a[2]`; p2p: receiver softening
-    0/1; filter_sph: more than 32 boxes of 16 targets a group, 0/1;
+    energy, as pass2.cu orders them; gravity_fused: its near tier 0/1/2,
+    the moment fields of the ring rows `a[2]` and bf16 0/1; p2p: receiver
+    softening 0/1 and bf16 0/1; filter_sph: more than 32 boxes of 16
+    targets a group, 0/1;
     pass1_gradh and pass1_sym have none)."""
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
     if name == "filter_sph":
         return (name, (int(kw["b"] > 32 * 16),))
+    bf16 = int(bool(kw.get("bf16")))
     if name == "gravity_fused":
         near = (2 if kw.get("receiver_soft") else 1) \
             if kw.get("p2p_rows") is not None else 0
-        return (name, (near, len(a[2])))
+        return (name, (near, len(a[2]), bf16))
     if name == "p2p":
-        return (name, (int(bool(kw.get("receiver_soft"))),))
+        return (name, (int(bool(kw.get("receiver_soft"))), bf16))
     if name != "pass2":
         return (name, ())
     grav = (2 if kw.get("p2p_rows") is not None else 1) if kw.get("grav") \
@@ -2004,7 +2091,14 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
     dev_ms = device_ms(lambda: wrapper(*a, **kw))
     if host:
         extra["host_us"] = host_us(lambda: wrapper(*a, **kw))
-    if parent_libs and name in parent_libs and \
+    if kw.get("bf16"):
+        extra.update(bf16_twin(name, a, kw, out))
+        if not extra["bf16_vs_f32"] >= BF16_MIN_DIFF:
+            ok = False
+            msgs.append(f"differs from its f32 twin by only "
+                        f"{extra['bf16_vs_f32']:.3e} of max|g| (a bf16 "
+                        "instance that did nothing?)")
+    if parent_libs and name in parent_libs and not kw.get("bf16") and \
             (name, case) not in GROUP_SIZE_CASES:
         # the parent's kernel and this one in turns: parent, this, this,
         # parent, on the same inputs through the same wrapper (not at the
@@ -2044,6 +2138,16 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
         print(f"  {label}: planted NaNs "
               f"{'agree' if extra['nan_agrees'] else 'DIFFER'} ({got})",
               flush=True)
+    if "bf16_vs_f32" in extra:
+        f, h = extra["f32_ms_in_turns"], extra["bf16_ms_in_turns"]
+        fd, hd = extra["f32_device_ms"], extra["bf16_device_ms"]
+        print(f"  {label}: against its f32 twin: g differs by up to "
+              f"{extra['bf16_vs_f32']:.3e} of max|g|, phi by "
+              f"{extra['bf16_vs_f32_phi']:.3e}; in turns f32 {f[0]:.4f}, "
+              f"bf16 {h[0]:.4f}, bf16 {h[1]:.4f}, f32 {f[1]:.4f} ms "
+              f"({sum(f) / sum(h):.2f}x); device f32 {fmt_ms(fd[0])}, bf16 "
+              f"{fmt_ms(hd[0])}, bf16 {fmt_ms(hd[1])}, f32 {fmt_ms(fd[1])}"
+              " ms", flush=True)
     if "parent_ms" in extra:
         p, t = extra["parent_ms"], extra["ms_in_turns"]
         print(f"  {label}: in turns, parent {p[0]:.4f}, this {t[0]:.4f}, "
@@ -2057,6 +2161,40 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, bytes=nbytes, ops=ops, shapes=shapes,
                 messages=msgs, **extra)
+
+
+# the least difference of g (of max|g|) a bf16 case must show against its
+# f32 twin: a bf16 instance that computed in f32 would otherwise pass
+BF16_MIN_DIFF = 1e-4
+
+
+def bf16_twin(name, a, kw, out):
+    """A bf16 call's outputs `out` beside its f32 twin's on the same
+    inputs: the largest difference of g (of the twin's max|g|) and of phi
+    (relative), and both instances timed in turns (f32, bf16, bf16, f32),
+    as wrapper ms (CUDA events) and device ms (torch.profiler)."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    wrapper = getattr(gk2, name)
+    f32_kw = dict(kw, bf16=False)
+    twin = wrapper(*a, **f32_kw)
+    torch.cuda.synchronize()
+    gscale = max(float(t.abs().max()) for t in twin[1:4])
+    dg = max(float((o.double() - t.double()).abs().max())
+             for o, t in zip(out[1:4], twin[1:4])) / max(gscale, 1e-30)
+    dphi = float(((out[0].double() - twin[0].double()).abs()
+                  / twin[0].double().abs().clamp(min=1e-30)).max())
+    del twin
+    turns = {"f32": [], "bf16": []}
+    dev = {"f32": [], "bf16": []}
+    for who in ("f32", "bf16", "bf16", "f32"):
+        k2 = kw if who == "bf16" else f32_kw
+        turns[who].append(cuda_ms(lambda: wrapper(*a, **k2), KERNEL_REPS))
+        dev[who].append(device_ms(lambda: wrapper(*a, **k2)))
+    return dict(bf16_vs_f32=dg, bf16_vs_f32_phi=dphi,
+                f32_ms_in_turns=turns["f32"],
+                bf16_ms_in_turns=turns["bf16"], f32_device_ms=dev["f32"],
+                bf16_device_ms=dev["bf16"])
 
 
 def visits_line(name, extra):
@@ -2159,6 +2297,34 @@ def stream_checks(seen):
 # the production path's case of the kernels that have several
 MAIN_CASE = {"pass2": "grad_h+merged", "gravity_fused": "far_only"}
 
+# the bf16 twins (grav_pair_dtype="bfloat16"): each f32 case named here is
+# held again on the same inputs with bf16=True, as "<case>+bf16", for the
+# legs that launch that bf16 instance at those shapes (none: an extra)
+BF16_TWINS = {
+    ("gravity_fused", "far_only"): ("prod100k_bf16",),
+    ("p2p", "min_h"): ("sym100k_bf16",),
+    ("gravity_fused", "far_only@sym100k"): ("sym100k_bf16",),
+    ("gravity_fused", "near+min_h"): ("sym100k_bf16_every_tier",),
+    ("p2p", "receiver_h"): (),
+    ("p2p", "min_h@b33@sym100k"): (),
+    ("gravity_fused", "near+min_h+blk"): (),
+    ("gravity_fused", "near+receiver_h@parity3k"): (),
+}
+
+
+def bf16_case(name, case, a, kw):
+    """The bf16 twin of one case, as check_modes takes it."""
+    return (name, case + "+bf16", BF16_TWINS[(name, case)], a,
+            dict(kw, bf16=True))
+
+
+def with_bf16_twins(cases):
+    """The cases, each named in BF16_TWINS followed by its bf16 twin."""
+    for name, case, legs, a, kw in cases:
+        yield name, case, legs, a, kw
+        if (name, case) in BF16_TWINS:
+            yield bf16_case(name, case, a, kw)
+
 
 def check_kernels(seen, ptxas=None, parent_libs=None):
     """Phase 4 on the production path's inputs: each kernel against its
@@ -2214,7 +2380,8 @@ def check_modes(cases, ptxas=None, parent_libs=None):
             ("gravity_fused", "near+min_h+monopole@basalt100k"),
             ("filter_sph", "exact_h_solve"), ("pass1_gradh", "exact_h_solve"),
             ("filter_sph", "exact100k"), ("pass1_gradh", "exact100k"),
-            ("pass2", "grad_h@exact100k")} | GROUP_SIZE_CASES
+            ("pass2", "grad_h@exact100k")} | GROUP_SIZE_CASES | {
+                (name, case + "+bf16") for name, case in BF16_TWINS}
     missing = want - {(r["name"], r["case"]) for r in reports}
     if missing:
         failures.append(f"kernel cases not checked: {sorted(missing)}")
@@ -2331,6 +2498,22 @@ def pairwise_instance(name, cfg, kw):
                        int(grav and cfg.softening_mode == "receiver_h")))
     av = cfg.av_alpha > 0.0 and kw.get("vel") is not None
     return (name, (int(av), int(av and cfg.av_balsara)))
+
+
+def parent_signatures(parent):
+    """The other checkout's C signatures (``SIGNATURES`` of its
+    ops/cuda/build.py), read from its source."""
+    import ast
+    path = os.path.join(parent, "planetmodel_sph_tpu_torch", "ops", "cuda",
+                        "build.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    keep = [node for node in tree.body if isinstance(node, ast.Assign)
+            and any(isinstance(t, ast.Name) and t.id == "SIGNATURES"
+                    for t in node.targets)]
+    ns = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)
+    return ns["SIGNATURES"]
 
 
 def parent_splits_for(parent):
@@ -3120,15 +3303,17 @@ def small_agreement(state, cfg, prime=False, fields=("pos", "rho"),
     return res
 
 
-def run_leg(label, state, cfg, steps, expect, energy, note=""):
+def run_leg(label, state, cfg, steps, expect, energy, note="",
+            expect_bf16=None):
     """One leg through ``planet.run_info``, the launch counts reset just
     before and read just after. `energy`: 'conserved' (|relative change| <
     1e-2), a number (|relative change| below it), 'not_growing' (damping
     and viscosity remove energy by design: the relative change must be <=
     0) or 'printed'. Under an evolved-u EOS the total energy holds the
     evolved u, which must stay finite with a rate that is not identically
-    0. `note` is printed beside the launch counts. Returns (state, report,
-    failures)."""
+    0. `note` is printed beside the launch counts. `expect_bf16`: the
+    launches of the bf16 instances (launch.BF16_LAUNCHES) the leg must
+    make, 0 for any not named. Returns (state, report, failures)."""
     import torch
     from planetmodel_sph_tpu_torch.models import planet
     from planetmodel_sph_tpu_torch.ops.cuda import launch
@@ -3136,6 +3321,8 @@ def run_leg(label, state, cfg, steps, expect, energy, note=""):
     e0 = diagnostics.measure(state, cfg)
     want = dict.fromkeys(launch.LAUNCHES, 0)
     want.update(expect)
+    want_bf16 = dict.fromkeys(launch.BF16_LAUNCHES, 0)
+    want_bf16.update(expect_bf16 or {})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launch.reset_launches()
@@ -3144,6 +3331,7 @@ def run_leg(label, state, cfg, steps, expect, energy, note=""):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(launch.LAUNCHES)
+    bf16_launches = dict(launch.BF16_LAUNCHES)
     overflow = {k: int(v) for k, v in info.items()}
     e1 = diagnostics.measure(out, cfg)
     de = float((e1["total_energy"] - e0["total_energy"])
@@ -3152,14 +3340,18 @@ def run_leg(label, state, cfg, steps, expect, energy, note=""):
     bad_fields = all_finite(out)
     rep = dict(leg=label, n=state.n, steps=steps, wall_s=wall,
                steps_per_s=steps / wall, overflow=overflow,
-               launches=launches, expected=want, non_finite=bad_fields,
+               launches=launches, expected=want,
+               bf16_launches=bf16_launches, expected_bf16=want_bf16,
+               non_finite=bad_fields,
                neighbors_avg=nbrs, momentum_mag=float(e1["momentum_mag"]),
                rel_energy_change=de,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"leg {label}: n={state.n} {steps} steps in {wall:.3f} s = "
           f"{steps / wall:.3f} steps/s, peak memory "
           f"{rep['peak_mem_gb']:.3f} GB", flush=True)
+    b16 = {k: v for k, v in bf16_launches.items() if v}
     print(f"  launches { {k: v for k, v in launches.items() if v} }"
+          f"{', of them bf16 ' + str(b16) if b16 else ''}"
           f"{' (' + note + ')' if note else ''}", flush=True)
     print(f"  overflow {overflow} non-finite {bad_fields} neighbors_avg "
           f"{nbrs:.2f} momentum_mag {rep['momentum_mag']:.3e} rel energy "
@@ -3169,6 +3361,9 @@ def run_leg(label, state, cfg, steps, expect, energy, note=""):
         failures.append(f"{label}: overflow counters not 0: {overflow}")
     if launches != want:
         failures.append(f"{label}: launch counts {launches} != {want}")
+    if bf16_launches != want_bf16:
+        failures.append(f"{label}: bf16 launch counts {bf16_launches} != "
+                        f"{want_bf16}")
     if bad_fields:
         failures.append(f"{label}: non-finite fields: {bad_fields}")
     if not 30.0 <= nbrs <= 80.0:
@@ -3226,6 +3421,127 @@ def grid_legs(cfg, sym_state, settle_state, settle_cfg):
     leg("parity3k", st, pcfg, PARITY_STEPS,
         dict(pairwise_pass1=PARITY_STEPS, pairwise_pass2=PARITY_STEPS,
              gravity_fused=PARITY_STEPS), "printed")
+    return reports, failures
+
+
+# the reference's band of bf16 against f32 gravity (tests/test_structure.py
+# test_bf16_gravity_close_to_f32): phi rtol, g atol of max|g|
+BF16_PHI_RTOL = 5e-3
+BF16_G_ATOL = 1e-2
+
+
+def first_eval_band(label, state, cfg32, cfg16):
+    """A leg's first evaluation under cfg16 (grav_pair_dtype='bfloat16')
+    against its f32 twin's: one chunk set-up from `state` (the structure
+    does not depend on the pair dtype), then the gravity the leg's first
+    step evaluates, the near tier with the far tiers under RESPA, every
+    tier otherwise. phi must agree within BF16_PHI_RTOL and grad phi within
+    BF16_G_ATOL of its largest magnitude on the live rows, both finite.
+    Returns the report."""
+    import torch
+    from planetmodel_sph_tpu_torch.models import planet
+    from planetmodel_sph_tpu_torch.ops import structure
+    run_state, st = planet.chunk_setup(state, cfg32)
+    respa = planet._respa(cfg32) and \
+        cfg32.rebuild_every % cfg32.respa_every == 0
+    fields = {}
+    for tag, c in (("f32", cfg32), ("bf16", cfg16)):
+        kw = planet._forces_kw(c, run_state.u, run_state.matid,
+                               run_state.balsara)
+        kw.setdefault("fbal", run_state.balsara)
+        f = planet._forces_block(run_state.pos, run_state.h, run_state.mass,
+                                 c, st, vel=run_state.vel, solve_h=False,
+                                 sorted_io=True,
+                                 grav_tiers="near" if respa else "all", **kw)
+        phi, g = f.phi, f.grad_phi
+        if respa:
+            phi_f, g_f, _ = structure.gravity_far(
+                run_state.pos, run_state.h, run_state.mass, c, st,
+                sorted_io=True)
+            phi, g = phi + phi_f, g + g_f
+        fields[tag] = (phi.double(), g.double())
+    live = st.groups.live.reshape(-1)
+    (p32, g32), (p16, g16) = fields["f32"], fields["bf16"]
+    phi_err = float(((p16 - p32).abs() / p32.abs())[live].max())
+    g_err = float((g16 - g32)[live].abs().max() / g32[live].abs().max())
+    finite = bool(torch.isfinite(p16[live]).all()
+                  and torch.isfinite(g16[live]).all())
+    ok = finite and phi_err <= BF16_PHI_RTOL and g_err <= BF16_G_ATOL
+    what = "near + far" if respa else "every tier"
+    print(f"leg {label}: first evaluation ({what}), "
+          f"bf16 against f32: phi {phi_err:.3e} (band rtol "
+          f"{BF16_PHI_RTOL}), grad phi {g_err:.3e} of max|g| (band "
+          f"{BF16_G_ATOL}), finite {finite}: {'ok' if ok else 'OUTSIDE'}",
+          flush=True)
+    del run_state, st, fields
+    return dict(respa=respa, phi_rel_err=phi_err, g_err=g_err,
+                finite=finite, ok=ok)
+
+
+def f32_twin_run(start, cfg, steps):
+    """The f32 twin of a bf16 leg, run just before it: (end state, steps/s,
+    relative energy change)."""
+    import torch
+    from planetmodel_sph_tpu_torch.models import planet
+    from planetmodel_sph_tpu_torch.utils import diagnostics
+    e0 = diagnostics.measure(start, cfg)["total_energy"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = planet.run_info(start, cfg, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    e1 = diagnostics.measure(out, cfg)["total_energy"]
+    return out, steps / wall, float((e1 - e0) / abs(e0))
+
+
+def bf16_legs(cfg, state, sym_state):
+    """Phase 5c': the bfloat16 gravity pair path, each leg beside its f32
+    twin, run from the same state just before it (steps/s and the energy
+    change): `prod100k_bf16` (the settled state under the production flags
+    with grav_pair_dtype='bfloat16', 64 steps: every far-only
+    gravity_fused launch bf16, pass 2's merged near window f32) and
+    `sym100k_bf16` (64 RESPA steps: every p2p and far-only launch bf16;
+    then 8 every-tier steps from its end: every gravity_fused launch
+    bf16). A bf16 leg starts from its state primed again under its own
+    configuration, as ``bench --set`` primes a state file (the stored
+    fields, phi among them, are the f32 twin's: the energy change would
+    read the switch of pair dtype). Each leg's first evaluation is held
+    against f32 in the reference's band. Returns ([report], failures)."""
+    from planetmodel_sph_tpu_torch.models import planet
+    reports, failures = [], []
+
+    def leg(label, start32, c32, steps, bf16_names, start16=None):
+        c16 = c32.replace(grav_pair_dtype="bfloat16")
+        if start16 is None:
+            start16 = planet.prime(start32, c16.replace(rebuild_every=1,
+                                                        respa_every=1))
+        band = first_eval_band(label, start16, c32, c16)
+        out32, rate32, de32 = f32_twin_run(start32, c32, steps)
+        exp = expected_launches(c16, steps)
+        out, rep, fails = run_leg(
+            label, start16, c16, steps, exp, "conserved",
+            expect_bf16={k: exp[k] for k in bf16_names},
+            note=f"bf16: every {' and '.join(bf16_names)} launch")
+        rep.update(first_eval=band, f32_twin=dict(steps_per_s=rate32,
+                                                  rel_energy_change=de32))
+        print(f"  {label} beside its f32 twin: {rep['steps_per_s']:.3f} "
+              f"against {rate32:.3f} steps/s, rel energy change "
+              f"{rep['rel_energy_change']:.3e} against {de32:.3e}",
+              flush=True)
+        reports.append(rep)
+        failures.extend(fails)
+        if not band["ok"]:
+            failures.append(f"{label}: first evaluation outside the bf16 "
+                            f"band: {band}")
+        return out32, out
+
+    leg("prod100k_bf16", state, cfg, STEPS, ("gravity_fused",))
+    sym = cfg.replace(**SYM_KW)
+    out32, out16 = leg("sym100k_bf16", sym_state, sym, SYM_STEPS,
+                       ("p2p", "gravity_fused"))
+    leg("sym100k_bf16_every_tier", out32,
+        sym.replace(respa_every=1, rebuild_every=SYM_TIER_STEPS),
+        SYM_TIER_STEPS, ("gravity_fused",), start16=out16)
     return reports, failures
 
 
@@ -4497,6 +4813,14 @@ def main(argv=None) -> int:
         pout = os.path.join(pkg, "build")
         t0 = time.perf_counter()
         in_turns = REDESIGNED + ALL_PAIRS + ("probe_pass1_tile",)
+        # a kernel whose C interface changed since cannot be called through
+        # this checkout's wrapper
+        psig = parent_signatures(os.path.abspath(args.parent))
+        changed = [n for n in in_turns if psig.get(n) != build.SIGNATURES[n]]
+        if changed:
+            print(f"the parent's {', '.join(changed)}: another C interface, "
+                  "not timed in turns", flush=True)
+        in_turns = tuple(n for n in in_turns if n not in changed)
         try:
             build.build_all(in_turns, force=True,
                             src=os.path.join(pkg, "csrc"), out=pout)
@@ -4559,6 +4883,8 @@ def main(argv=None) -> int:
     kreports, failures = check_kernels(seen, ptxas, parent_libs)
     report["stream_checks"], fails = stream_checks(seen)
     failures += fails
+    prod_twin = [bf16_case("gravity_fused", "far_only",
+                           *seen["gravity_fused"])]
     del seen
     torch.cuda.empty_cache()
     # the settle phase's start: a raw polytrope at the same n, primed
@@ -4591,10 +4917,13 @@ def main(argv=None) -> int:
     exact_state = planet.prime(state, exact_cfg.replace(rebuild_every=1,
                                                         respa_every=1))
     mode_reports, fails = check_modes(itertools.chain(
-        mode_cases(state, cfg, sym_state, settle_state, settle_cfg),
-        energy_cases(cfg, adia_state, sg_state, basalt_cfg, basalt_state),
-        exact_cases(cfg, exact_state), group_size_cases(cfg, state)), ptxas,
-        parent_libs)
+        prod_twin, with_bf16_twins(itertools.chain(
+            mode_cases(state, cfg, sym_state, settle_state, settle_cfg),
+            energy_cases(cfg, adia_state, sg_state, basalt_cfg,
+                         basalt_state),
+            exact_cases(cfg, exact_state), group_size_cases(cfg, state)))),
+        ptxas, parent_libs)
+    del prod_twin
     failures += fails
     report["kernel_modes"] = mode_reports
     torch.cuda.empty_cache()
@@ -4627,6 +4956,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(launch.LAUNCHES)
+    bf16_launches = dict(launch.BF16_LAUNCHES)
     overflow = {k: int(v) for k, v in info.items()}
     e1 = diagnostics.measure(out, cfg)
     p1 = momentum(out)
@@ -4652,6 +4982,8 @@ def main(argv=None) -> int:
         failures.append(f"overflow counters not 0: {overflow}")
     if launches != expect:
         failures.append(f"launch counts {launches} != {expect}")
+    if any(bf16_launches.values()):
+        failures.append(f"bf16 launches on the f32 path: {bf16_launches}")
     if bad_fields:
         failures.append(f"non-finite fields: {bad_fields}")
     if not abs(de) < 1e-2:
@@ -4674,6 +5006,12 @@ def main(argv=None) -> int:
     leg_reports, fails = grid_legs(cfg, sym_state, settle_state, settle_cfg)
     failures += fails
     report["grid_legs"] = leg_reports
+
+    # 5c'. the bfloat16 gravity pair path beside its f32 twins
+    b_reports, fails = bf16_legs(cfg, state, sym_state)
+    failures += fails
+    report["bf16_legs"] = b_reports
+    leg_reports = leg_reports + b_reports
     del settle_state, sym_state
     torch.cuda.empty_cache()
 
@@ -4798,12 +5136,18 @@ def main(argv=None) -> int:
     kernels = []
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by")
+    # a bf16 case's entry also carries its twin's timings in turns
+    bf16_keys = ("bf16_vs_f32", "f32_ms_in_turns", "bf16_ms_in_turns",
+                 "f32_device_ms", "bf16_device_ms")
     legs = {r["leg"]: r["launches"] for r in leg_reports}
+    legs_bf16 = {r["leg"]: r.get("bf16_launches", {}) for r in leg_reports}
 
     def leg_launches(case_report, name):
         # launches of the legs whose own inputs this case was recorded on
-        # (0 for an extra that only the kernel phase drives)
-        return sum(legs[leg][name] for leg in case_report["legs"])
+        # (0 for an extra that only the kernel phase drives); a bf16 case
+        # counts its legs' launches of the bf16 instance
+        src = legs_bf16 if case_report["case"].endswith("+bf16") else legs
+        return sum(src[leg][name] for leg in case_report["legs"])
 
     halo_sum = report["halo"]["runs"]["halo_collision"]["summary"]
 
@@ -4850,7 +5194,8 @@ def main(argv=None) -> int:
             if c is not r:
                 entry["case_" + c["case"]] = dict(
                     launches=leg_launches(c, name), legs=c["legs"],
-                    **{k: c[k] for k in keys}, library_ms=None)
+                    **{k: c[k] for k in keys}, library_ms=None,
+                    **{k: c[k] for k in bf16_keys if k in c})
         if name.startswith("pairwise"):
             # launches of the n = 3000 run; the n = 32768 run and that
             # size's kernel check under "at_n<n>"

@@ -11,7 +11,8 @@ card unless ``--device cpu`` is given.
     python -m planetmodel_sph_tpu_torch.cli bench --n 3000 --steps 200
 
 What the reference's CLI has and this one refuses by name: ``--debug-nans``
-(a JAX switch). Checkpoints
+and ``--platform`` (JAX switches; ``--device cpu|cuda`` picks the device
+here). Checkpoints
 are PSPH1 for a ``.psph`` path and npz otherwise, read and written as the
 reference does (``utils/checkpoint.py``).
 
@@ -68,6 +69,8 @@ _ICS = ("jupiter", "two_planet_collision", "rotating_planet",
 # by the parser so the refusal can name them
 _UNPORTED = {
     "debug_nans": "a JAX debugging switch",
+    "platform": "a JAX backend switch (--device cpu or --device cuda picks "
+                "the device here)",
 }
 # what the data-parallel runner does not do (the reference's skips them)
 _NOT_DP = ("render", "render_every", "animate", "serve")
@@ -123,12 +126,15 @@ def _log(msg):
     print(msg, file=sys.stderr, flush=True)
 
 
-def _refuse_unported(args):
+def _refuse_unported_options(args):
     for name, what in _UNPORTED.items():
         v = getattr(args, name, None)
         if v is not None and v is not False:
             raise SystemExit(f"--{name.replace('_', '-')}: {what} is not "
                              "ported")
+
+
+def _refuse_unported(args):
     if args.animate and not args.render_every:
         raise SystemExit("--animate assembles the frames of --render-every: "
                          "give both")
@@ -403,6 +409,8 @@ def cmd_bench(args) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="planetmodel_sph_tpu_torch")
+    # refused by name in main (see _UNPORTED)
+    p.add_argument("--platform", default=None, help=argparse.SUPPRESS)
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pr = sub.add_parser("run", help="run a simulation")
@@ -483,7 +491,7 @@ def main(argv=None) -> int:
                     help="data parallelism over D ranks (the replicated "
                          "layout): one a card, clamped to the visible "
                          "cards; D ranks on the CPU with --device cpu")
-    # refused by name in cmd_run (see _UNPORTED)
+    # refused by name in main (see _UNPORTED)
     pr.add_argument("--debug-nans", action="store_true",
                     help=argparse.SUPPRESS)
     pr.set_defaults(fn=cmd_run)
@@ -501,6 +509,7 @@ def main(argv=None) -> int:
     pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
+    _refuse_unported_options(args)
     try:
         return args.fn(args)
     except NotImplementedError as e:

@@ -93,7 +93,9 @@ class SimConfig:
     # TPU gather-row width of the exact lists' entry gathers: changes no
     # value (ops/structure._entry_gather pads as the reference does)
     gather_pad_rows: int = 0
-    # TPU grid batching: the port has one launch layout and refuses != 1
+    # target groups a grid step of the reference's Pallas kernels takes:
+    # changes no value; the port's kernels take a block per group (or per
+    # 256 targets) whatever it says, and any integer >= 1 is admitted
     kernel_gb: int = 1
 
     # ---- integration ----
@@ -131,6 +133,10 @@ class SimConfig:
 
     # ---- numerics ----
     dtype: str = "float32"
+    # pair arithmetic of the gravity sweeps (p2p, gravity_fused's near
+    # tier and monopoles): 'bfloat16' rounds the pair polynomial to bf16
+    # after f32 separations, f32 sums either way (pass 2's merged near
+    # window stays f32, as in the reference)
     grav_pair_dtype: Literal["float32", "bfloat16"] = "float32"
 
     # ---- execution ----
@@ -215,13 +221,11 @@ def _check_tree(cfg: SimConfig) -> None:
     """The block tree's gravity tiers (grid runs, and dense SPH with tree
     gravity)."""
     fuse_active(cfg)       # raises on a fusion the tiers cannot serve
-    if cfg.grav_pair_dtype != "float32":
-        raise NotImplementedError(
-            f"grav_pair_dtype={cfg.grav_pair_dtype!r}: the bfloat16 pair "
-            "path is a TPU tuning knob and is not ported")
-    if cfg.kernel_gb != 1:
-        raise ValueError(f"kernel_gb={cfg.kernel_gb}: TPU grid batching "
-                         "has no meaning in the port; use 1")
+    if cfg.grav_pair_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"grav_pair_dtype={cfg.grav_pair_dtype!r}: "
+                         "'float32' or 'bfloat16'")
+    if not isinstance(cfg.kernel_gb, int) or cfg.kernel_gb < 1:
+        raise ValueError(f"kernel_gb={cfg.kernel_gb!r}: an integer >= 1")
     if cfg.multipole_order not in (1, 2):
         raise ValueError(f"multipole_order={cfg.multipole_order}: 1 or 2")
 

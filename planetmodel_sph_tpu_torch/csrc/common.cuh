@@ -98,6 +98,116 @@ __device__ __forceinline__ void psph_p2p_pair(float m, float dxx, float dxy,
   acc[3] = fmaf(dxz, mag, acc[3]);
 }
 
+// bfloat16 pair math (grav_pair_dtype="bfloat16", the reference's
+// bf16 branch of _p2p_kernel and _gravity_fused_kernel): the separations,
+// r2, 1/r, x, the x < 1 test and the m > 0 count stay f32, with r2 and x
+// rounded after each operation as the plain versions' separate operations
+// round them (psph_r2_rn), so that the values rounded to bf16 are the
+// plain versions' bit for bit; dx, x, m, 1/a and 1/r are rounded to bf16,
+// every bf16 operation rounds its result in the reference's order, the
+// last product before each cast back to f32 is exact (a bf16 x bf16
+// product fits f32: fmaf(f32(d), f32(mag), acc)) and the sums are f32.
+// Two bf16 values share a 32-bit word, lane 0 in the low half as in
+// __nv_bfloat162, and every operation takes both (Hopper's packed bf16x2
+// rate is twice its f32 rate). Each is written in PTX with its rounding
+// mode, .rn, which ptxas never contracts into a multiply-add.
+
+// (lo, hi) rounded to nearest even
+__device__ __forceinline__ unsigned psph_bf2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ unsigned psph_bmul(unsigned a, unsigned b) {
+  unsigned r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ unsigned psph_badd(unsigned a, unsigned b) {
+  unsigned r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ unsigned psph_bsub(unsigned a, unsigned b) {
+  unsigned r;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+// lane k of a pair as an f32 (exact)
+__device__ __forceinline__ float psph_lane(unsigned v, int k) {
+  return __uint_as_float(k ? (v & 0xffff0000u) : (v << 16));
+}
+// v rounded to bf16, as an f32
+__device__ __forceinline__ float psph_bfr(float v) {
+  return psph_lane(psph_bf2(v, v), 0);
+}
+// |d|^2 rounded after each multiply and add, in the plain versions' order
+__device__ __forceinline__ float psph_r2_rn(float dxx, float dxy,
+                                            float dxz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dxx, dxx), __fmul_rn(dxy, dxy)),
+                   __fmul_rn(dxz, dxz));
+}
+
+// The Dyer-Ip polynomials' constants in bf16, in both lanes: the
+// reference's Python constants as JAX rounds them to the bf16 operands
+// (8, 9, 2, 4 and 3 exactly, 2.4 -> 2.40625, 0.4 -> 0.400390625)
+#define PSPH_BF_8 0x41004100u
+#define PSPH_BF_9 0x41104110u
+#define PSPH_BF_2 0x40004000u
+#define PSPH_BF_4 0x40804080u
+#define PSPH_BF_3 0x40404040u
+#define PSPH_BF_2P4 0x401A401Au
+#define PSPH_BF_0P4 0x3ECD3ECDu
+
+// The Dyer-Ip term of two pairs in bf16, a pair a lane: m, x, 1/a and 1/r
+// rounded to bf16, `in` 0xffff in each lane whose f32 x < 1 (false for a
+// NaN x: the outer branch, as torch.where selects it). Returns the
+// selected mag and p (phi = -p), rounded bf16:
+//   x < 1:  mag = (m (1/a)^3) ((8 - 9 x) + 2 x^3),
+//           p = (m (1/a)) (((2.4 - 4 x^2) + 3 x^3) - (0.4 x^2) x^3)
+//   x >= 1: mag = ((m (1/r)) (1/r)) (1/r),  p = m (1/r)
+// Both branches are formed and selected per lane, so no warp diverges.
+__device__ __forceinline__ void psph_dyer_ip_bf2(unsigned m, unsigned x,
+                                                 unsigned ia, unsigned ir,
+                                                 unsigned in, unsigned& mag,
+                                                 unsigned& p) {
+  const unsigned x2 = psph_bmul(x, x);
+  const unsigned x3 = psph_bmul(x2, x);
+  const unsigned ia3 = psph_bmul(psph_bmul(ia, ia), ia);
+  const unsigned imag = psph_bmul(
+      psph_bmul(m, ia3),
+      psph_badd(psph_bsub(PSPH_BF_8, psph_bmul(PSPH_BF_9, x)),
+                psph_bmul(PSPH_BF_2, x3)));
+  const unsigned ip = psph_bmul(
+      psph_bmul(m, ia),
+      psph_bsub(psph_badd(psph_bsub(PSPH_BF_2P4, psph_bmul(PSPH_BF_4, x2)),
+                          psph_bmul(PSPH_BF_3, x3)),
+                psph_bmul(psph_bmul(PSPH_BF_0P4, x2), x3)));
+  const unsigned mr = psph_bmul(m, ir);
+  const unsigned omag = psph_bmul(psph_bmul(mr, ir), ir);
+  mag = (imag & in) | (omag & ~in);
+  p = (ip & in) | (mr & ~in);
+}
+
+// One pair's Dyer-Ip term in bf16 added into (phi, g): psph_dyer_ip_bf2
+// on lane 0 (the scalar form of gravity_fused's near tier)
+__device__ __forceinline__ void psph_dyer_ip_bf16(
+    float m, float dxx, float dxy, float dxz, float inv_a, float& phi,
+    float& gx, float& gy, float& gz) {
+  const float r2 = psph_r2_rn(dxx, dxy, dxz);
+  const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
+  const float x = __fmul_rn(__fmul_rn(r2, inv_r), inv_a);
+  unsigned mag, p;
+  psph_dyer_ip_bf2(psph_bf2(m, m), psph_bf2(x, x), psph_bf2(inv_a, inv_a),
+                   psph_bf2(inv_r, inv_r), x < 1.0f ? 0xffffffffu : 0u, mag,
+                   p);
+  const float mg = psph_lane(mag, 0);
+  phi -= psph_lane(p, 0);
+  gx = fmaf(psph_bfr(dxx), mg, gx);
+  gy = fmaf(psph_bfr(dxy), mg, gy);
+  gz = fmaf(psph_bfr(dxz), mg, gz);
+}
+
 // Near-field gravity sweep over one window: the first n slots of the rows
 // (x, y, z, [ih,] m) starting at `row`, Dyer-Ip softened with
 // 1/a = ih_i (RECV: receiver softening, the ih row is not read) or
@@ -107,8 +217,9 @@ __device__ __forceinline__ void psph_p2p_pair(float m, float dxx, float dxy,
 // buffer, at least 5 rows. A block that splits the window into ns slot
 // slices calls it with each thread's slice k: the thread then visits the
 // slots k, k + ns, ... of every tile (the caller adds the slices' sums).
-// Every thread of the block must call it (it synchronises).
-template <bool RECV>
+// BF16: the pair polynomial in bf16 (psph_dyer_ip_bf16). Every thread of
+// the block must call it (it synchronises).
+template <bool RECV, bool BF16 = false>
 __device__ __forceinline__ void psph_p2p_window(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ pih,
@@ -130,11 +241,15 @@ __device__ __forceinline__ void psph_p2p_window(
       const float dxx = x - c[0][j];
       const float dxy = y - c[1][j];
       const float dxz = z - c[2][j];
-      const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
       const float m = c[4][j];
-      const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
       const float inv_a = RECV ? ih : psph_min(ih, c[3][j]);
-      psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r, inv_a, phi, gx, gy, gz);
+      if constexpr (BF16) {
+        psph_dyer_ip_bf16(m, dxx, dxy, dxz, inv_a, phi, gx, gy, gz);
+      } else {
+        const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
+        const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
+        psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r, inv_a, phi, gx, gy, gz);
+      }
       nd += (m > 0.0f) ? 1 : 0;
     }
     __syncthreads();

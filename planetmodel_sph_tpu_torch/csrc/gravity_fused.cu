@@ -8,7 +8,10 @@
 // uncached step and the standalone gravity sweep) or off (the RESPA outer
 // force), has_blk on or off, both softenings, nm = 10 moment fields
 // (monopole m, cm + traceless quadrupole Qxx..Qzz) or nm = 4 (monopole
-// only).
+// only), and the pair math in f32 or in bf16 (grav_pair_dtype="bfloat16",
+// :866-891 and :904-913: the near tier's pair polynomial and each moment
+// entry's monopole in bf16, the quadrupole terms in f32 on the f32
+// separations, the sums f32; common.cuh gives the rounding points).
 //
 // Per target i of group g:
 //   near tier (has_p2p): the first nv_p2p[g] slots of the [G, Sp] rows x,
@@ -94,8 +97,11 @@ struct GravArgs {
 // gy, gz): e[0] = (m, cmx, cmy, cmz), then for NM = 10 (Qxx, Qxy, Qxz,
 // Qyy) and (Qyz, Qzz, -, -). The terms are the reference's, each added
 // with a multiply-add: phi -= m/r + (d.Q.d)/(2 r^5), g += d (m/r^3
-// + (5/2)(d.Q.d)/r^7) - (Q d)/r^5.
-template <int NM>
+// + (5/2)(d.Q.d)/r^7) - (Q d)/r^5. BF16: the monopole in bf16 (mag =
+// ((m (1/r)) (1/r)) (1/r) rounded at each step, phi -= m (1/r) and g +=
+// d mag as exact products of the bf16 factors), r2 rounded as the plain
+// version's separate operations round it.
+template <int NM, bool BF16>
 __device__ __forceinline__ void mono_quad(float4 (*e)[PSPH_TILE], int j,
                                           float x, float y, float z,
                                           float (&acc)[4]) {
@@ -104,12 +110,23 @@ __device__ __forceinline__ void mono_quad(float4 (*e)[PSPH_TILE], int j,
   const float dxx = x - p.y;
   const float dxy = y - p.z;
   const float dxz = z - p.w;
-  const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
+  const float r2 = BF16 ? psph_r2_rn(dxx, dxy, dxz)
+                        : dxx * dxx + dxy * dxy + dxz * dxz;
   const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
   const float ir2 = inv_r * inv_r;
   const float ir3 = ir2 * inv_r;
-  float radial = m * ir3;                  // g's factor along d
-  acc[0] = fmaf(-m, inv_r, acc[0]);
+  float radial = BF16 ? 0.0f : m * ir3;   // g's factor along d
+  if constexpr (BF16) {
+    const unsigned mb = psph_bf2(m, m), irb = psph_bf2(inv_r, inv_r);
+    const float mag =
+        psph_lane(psph_bmul(psph_bmul(psph_bmul(mb, irb), irb), irb), 0);
+    acc[0] = fmaf(-psph_lane(mb, 0), psph_lane(irb, 0), acc[0]);
+    acc[1] = fmaf(psph_bfr(dxx), mag, acc[1]);
+    acc[2] = fmaf(psph_bfr(dxy), mag, acc[2]);
+    acc[3] = fmaf(psph_bfr(dxz), mag, acc[3]);
+  } else {
+    acc[0] = fmaf(-m, inv_r, acc[0]);
+  }
   if constexpr (NM == 10) {
     const float4 q0 = e[1][j], q1 = e[2][j];
     const float qxx = q0.x, qxy = q0.y, qxz = q0.z;
@@ -126,9 +143,11 @@ __device__ __forceinline__ void mono_quad(float4 (*e)[PSPH_TILE], int j,
     acc[2] = fmaf(-qdy, ir5, acc[2]);
     acc[3] = fmaf(-qdz, ir5, acc[3]);
   }
-  acc[1] = fmaf(dxx, radial, acc[1]);
-  acc[2] = fmaf(dxy, radial, acc[2]);
-  acc[3] = fmaf(dxz, radial, acc[3]);
+  if constexpr (!BF16 || NM == 10) {
+    acc[1] = fmaf(dxx, radial, acc[1]);
+    acc[2] = fmaf(dxy, radial, acc[2]);
+    acc[3] = fmaf(dxz, radial, acc[3]);
+  }
 }
 
 // One moment tier: the first n entries of NR staged rows starting at
@@ -136,7 +155,7 @@ __device__ __forceinline__ void mono_quad(float4 (*e)[PSPH_TILE], int j,
 // first). Each tile is compacted to the entries for which live(st, j)
 // holds, and the thread's slice of them is evaluated. Adds the number
 // kept to na. Every thread of the block calls it.
-template <int NM, int NR, typename Live>
+template <int NM, bool BF16, int NR, typename Live>
 __device__ __forceinline__ void moment_tier(
     const float* const (&rows)[NR], size_t row, int n, bool vec,
     float (*raw)[NR][PSPH_TILE], float4 (*e)[PSPH_TILE], int* wtab,
@@ -158,13 +177,15 @@ __device__ __forceinline__ void moment_tier(
     });
     na += kept;
 #pragma unroll 1
-    for (int j = k; j < kept; j += ns) mono_quad<NM>(e, j, x, y, z, acc);
+    for (int j = k; j < kept; j += ns)
+      mono_quad<NM, BF16>(e, j, x, y, z, acc);
   });
 }
 
 // HAS_P2P: 0 no near tier, 1 min-h softening, 2 receiver softening;
-// NM: 4 (monopoles) or 10 (+ traceless quadrupoles) moment fields
-template <int HAS_P2P, int NM>
+// NM: 4 (monopoles) or 10 (+ traceless quadrupoles) moment fields; BF16:
+// the pair math in bf16
+template <int HAS_P2P, int NM, bool BF16>
 __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
     gravity_fused_kernel(const GravArgs a) {
   constexpr int NQ = NM == 10 ? 3 : 1;       // float4s an entry
@@ -181,7 +202,7 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
 
   // near tier: P2P over the sub-block window
   if (HAS_P2P)
-    psph_p2p_window<HAS_P2P == 2>(
+    psph_p2p_window<HAS_P2P == 2, BF16>(
         a.p2p.f[0], a.p2p.f[1], a.p2p.f[2], a.p2p.f[3], a.p2p.f[4],
         (size_t)g * a.sp, min(a.nv_p2p[g], a.sp), x, y, z, a.tih[t],
         &raw[0][0], acc[0], acc[1], acc[2], acc[3], nd[0], my.from, a.ns);
@@ -192,23 +213,25 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
     return st[0][j] > 0.0f;
   };
   auto wraw = reinterpret_cast<float (*)[NM][PSPH_TILE]>(&raw[0][0][0]);
-  moment_tier<NM, NM>(a.ring.first<NM>(), (size_t)g * a.sr,
-                      min(a.nv_ring[g], a.sr), a.vec_ring != 0, wraw, e,
-                      wtab, x, y, z, my.from, a.ns, acc, na, m_pos);
+  moment_tier<NM, BF16, NM>(a.ring.first<NM>(), (size_t)g * a.sr,
+                            min(a.nv_ring[g], a.sr), a.vec_ring != 0, wraw,
+                            e, wtab, x, y, z, my.from, a.ns, acc, na,
+                            m_pos);
   if (a.nv_blk != nullptr)
-    moment_tier<NM, NM>(a.blk.first<NM>(), (size_t)g * a.sb,
-                        min(a.nv_blk[g], a.sb), a.vec_blk != 0, wraw, e,
-                        wtab, x, y, z, my.from, a.ns, acc, na, m_pos);
+    moment_tier<NM, BF16, NM>(a.blk.first<NM>(), (size_t)g * a.sb,
+                              min(a.nv_blk[g], a.sb), a.vec_blk != 0, wraw,
+                              e, wtab, x, y, z, my.from, a.ns, acc, na,
+                              m_pos);
 
   // far tier: the shared block (or supergroup) moments under the group's
   // frozen mask, staged beside the mask
   const Rows far = a.far.after(a.accept + (size_t)g * a.nbpad);
-  moment_tier<NM, NM + 1>(far.first<NM + 1>(), 0, a.nbpad, a.vec_far != 0,
-                          raw, e, wtab, x,
-                          y, z, my.from, a.ns, acc, na,
-                          [](float (*st)[PSPH_TILE], int j) {
-                            return st[0][j] > 0.5f && st[1][j] > 0.0f;
-                          });
+  moment_tier<NM, BF16, NM + 1>(far.first<NM + 1>(), 0, a.nbpad,
+                                a.vec_far != 0, raw, e, wtab, x, y, z,
+                                my.from, a.ns, acc, na,
+                                [](float (*st)[PSPH_TILE], int j) {
+                                  return st[0][j] > 0.5f && st[1][j] > 0.0f;
+                                });
 
   psph_combine(acc, &raw[0][0][0], my.bt, a.ns);
   psph_combine(nd, reinterpret_cast<int*>(&raw[1][0][0]), my.bt, a.ns);
@@ -221,9 +244,30 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS, 4)
   a.na[t] = na;
 }
 
+// Launch the instance of near tier P, BF16 and the nm moment fields
+template <int P, bool BF16>
+static void launch_nm(const GravArgs& a, int g, int nm, cudaStream_t st) {
+  const dim3 grid = psph_grid(g, a.b);
+  const int threads = psph_block(a.b, a.ns);
+  if (nm == 10)
+    gravity_fused_kernel<P, 10, BF16><<<grid, threads, 0, st>>>(a);
+  else
+    gravity_fused_kernel<P, 4, BF16><<<grid, threads, 0, st>>>(a);
+}
+
+// ... of near tier p (0 none, 1 min-h, 2 receiver softening)
+template <bool BF16>
+static void launch_near(const GravArgs& a, int g, int nm, int p,
+                        cudaStream_t st) {
+  if (p == 0) launch_nm<0, BF16>(a, g, nm, st);
+  else if (p == 1) launch_nm<1, BF16>(a, g, nm, st);
+  else launch_nm<2, BF16>(a, g, nm, st);
+}
+
 // The P2P rows and nv_p2p are null when has_p2p == 0, pih also under
 // receiver_soft; the blk rows and nv_blk are null without the supergroup
-// tier; ring, blk and far rows 4..9 are null when nm == 4.
+// tier; ring, blk and far rows 4..9 are null when nm == 4. bf16 != 0: the
+// pair math in bfloat16.
 extern "C" int psph_gravity_fused(
     const float* tx, const float* ty, const float* tz, const float* tih,
     const float* px, const float* py, const float* pz, const float* pih,
@@ -238,7 +282,7 @@ extern "C" int psph_gravity_fused(
     const float* f7, const float* f8, const float* f9, const float* accept,
     float* phi, float* gx, float* gy, float* gz, int* nd, int* na, int g,
     int b, int sp, int sr, int sb, int nbpad, int nm, int has_p2p,
-    int receiver_soft, float g_const, void* stream) {
+    int receiver_soft, int bf16, float g_const, void* stream) {
   const int ns = psph_slices(b);
   if (g > 0 && (ns == 0 || (nm != 4 && nm != 10)))
     return (int)cudaErrorInvalidValue;
@@ -255,20 +299,10 @@ extern "C" int psph_gravity_fused(
   a.vec_far = psph_vec_rows(a.far.f, nm, nbpad) &&
                       psph_vec_rows(&accept, 1, nbpad) ? 1 : 0;
   cudaStream_t st = (cudaStream_t)stream;
-#define PSPH_GF(P, M) \
-  gravity_fused_kernel<P, M><<<psph_grid(g, b), psph_block(b, ns), 0, st>>>(a)
   if (g > 0) {
     const int p = !has_p2p ? 0 : (!receiver_soft ? 1 : 2);
-    if (nm == 10) {
-      if (p == 0) PSPH_GF(0, 10);
-      else if (p == 1) PSPH_GF(1, 10);
-      else PSPH_GF(2, 10);
-    } else {
-      if (p == 0) PSPH_GF(0, 4);
-      else if (p == 1) PSPH_GF(1, 4);
-      else PSPH_GF(2, 4);
-    }
+    if (bf16) launch_near<true>(a, g, nm, p, st);
+    else launch_near<false>(a, g, nm, p, st);
   }
-#undef PSPH_GF
   return (int)cudaGetLastError();
 }

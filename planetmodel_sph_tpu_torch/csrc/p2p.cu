@@ -1,7 +1,8 @@
 // Near-field gravity over the P2P sub-block window (Dyer-Ip softened).
 //
 // Replaces: planetmodel_sph_tpu/ops/pallas/groups2.py p2p (:797), body
-// _p2p_kernel (:711), its f32 branch.
+// _p2p_kernel (:711), both branches: f32 and bf16 (:747-763,
+// grav_pair_dtype="bfloat16").
 //
 // Per target i of group g, over the first nv[g] source slots j (rows x, y,
 // z, ih, m; under receiver softening the ih row is absent):
@@ -16,8 +17,8 @@
 //
 // Bound on the H100: f32 operations, about 35 a live pair against 20 bytes
 // a slot shared by the group's 64 targets. What held the first design
-// back (psph_p2p_window, which gravity_fused's near tier and pass 2's
-// merged window still take): one block of 64 threads per group, each
+// back (psph_p2p_window, which gravity_fused's near tier still takes):
+// one block of 64 threads per group, each
 // thread walking every slot below nv alone, dead slots included; each
 // tile loaded synchronously, five scalar shared loads a pair; and the
 // Dyer-Ip branch on x < 1, which diverges inside a warp. This design
@@ -47,6 +48,13 @@
 //   with no atomics, so the result is the same on every run. A group of
 //   more than 512 targets takes one block of 256 threads per 512 targets,
 //   each sweeping the whole window for its own.
+// BF16 (grav_pair_dtype="bfloat16"): the same staging, compaction and
+// slice order; the geometry and the x < 1 test stay f32 per target (r2
+// and x rounded as the plain version's separate operations round them),
+// and the thread's two targets' pairs with a slot form the two lanes of
+// each packed bf16x2 operation of the pair polynomial (psph_dyer_ip_bf2,
+// common.cuh), each lane's branch selected by its own x < 1. phi and the
+// three exact products d mag are added into f32 sums.
 #include "common.cuh"
 
 // targets a thread: two share each slot's shared loads (faster in turns
@@ -61,7 +69,7 @@ __host__ __device__ __forceinline__ int p2p_slice_threads(int b) {
   return bt < PSPH_WIN_THREADS ? bt : PSPH_WIN_THREADS;
 }
 
-template <bool RECV>
+template <bool RECV, bool BF16>
 __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
     const float* __restrict__ tx, const float* __restrict__ ty,
     const float* __restrict__ tz, const float* __restrict__ tih,
@@ -127,11 +135,44 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
     for (int j = k; j < kept; j += ns) {
       const float4 p = pos[j];
       const float jh = RECV ? 0.0f : cih[j];
+      if constexpr (BF16) {
+        static_assert(P2P_TPT == 2, "a bf16x2 lane a target");
+        float dx[2], dy[2], dz[2], xs[2], ia[2], ir[2];
+        unsigned in = 0u;
 #pragma unroll
-      for (int u = 0; u < P2P_TPT; ++u) {
-        const float dxx = x[u] - p.x, dxy = y[u] - p.y, dxz = z[u] - p.z;
-        psph_p2p_pair(p.w, dxx, dxy, dxz, dxx * dxx + dxy * dxy + dxz * dxz,
-                      RECV ? ih[u] : psph_min(ih[u], jh), acc[u]);
+        for (int u = 0; u < 2; ++u) {
+          dx[u] = x[u] - p.x;
+          dy[u] = y[u] - p.y;
+          dz[u] = z[u] - p.z;
+          const float r2 = psph_r2_rn(dx[u], dy[u], dz[u]);
+          ir[u] = rsqrtf(psph_max(r2, 1e-30f));
+          ia[u] = RECV ? ih[u] : psph_min(ih[u], jh);
+          xs[u] = __fmul_rn(__fmul_rn(r2, ir[u]), ia[u]);
+          in |= xs[u] < 1.0f ? 0xffffu << (16 * u) : 0u;
+        }
+        unsigned mag, ph;
+        psph_dyer_ip_bf2(psph_bf2(p.w, p.w), psph_bf2(xs[0], xs[1]),
+                         psph_bf2(ia[0], ia[1]), psph_bf2(ir[0], ir[1]), in,
+                         mag, ph);
+        const unsigned bx = psph_bf2(dx[0], dx[1]);
+        const unsigned by = psph_bf2(dy[0], dy[1]);
+        const unsigned bz = psph_bf2(dz[0], dz[1]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float mg = psph_lane(mag, u);
+          acc[u][0] -= psph_lane(ph, u);
+          acc[u][1] = fmaf(psph_lane(bx, u), mg, acc[u][1]);
+          acc[u][2] = fmaf(psph_lane(by, u), mg, acc[u][2]);
+          acc[u][3] = fmaf(psph_lane(bz, u), mg, acc[u][3]);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < P2P_TPT; ++u) {
+          const float dxx = x[u] - p.x, dxy = y[u] - p.y, dxz = z[u] - p.z;
+          psph_p2p_pair(p.w, dxx, dxy, dxz,
+                        dxx * dxx + dxy * dxy + dxz * dxz,
+                        RECV ? ih[u] : psph_min(ih[u], jh), acc[u]);
+        }
       }
     }
   });
@@ -149,12 +190,13 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
   }
 }
 
-// sih is null under receiver softening (receiver_soft != 0)
+// sih is null under receiver softening (receiver_soft != 0); bf16 != 0:
+// the pair polynomial in bfloat16
 extern "C" int psph_p2p(
     const float* tx, const float* ty, const float* tz, const float* tih,
     const float* sx, const float* sy, const float* sz, const float* sih,
     const float* sm, const int* nv, float* phi, float* gx, float* gy,
-    float* gz, int* nd, int g, int b, int s, int receiver_soft,
+    float* gz, int* nd, int g, int b, int s, int receiver_soft, int bf16,
     float g_const, void* stream) {
   // P2P_TPT targets a thread: slices of p2p_slice_threads(b) threads, as
   // many as fit PSPH_WIN_THREADS up to PSPH_SLICES * P2P_TPT
@@ -165,16 +207,20 @@ extern "C" int psph_p2p(
   const dim3 grid(g, (b + P2P_TPT * bt - 1) / (P2P_TPT * bt));
   const float* rows[5] = {sx, sy, sz, sih, sm};
   const int vec = psph_vec_rows(rows, 5, s) ? 1 : 0;
+  cudaStream_t st = (cudaStream_t)stream;
+#define PSPH_P2P(R, H)                                                     \
+  p2p_kernel<R, H><<<grid, bt * ns, 0, st>>>(tx, ty, tz, tih, sx, sy, sz,  \
+                                             sih, sm, nv, phi, gx, gy, gz, \
+                                             nd, b, s, ns, vec, g_const)
   if (g > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (receiver_soft)
-      p2p_kernel<true><<<grid, bt * ns, 0, st>>>(
-          tx, ty, tz, tih, sx, sy, sz, sih, sm, nv, phi, gx, gy, gz, nd, b,
-          s, ns, vec, g_const);
-    else
-      p2p_kernel<false><<<grid, bt * ns, 0, st>>>(
-          tx, ty, tz, tih, sx, sy, sz, sih, sm, nv, phi, gx, gy, gz, nd, b,
-          s, ns, vec, g_const);
+    if (receiver_soft) {
+      if (bf16) PSPH_P2P(true, true);
+      else PSPH_P2P(true, false);
+    } else {
+      if (bf16) PSPH_P2P(false, true);
+      else PSPH_P2P(false, false);
+    }
   }
+#undef PSPH_P2P
   return (int)cudaGetLastError();
 }

@@ -31,11 +31,12 @@ SIGNATURES = {
     # 12 target columns, 13 source rows, 5 P2P rows, nv, nv2, 16 outputs;
     # g, b, s, s2 and seven flags; av_alpha, av_beta, g_const
     "pass2": "p" * 48 + "i" * 11 + "fff" + "p",
-    "p2p": "p" * 15 + "iiii" + "f" + "p",
+    # g, b, s, receiver_soft, bf16
+    "p2p": "p" * 15 + "iiiii" + "f" + "p",
     # 4 target columns, 5 P2P rows, nv_p2p, 10 ring rows, nv_ring, 10 blk
     # rows, nv_blk, 10 far rows, accept, 6 outputs; g, b, sp, sr, sb, nbpad,
-    # nm and two flags
-    "gravity_fused": "p" * 49 + "i" * 9 + "f" + "p",
+    # nm and three flags (has_p2p, receiver_soft, bf16)
+    "gravity_fused": "p" * 49 + "i" * 10 + "f" + "p",
     "pairwise_pass1": "p" * 10 + "iiii" + "f" + "p",
     "pairwise_pass2": "p" * 12 + "iiiiii" + "ff" + "p",
     # the tools' probes: x, o, n, reps; x, o, n; packed, idx, out, nb,

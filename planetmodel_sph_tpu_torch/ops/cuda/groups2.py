@@ -13,7 +13,9 @@ each with
 - a plain PyTorch version (``*_plain``): the same math as one masked
   [G, B, S] broadcast contraction, the counterpart of ``fallback.py``;
 - a launch counter, ``LAUNCHES[name]`` (shared by every kernel module, see
-  ``launch.py``), incremented only where the wrapper launches its kernel.
+  ``launch.py``), incremented only where the wrapper launches its kernel;
+  ``p2p`` and ``gravity_fused`` also count their bfloat16 instances'
+  launches (``bf16=True``) in ``BF16_LAUNCHES[name]``.
 
 The shared contract (``groups2.py:6-40`` of the reference): targets are
 [G*B, 1] sorted-layout columns, sources [G, S] window rows of which the
@@ -26,8 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from .launch import (LAUNCHES, is_cuda as _is_cuda, launch as _launch,
-                     need as _need, need_all as _need_all, reset_launches)
+from .launch import (BF16_LAUNCHES, LAUNCHES,  # noqa: F401
+                     is_cuda as _is_cuda, launch as _launch, need as _need,
+                     need_all as _need_all, reset_launches)
 
 INV_PI = 1.0 / 3.14159265358979323846
 KERNELS = ("filter_sph", "pass1_gradh", "pass1_sym", "pass2", "p2p",
@@ -85,9 +88,49 @@ def _col(x, dtype=torch.float32):
     return x.reshape(-1, 1).to(dtype)
 
 
-def _dyer_ip(m, dxx, dxy, dxz, r2, inv_a):
+# bfloat16 pair math (``grav_pair_dtype="bfloat16"``) follows the
+# reference's rounding points, as its branch runs on the CPU: the
+# separations, r2, 1/r, x, the x < 1 test and the m > 0 count stay f32;
+# dx, x, m, 1/a and 1/r are rounded to bf16, every bf16 operation rounds
+# its result, the constants are bf16 (JAX rounds its weak-typed scalars:
+# 2.4 -> 2.40625, 0.4 -> 0.400390625), the last product before each cast
+# back to f32 is exact (a bf16 x bf16 product fits f32) and the sums are
+# f32.
+_BF16 = torch.bfloat16
+
+
+def _bf(v):
+    return v.to(_BF16)
+
+
+def _bk(v, like):
+    """The constant v as a bf16 scalar tensor (a Python float would enter
+    a bf16 operation unrounded)."""
+    return torch.tensor(v, dtype=_BF16, device=like.device)
+
+
+def _dyer_ip_bf16(m, dxx, dxy, dxz, x, inv_a, inv_r, near):
+    dxb, dyb, dzb = _bf(dxx), _bf(dxy), _bf(dxz)
+    xb, mb, iab, irb = _bf(x), _bf(m), _bf(inv_a), _bf(inv_r)
+    k = lambda v: _bk(v, x)  # noqa: E731
+    x2 = xb * xb
+    x3 = x2 * xb
+    inv_a3 = iab * iab * iab
+    inner_mag = (mb * inv_a3) * (k(8.0) - k(9.0) * xb + k(2.0) * x3)
+    inner_phi = -(mb * iab) * (k(2.4) - k(4.0) * x2 + k(3.0) * x3
+                               - k(0.4) * x2 * x3)
+    mr = mb * irb
+    mag = torch.where(near, inner_mag, mr * irb * irb).float()
+    # phi passes the select as a rounded bf16 value
+    phi = torch.where(near, inner_phi, -mr).float()
+    return phi, dxb.float() * mag, dyb.float() * mag, dzb.float() * mag
+
+
+def _dyer_ip(m, dxx, dxy, dxz, r2, inv_a, bf16=False):
     inv_r = torch.rsqrt(torch.clamp(r2, min=1e-30))
     x = (r2 * inv_r) * inv_a
+    if bf16:
+        return _dyer_ip_bf16(m, dxx, dxy, dxz, x, inv_a, inv_r, x < 1.0)
     x2 = x * x
     x3 = x2 * x
     inv_a3 = inv_a * inv_a * inv_a
@@ -176,9 +219,11 @@ def _gw_from(q, inv_h, inv_h4, inv_r, sign_bug=False):
     return (INV_PI * inv_h4) * val
 
 
-def _p2p_window(nv, rows, g, b, tx, ty, tz, tih, receiver_soft):
+def _p2p_window(nv, rows, g, b, tx, ty, tz, tih, receiver_soft,
+                bf16=False):
     """Dyer-Ip sums over one P2P window: ([phi, gx, gy, gz] as [g, b], the
-    per-target count of slots with m > 0)."""
+    per-target count of slots with m > 0); `bf16`: the pair polynomial in
+    bfloat16."""
     s = rows[0].shape[1]
     r3 = [r[:, None, :] for r in rows]
     if receiver_soft:
@@ -192,15 +237,17 @@ def _p2p_window(nv, rows, g, b, tx, ty, tz, tih, receiver_soft):
     dxy = ty - py
     dxz = tz - pz
     r2 = dxx * dxx + dxy * dxy + dxz * dxz
-    sums = [v.sum(dim=2) for v in _dyer_ip(m, dxx, dxy, dxz, r2, inv_a)]
+    sums = [v.sum(dim=2)
+            for v in _dyer_ip(m, dxx, dxy, dxz, r2, inv_a, bf16)]
     return sums, (m > 0.0).sum(dim=2).expand(g, b)
 
 
-def p2p_plain(nv, tgt, src, *, receiver_soft, g_const=1.0):
+def p2p_plain(nv, tgt, src, *, receiver_soft, g_const=1.0, bf16=False):
     g = src[0].shape[0]
     b = tgt[0].shape[0] // g
     tx, ty, tz, tih = (x.reshape(g, b, 1) for x in tgt)
-    sums, nd = _p2p_window(nv, src, g, b, tx, ty, tz, tih, receiver_soft)
+    sums, nd = _p2p_window(nv, src, g, b, tx, ty, tz, tih, receiver_soft,
+                           bf16)
     return tuple([_col(g_const * v) for v in sums]
                  + [_col(nd, torch.int32)])
 
@@ -302,12 +349,20 @@ def pass2_plain(nv, tgt, src, *, mode="grad_h", av=False, sign_bug=False,
     return tuple(outs)
 
 
-def _mono_quad(m, dxx, dxy, dxz, quad):
+def _mono_quad(m, dxx, dxy, dxz, quad, bf16=False):
     r2 = dxx * dxx + dxy * dxy + dxz * dxz
     inv_r = torch.rsqrt(torch.clamp(r2, min=1e-30))
-    mag = m * inv_r * inv_r * inv_r
-    phi = -m * inv_r
-    gx, gy, gz = dxx * mag, dxy * mag, dxz * mag
+    if bf16:
+        # the monopole in bf16 (phi and g the exact products of their last
+        # two factors); the quadrupole stays f32, on the f32 separations
+        mb, irb = _bf(m), _bf(inv_r)
+        mag = (mb * irb * irb * irb).float()
+        phi = -(mb.float() * irb.float())
+        gx, gy, gz = (_bf(d).float() * mag for d in (dxx, dxy, dxz))
+    else:
+        mag = m * inv_r * inv_r * inv_r
+        phi = -m * inv_r
+        gx, gy, gz = dxx * mag, dxy * mag, dxz * mag
     if quad is not None:
         qxx, qxy, qxz, qyy, qyz, qzz = quad
         # the live mask multiplies FIRST: a masked entry at r ~ 0 has
@@ -329,7 +384,8 @@ def _mono_quad(m, dxx, dxy, dxz, quad):
 
 def gravity_fused_plain(nv_ring, tgt, ring_rows, far_rows, accept, *,
                         g_const=1.0, nv_p2p=None, p2p_rows=None,
-                        receiver_soft=False, nv_blk=None, blk_rows=None):
+                        receiver_soft=False, nv_blk=None, blk_rows=None,
+                        bf16=False):
     nm = len(ring_rows)
     g = ring_rows[0].shape[0]
     b = tgt[0].shape[0] // g
@@ -340,7 +396,7 @@ def gravity_fused_plain(nv_ring, tgt, ring_rows, far_rows, accept, *,
         m = torch.where(valid & (cm > 0.0), cm, 0.0)
         quad = (tuple(r[:, None, :] for r in rows[4:10]) if nm == 10
                 else None)
-        parts = _mono_quad(m, tx - cx, ty - cy, tz - cz, quad)
+        parts = _mono_quad(m, tx - cx, ty - cy, tz - cz, quad, bf16)
         return [v.sum(dim=2) for v in parts] + [(m > 0.0).sum(dim=2)]
 
     # the TPU kernel's order: near tier, ring, blk, far scan
@@ -349,7 +405,7 @@ def gravity_fused_plain(nv_ring, tgt, ring_rows, far_rows, accept, *,
     if p2p_rows is not None:
         # near tier: its count is n_direct, its sums open the totals
         tot, nd = _p2p_window(nv_p2p, p2p_rows, g, b, tx, ty, tz, tih,
-                              receiver_soft)
+                              receiver_soft, bf16)
     ring = tier(ring_rows, _slot_mask(nv_ring, g, ring_rows[0].shape[1]))
     if blk_rows is not None:
         # supergroup partition: windowed block moments, same pair body
@@ -527,13 +583,15 @@ def pass2(nv, tgt, src, *, b, mode="grad_h", av=False, sign_bug=False,
                  if o is not None)
 
 
-def p2p(nv, tgt, src, *, b, receiver_soft, g_const=1.0):
+def p2p(nv, tgt, src, *, b, receiver_soft, g_const=1.0, bf16=False):
     """Near-field gravity sweep over the P2P window.
 
     tgt cols: x, y, z, ih. src rows: x, y, z, m under receiver softening,
     x, y, z, ih, m under min-h softening. Returns (phi, gx, gy, gz)
     scaled by g_const and n_direct; phi INCLUDES the self term -2.4 m_i/a_i
-    and n_direct the self pair — callers correct both."""
+    and n_direct the self pair — callers correct both. `bf16`: the pair
+    polynomial in bfloat16 (``grav_pair_dtype="bfloat16"``; on a CUDA
+    tensor the kernel's bf16 instance)."""
     name = "p2p"
     n_s = 4 if receiver_soft else 5
     if len(tgt) != 4 or len(src) != n_s:
@@ -543,18 +601,19 @@ def p2p(nv, tgt, src, *, b, receiver_soft, g_const=1.0):
     g, s = _check_window(name, nv, tgt, src, b)
     if not cuda:
         return p2p_plain(nv, tgt, src, receiver_soft=receiver_soft,
-                         g_const=g_const)
+                         g_const=g_const, bf16=bf16)
     outs = _out(nv, g, b, 4)
     (nd,) = _out(nv, g, b, 1, torch.int32)
     rows = [*src[:3], None, src[3]] if receiver_soft else src
     _launch(name, [*tgt, *rows, nv, *outs, nd, g, b, s, int(receiver_soft),
-                   float(g_const)])
+                   int(bf16), float(g_const)], bf16)
     return (*outs, nd)
 
 
 def gravity_fused(nv_ring, tgt, ring_rows, far_rows, accept, *, b,
                   g_const=1.0, nv_p2p=None, p2p_rows=None,
-                  receiver_soft=False, nv_blk=None, blk_rows=None):
+                  receiver_soft=False, nv_blk=None, blk_rows=None,
+                  bf16=False):
     """Tree gravity in one launch: the near P2P window (when `p2p_rows` is
     given), windowed ring multipoles, the windowed block multipoles of the
     supergroup partition (when `blk_rows` is given) and the dense far scan.
@@ -568,7 +627,10 @@ def gravity_fused(nv_ring, tgt, ring_rows, far_rows, accept, *, b,
     to nv_blk, blocks that pass the acceptance test while their supergroup
     does not; far_rows and accept then hold supergroups. Returns (phi, gx,
     gy, gz, n_direct, n_approx); with the near tier phi includes the self
-    term and n_direct the self pair, without it n_direct is 0."""
+    term and n_direct the self pair, without it n_direct is 0. `bf16`: the
+    near tier's pair polynomial and each entry's monopole in bfloat16, the
+    quadrupole in f32 (``grav_pair_dtype="bfloat16"``; on a CUDA tensor the
+    kernel's bf16 instance)."""
     name = "gravity_fused"
     nm = len(ring_rows)
     has_p2p = p2p_rows is not None
@@ -600,7 +662,7 @@ def gravity_fused(nv_ring, tgt, ring_rows, far_rows, accept, *, b,
             p2p_rows=p2p_rows if has_p2p else None,
             receiver_soft=receiver_soft,
             nv_blk=nv_blk if has_blk else None,
-            blk_rows=blk_rows if has_blk else None)
+            blk_rows=blk_rows if has_blk else None, bf16=bf16)
     outs = _out(nv_ring, g, b, 4)
     nd, na = _out(nv_ring, g, b, 2, torch.int32)
     none = [None] * (10 - nm)
@@ -613,5 +675,5 @@ def gravity_fused(nv_ring, tgt, ring_rows, far_rows, accept, *, b,
                    *none, nv_ring, *brow, nv_blk if has_blk else None,
                    *far_rows, *none, accept, *outs, nd, na,
                    g, b, sp, sr, sb, nbpad, nm, int(has_p2p),
-                   int(receiver_soft), float(g_const)])
+                   int(receiver_soft), int(bf16), float(g_const)], bf16)
     return (*outs, nd, na)

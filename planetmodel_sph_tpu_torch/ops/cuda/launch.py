@@ -3,7 +3,9 @@ through ctypes on the current stream, and the launch counters.
 
 ``LAUNCHES[name]`` is incremented in :func:`launch` and nowhere else, so a
 run can show that its path went through a kernel; a wrapper that takes its
-plain version (CPU tensors) leaves the count alone.
+plain version (CPU tensors) leaves the count alone. ``BF16_LAUNCHES[name]``
+counts, within ``LAUNCHES[name]``, the launches of the kernels' bfloat16
+instances (``grav_pair_dtype="bfloat16"``: ``p2p`` and ``gravity_fused``).
 
 Every wrapper call pays this path on the host, so it is kept thin:
 
@@ -25,6 +27,7 @@ import torch
 from . import build
 
 LAUNCHES = dict.fromkeys(build.SIGNATURES, 0)
+BF16_LAUNCHES = dict.fromkeys(("p2p", "gravity_fused"), 0)
 
 _Tensor = torch.Tensor
 _LIBS = build._LIBS          # the loaded entry points (build.library swaps)
@@ -32,8 +35,9 @@ _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BF16_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def is_cuda(name, tensors) -> bool:
@@ -75,10 +79,11 @@ def need_all(name, what, tensors, shape, dtype=torch.float32):
                 need(name, f"{what} {k}", u, shape, dtype)
 
 
-def launch(name, args):
+def launch(name, args, bf16=False):
     """Launch kernel `name` on the current stream of the first argument's
     device. Tensors pass as pointers, None as a null pointer, Python
-    numbers as they are."""
+    numbers as they are. `bf16`: the launch is of the kernel's bfloat16
+    instance (counted in BF16_LAUNCHES too)."""
     fn = _LIBS.get(name) or build.kernel(name)
     if _RAW_STREAM is None:
         raise RuntimeError("this PyTorch build has no CUDA")
@@ -87,3 +92,5 @@ def launch(name, args):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     LAUNCHES[name] += 1
+    if bf16:
+        BF16_LAUNCHES[name] += 1

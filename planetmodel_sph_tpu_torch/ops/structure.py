@@ -671,6 +671,7 @@ def _gravity_sweeps(ctx: _Ctx, cfg: SimConfig, st: BlockStructure,
     # moments and far rows over the source blocks
     live = st.groups.live if ctx.single else st.src_groups.live
     receiver = cfg.softening_mode == "receiver_h"
+    bf16 = cfg.grav_pair_dtype == "bfloat16"
     tgt = _cols(t["x"], t["y"], t["z"], t["ih"])
 
     # the kernels include the self pair (dx = 0 kills the force, the
@@ -682,7 +683,7 @@ def _gravity_sweeps(ctx: _Ctx, cfg: SimConfig, st: BlockStructure,
         nv_p2p, srcp = _near_rows(ctx, cfg, st)
         phi_c, gx, gy, gz, nd_c = gk2.p2p(
             nv_p2p, tgt, srcp, b=bsz, receiver_soft=receiver,
-            g_const=cfg.g_const)
+            g_const=cfg.g_const, bf16=bf16)
         return (phi_c[:, 0] + self_phi, torch.cat([gx, gy, gz], dim=-1),
                 nd_c[:, 0] - 1, torch.zeros_like(nd_c[:, 0]))
 
@@ -756,7 +757,7 @@ def _gravity_sweeps(ctx: _Ctx, cfg: SimConfig, st: BlockStructure,
     if tiers == "far":
         phi_c, gx, gy, gz, _, na_c = gk2.gravity_fused(
             nv_ring, tgt, ring_rows, far_rows, st.accept, b=bsz,
-            g_const=cfg.g_const, **blk_kw)
+            g_const=cfg.g_const, bf16=bf16, **blk_kw)
         return (phi_c[:, 0], torch.cat([gx, gy, gz], dim=-1),
                 torch.zeros_like(na_c[:, 0]), na_c[:, 0])
 
@@ -764,7 +765,7 @@ def _gravity_sweeps(ctx: _Ctx, cfg: SimConfig, st: BlockStructure,
     phi_c, gx, gy, gz, nd_c, na_c = gk2.gravity_fused(
         nv_ring, tgt, ring_rows, far_rows, st.accept, b=bsz,
         g_const=cfg.g_const, nv_p2p=nv_p2p, p2p_rows=srcp,
-        receiver_soft=receiver, **blk_kw)
+        receiver_soft=receiver, bf16=bf16, **blk_kw)
     return (phi_c[:, 0] + self_phi, torch.cat([gx, gy, gz], dim=-1),
             nd_c[:, 0] - 1, na_c[:, 0])
 

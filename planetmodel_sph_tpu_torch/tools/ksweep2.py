@@ -9,10 +9,12 @@ table unchanged; a run of --steps steps is timed with CUDA events after an
 untimed run of the same length, then one skinned build's window
 occupancy (mean/max) and the run's overflow are printed. An overflowing
 variant is invalid-fast, not fast: every window is widened by 25 % and the
-variant measured again, up to 2x. A variant the port refuses (the TPU
-tuning knobs ``grav_pair_dtype="bfloat16"`` and ``kernel_gb``, the fusion
-with exact lists) prints FAILED with the refusal, as the reference prints
-its failures. Runs on the card unless ``--device cpu``.
+variant measured again, up to 2x. ``kernel_gb`` and
+``grav_pair_dtype="bfloat16"`` run (the ``r5gb*`` rows; the bf16 rows
+``xwk16bf`` and ``xwq09bf`` take exact lists, which the production
+flags' fusion refuses, in the reference too). A variant refused prints
+FAILED with the refusal, as the reference prints its failures. Runs on
+the card unless ``--device cpu``.
 
     python -m planetmodel_sph_tpu_torch.tools.ksweep2 \
         --ck docs/results/drift100k_r3ship/state.psph --var base --var k16

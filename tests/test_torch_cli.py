@@ -158,7 +158,7 @@ def test_bench_set_overrides_preset_and_checkpoint(tmp_path, capsys):
     assert res["overflow"] == {"nbr_overflow": 0, "tree_overflow": 0}
     with pytest.raises(ValueError, match="kernel_gb"):
         bench.main(["--device", "cpu", "--checkpoint", ck, "--set",
-                    "kernel_gb=8"])
+                    "kernel_gb=0"])
     # the supergroup tier on the state file, and the evolved internal
     # energy: u is filled from the polytropic relation at the stored density
     assert bench.main(["--device", "cpu", "--checkpoint", ck, "--steps",
@@ -182,6 +182,20 @@ def test_unported_flags_exit_nonzero_naming_the_flag(extra, word):
     with pytest.raises(SystemExit) as e:
         cli.main(RUN + extra)
     assert e.value.code not in (0, None) and word in str(e.value.code)
+
+
+@pytest.mark.parametrize("cmd", [RUN, ["bench", "--device", "cpu", "--n",
+                                       "64", "--steps", "1"]],
+                         ids=["run", "bench"])
+@pytest.mark.parametrize("platform", ["cpu", "tpu"])
+def test_platform_is_refused_pointing_at_device(cmd, platform):
+    """The reference's --platform (a JAX backend switch, given before the
+    subcommand) exits non-zero naming itself and --device, before any
+    work."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--platform", platform] + cmd)
+    msg = str(e.value.code)
+    assert "--platform" in msg and "--device" in msg
 
 
 def _png(path):
@@ -244,7 +258,7 @@ def test_animate_needs_frames():
 
 
 @pytest.mark.parametrize("extra,word", [
-    (["--gravity", "tree", "--set", "kernel_gb=8"], "kernel_gb"),
+    (["--gravity", "tree", "--set", "kernel_gb=0"], "kernel_gb"),
     (["--set", "eos_mode=isothermal"], "eos_mode"),
     (["--gravity", "tree", "--set", "multipole_order=3"],
      "multipole_order"),
@@ -254,7 +268,7 @@ def test_animate_needs_frames():
       "sph_exact_window=512", "--set", "fuse_p2p_sph=true"],
      "sph_exact_window"),
     (["--neighbor", "grid", "--gravity", "tree", "--set",
-      "grav_pair_dtype=bfloat16"], "grav_pair_dtype"),
+      "grav_pair_dtype=float16"], "grav_pair_dtype"),
     (["--neighbor", "grid", "--gravity", "tree", "--set",
       "sorted_chunks=false", "--set", "dtype=float64"], "dtype"),
 ])

@@ -48,9 +48,10 @@ def test_production_preset_is_in_slice():
     dict(gravity_solver="tree", softening_mode="receiver_h"),
     dict(gravity_solver="tree", multipole_order=2, grad_p_mode="grad_h",
          grav_com_correction=True),
+    dict(gravity_solver="tree", grav_pair_dtype="bfloat16", kernel_gb=4),
 ], ids=["preset", "n32768", "no_gravity", "parity_flags", "gradh_newton",
         "av_balsara", "cfl_damped_frozen", "tree_gravity",
-        "tree_gravity_gradh_quadrupole"])
+        "tree_gravity_gradh_quadrupole", "tree_gravity_bf16_gb4"])
 def test_dense_preset_and_its_options_are_in_slice(kw):
     tc.check_slice(tc.jupiter_3k(**kw))
     tc.check_slice(tc.default(**kw))
@@ -61,9 +62,9 @@ def test_dense_preset_and_its_options_are_in_slice(kw):
     (dict(eos_mode="ideal_gas"), "eos_mode"),
     (dict(gravity_solver="tree", sg_blocks=4, fuse_p2p_sph=True),
      "sg_blocks"),
-    (dict(gravity_solver="tree", grav_pair_dtype="bfloat16"),
+    (dict(gravity_solver="tree", grav_pair_dtype="float16"),
      "grav_pair_dtype"),
-    (dict(gravity_solver="tree", kernel_gb=8), "kernel_gb"),
+    (dict(gravity_solver="tree", kernel_gb=0), "kernel_gb"),
     (dict(gravity_solver="tree", multipole_order=3), "multipole_order"),
     (dict(dtype="bfloat16"), "dtype"),
     (dict(neighbor_mode="octree"), "neighbor_mode"),
@@ -106,9 +107,14 @@ def test_auto_matches_jax_at_every_scale(n):
     dict(integrator="staggered_euler", respa_every=1),
     dict(multipole_order=1, sph_refine_subblock=False,
          sph_refined_window=0),
+    dict(grav_pair_dtype="bfloat16"),
+    dict(grav_pair_dtype="bfloat16", grad_p_mode="symmetric",
+         h_mode="relax", fuse_p2p_sph=False, fuse_p2p_residual=False),
+    dict(kernel_gb=2), dict(kernel_gb=8, block_chunk=256),
 ], ids=["symmetric_relax", "asymmetric_sign_bug", "av", "av_balsara_damped",
         "receiver_h", "fused_unmerged", "unfused", "no_gravity", "uncached",
-        "staggered", "monopole_unrefined"])
+        "staggered", "monopole_unrefined", "bf16", "bf16_unfused", "gb2",
+        "gb8_chunk256"])
 def test_grid_options_this_slice_admits(kw):
     tc.check_slice(tc.jupiter_100k(**kw))
 
@@ -145,8 +151,8 @@ def test_parse_overrides_reads_a_set_list():
     (dict(eos_mode="ideal_gas"), "eos_mode"),
     (dict(sph_exact_window=512), "sph_exact_window"),
     (dict(sg_blocks=4), "sg_blocks"),
-    (dict(grav_pair_dtype="bfloat16"), "grav_pair_dtype"),
-    (dict(kernel_gb=8), "kernel_gb"),
+    (dict(grav_pair_dtype="float16"), "grav_pair_dtype"),
+    (dict(kernel_gb=0), "kernel_gb"),
     (dict(neighbor_mode="dense"), "fuse_p2p_sph"),
     (dict(gravity_solver="direct"), "gravity_solver='direct'"),
     (dict(sorted_chunks=False, sg_blocks=4), "sg_blocks"),

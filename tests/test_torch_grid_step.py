@@ -189,7 +189,7 @@ def test_runner_refusals():
     step and unsorted chunks are ported: tests/test_torch_cached_carry.py)."""
     with pytest.raises(ValueError, match="kernel_gb"):
         tp.run_info(None, tc.SimConfig(**dict(SYM, sorted_chunks=False,
-                                              kernel_gb=2)), 4)
+                                              kernel_gb=0)), 4)
     with pytest.raises(NotImplementedError, match="direct"):
         tp.run_info(None, tc.SimConfig(**dict(SYM,
                                               gravity_solver="direct")), 4)

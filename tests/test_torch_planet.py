@@ -96,15 +96,17 @@ def test_runner_refuses_uncached_step():
     """The uncached step itself is ported (tests/test_torch_step.py), and
     so are cached chunks with relax-mode h (tests/test_torch_grid_step.py),
     the cached dense step and unsorted chunks
-    (tests/test_torch_cached_carry.py); what the runner still refuses, by
-    name and before any work, are the TPU's tuning knobs."""
+    (tests/test_torch_cached_carry.py), and so are any grid batching and
+    the bfloat16 pair path (tests/test_torch_bf16_gravity.py); what the
+    runner still refuses, by name and before any work, are values of
+    those knobs that mean nothing."""
     with pytest.raises(ValueError, match="kernel_gb"):
         tp.run_info(None, tc.jupiter_3k(n=64, rebuild_every=4,
                                         gravity_solver="tree",
-                                        kernel_gb=2), 4)
-    with pytest.raises(NotImplementedError, match="grav_pair_dtype"):
+                                        kernel_gb=0), 4)
+    with pytest.raises(ValueError, match="grav_pair_dtype"):
         tp.run_info(None, TCFG.replace(sorted_chunks=False,
-                                       grav_pair_dtype="bfloat16"), 4)
+                                       grav_pair_dtype="float16"), 4)
 
 
 def test_unsorted_chunks_repeat_the_sorted_run(runs):

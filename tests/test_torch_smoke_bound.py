@@ -601,3 +601,82 @@ def test_pairwise_instances_follow_the_flags():
         "pairwise_pass2", (0, 0))
     assert cs.pairwise_instance("pairwise_pass2", av, {"vel": 1}) == (
         "pairwise_pass2", (1, 1))
+
+
+@pytest.mark.parametrize("receiver", [False, True])
+def test_p2p_bf16_ops_by_branch(receiver):
+    """A bf16 p2p call: each live pair's polynomial moves to bf16 (by its
+    branch) with the pair's casts, the rest stays f32; the bound charges
+    the bf16 operations at the packed peak."""
+    b = 2
+    zero, one = _col([0.0] * b), _col([1.0] * b)
+    rows = [_row([0.5, 5.0, 0.1, 0.0]), _row([0.0] * 4), _row([0.0] * 4),
+            _row([1.0] * 4), _row([1.0, 1.0, 0.0, 1.0])]
+    if receiver:
+        del rows[3]
+    a = (_nv(3), [zero, zero, zero, one], rows)
+    kw = dict(b=b, receiver_soft=receiver, g_const=1.0)
+    f32 = cs.bound("p2p", a, kw, gk2.p2p(*a, **kw))
+    kw16 = dict(kw, bf16=True)
+    b_ms, by, nbytes, ops = cs.bound("p2p", a, kw16, gk2.p2p(*a, **kw16))
+    moved, bf = cs._bf16_ops("p2p", a, kw16)
+    inb = cs.OPS_DYER_IP_IN_BF16
+    assert moved == b * (inb["near"] + inb["far"])
+    assert bf == moved + 2 * b * cs.OPS_CAST_PAIR
+    assert ops == f32[3] - moved + bf and nbytes == f32[2]
+    t_ops = ((f32[3] - moved) / cs.PEAK_F32 + bf / cs.PEAK_BF16) * 1e3
+    assert b_ms == pytest.approx(max(t_ops, nbytes / cs.PEAK_BYTES * 1e3))
+
+
+def test_gravity_bf16_ops_move_the_monopoles_and_the_near_tier():
+    """A bf16 gravity_fused call: each live entry's monopole magnitude and
+    each near pair's polynomial move to bf16, with their casts; the
+    quadrupole stays f32."""
+    b = 2
+    zero, one = _col([0.0] * b), _col([1.0] * b)
+    tgt = [zero, zero, zero, one]
+    q = [_row([0.1, 0.1])] * 6
+    ring = [_row([1.0, 1.0]), _row([5.0, 6.0]), _row([0.0] * 2),
+            _row([0.0] * 2)] + q
+    far = [_row([1.0, 1.0]), _row([10.0, 11.0]), _row([0.0] * 2),
+           _row([0.0] * 2)] + q
+    p2p = [_row([0.5, 5.0, 0.0]), _row([0.0] * 3), _row([0.0] * 3),
+           _row([1.0] * 3), _row([1.0] * 3)]
+    a = (_nv(1), tgt, ring, far, _row([1.0, 0.0]))
+    kw = dict(b=b, nv_p2p=_nv(2), p2p_rows=p2p, receiver_soft=False,
+              bf16=True)
+    moved, bf = cs._bf16_ops("gravity_fused", a, kw)
+    inb = cs.OPS_DYER_IP_IN_BF16
+    # two live entries (a ring slot, an accepted far entry), two pairs
+    assert moved == b * (2 * cs.OPS_MONO_IN_BF16 + inb["near"] + inb["far"])
+    assert bf == moved + b * (2 * cs.OPS_CAST_MONO + 2 * cs.OPS_CAST_PAIR)
+    _, _, _, ops = cs.bound("gravity_fused", a, kw,
+                            gk2.gravity_fused(*a, **kw))
+    f32kw = dict(kw, bf16=False)
+    f32 = cs.bound("gravity_fused", a, f32kw,
+                   gk2.gravity_fused(*a, **f32kw))
+    assert ops == f32[3] - moved + bf
+
+
+def test_bf16_twins_follow_their_f32_cases():
+    """Each f32 case of BF16_TWINS is followed by its twin on the same
+    inputs with bf16=True; the legs of the twins are the bf16 legs."""
+    kw = {"b": 2}
+    cases = [("p2p", "min_h", ("sym100k",), ("a",), kw),
+             ("pass2", "symmetric", ("sym100k",), ("b",), kw)]
+    out = list(cs.with_bf16_twins(cases))
+    assert [c[:3] for c in out] == [
+        ("p2p", "min_h", ("sym100k",)),
+        ("p2p", "min_h+bf16", ("sym100k_bf16",)),
+        ("pass2", "symmetric", ("sym100k",))]
+    assert out[1][3] is out[0][3] and out[1][4] == {"b": 2, "bf16": True}
+    assert "bf16" not in kw
+    legs = {leg for v in cs.BF16_TWINS.values() for leg in v}
+    assert legs == {"prod100k_bf16", "sym100k_bf16",
+                    "sym100k_bf16_every_tier"}
+    assert {n for n, _ in cs.BF16_TWINS} == {"p2p", "gravity_fused"}
+
+
+def test_parent_signatures_are_read_from_the_checkouts_own_source():
+    from planetmodel_sph_tpu_torch.ops.cuda import build
+    assert cs.parent_signatures(ROOT) == build.SIGNATURES

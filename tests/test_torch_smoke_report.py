@@ -78,12 +78,14 @@ def test_instance_key_follows_the_template_order():
         ("pass2", (1, 1, 0, 0, 1, 1, 0))
     assert key("pass1_gradh", {}) == ("pass1_gradh", ())
     assert key("pass1_sym", {}) == ("pass1_sym", ())
-    assert key("p2p", dict(receiver_soft=True)) == ("p2p", (1,))
-    assert key("p2p", dict(receiver_soft=False)) == ("p2p", (0,))
-    # p2p.cu's one template parameter is RECV
+    assert key("p2p", dict(receiver_soft=True)) == ("p2p", (1, 0))
+    assert key("p2p", dict(receiver_soft=False)) == ("p2p", (0, 0))
+    assert key("p2p", dict(receiver_soft=False, bf16=True)) == \
+        ("p2p", (0, 1))
+    # p2p.cu's template parameters are RECV and BF16
     src = open(os.path.join(ROOT, "planetmodel_sph_tpu_torch", "csrc",
                             "p2p.cu")).read()
-    assert "template <bool RECV>" in src
+    assert "template <bool RECV, bool BF16>" in src
 
 
 def _direct_shares(nv, tgt, src, pass1):
@@ -198,17 +200,20 @@ def test_the_redesigned_kernels_are_timed_in_turns():
 
 def test_instance_key_of_gravity_fused():
     """gravity_fused.cu's template parameters are HAS_P2P (0 none, 1 min-h,
-    2 receiver softening) and NM, the moment fields of the rows."""
+    2 receiver softening), NM, the moment fields of the rows, and BF16."""
     src = open(os.path.join(ROOT, "planetmodel_sph_tpu_torch", "csrc",
                             "gravity_fused.cu")).read()
-    assert "template <int HAS_P2P, int NM>" in src
+    assert "template <int HAS_P2P, int NM, bool BF16>" in src
     a4, a10 = (None, None, [0] * 4), (None, None, [0] * 10)
     assert cs.instance_key("gravity_fused", {}, a10) == \
-        ("gravity_fused", (0, 10))
+        ("gravity_fused", (0, 10, 0))
     assert cs.instance_key("gravity_fused", dict(p2p_rows=[0]), a4) == \
-        ("gravity_fused", (1, 4))
+        ("gravity_fused", (1, 4, 0))
     assert cs.instance_key("gravity_fused", dict(
-        p2p_rows=[0], receiver_soft=True), a10) == ("gravity_fused", (2, 10))
+        p2p_rows=[0], receiver_soft=True), a10) == \
+        ("gravity_fused", (2, 10, 0))
+    assert cs.instance_key("gravity_fused", dict(bf16=True), a10) == \
+        ("gravity_fused", (0, 10, 1))
     # filter_sph.cu's one template parameter: WIDE, more than 32 boxes of
     # 16 targets a group
     fsrc = open(os.path.join(ROOT, "planetmodel_sph_tpu_torch", "csrc",

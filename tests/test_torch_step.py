@@ -188,12 +188,13 @@ def test_uncached_grid_prime_matches_jax():
 
 @pytest.mark.parametrize("kw,word", [
     # dense SPH + tree gravity runs, with the supergroup far tier too, and
-    # cached (tests/test_torch_cached_carry.py); the TPU's grid batching
-    # and bf16 pair path do not, nor a multipole order past 2
-    (dict(gravity_solver="tree", kernel_gb=8), "kernel_gb"),
+    # cached (tests/test_torch_cached_carry.py), with any grid batching
+    # and either pair dtype; a batching below 1, another pair dtype and a
+    # multipole order past 2 do not
+    (dict(gravity_solver="tree", kernel_gb=0), "kernel_gb"),
     (dict(gravity_solver="tree", rebuild_every=4, multipole_order=3),
      "multipole_order"),
-    (dict(gravity_solver="tree", grav_pair_dtype="bfloat16"),
+    (dict(gravity_solver="tree", grav_pair_dtype="float16"),
      "grav_pair_dtype"),
 ])
 def test_entry_points_refuse_unported_options_by_name(kw, word):

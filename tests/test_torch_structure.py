@@ -150,12 +150,12 @@ def test_out_of_slice_config_refused():
     pos, h, mass, _ = _cloud()
     # the unfused partition, the supergroup tier and particle-exact lists
     # are ported (tests/test_torch_gravity_tiers.py,
-    # tests/test_torch_exact.py); the TPU's grid batching is still
-    # refused, and the fusion still refuses exact lists and the
-    # supergroup tier
+    # tests/test_torch_exact.py), and so is any grid batching >= 1; a
+    # batching below 1 is refused, and the fusion still refuses exact
+    # lists and the supergroup tier
     with pytest.raises(ValueError, match="sph_exact_window"):
         ts.build(T(pos), T(h), T(mass), TCFG.replace(sph_exact_window=512))
     with pytest.raises(ValueError, match="kernel_gb"):
-        ts.build(T(pos), T(h), T(mass), TCFG.replace(kernel_gb=8))
+        ts.build(T(pos), T(h), T(mass), TCFG.replace(kernel_gb=0))
     with pytest.raises(ValueError, match="sg_blocks"):
         ts.build(T(pos), T(h), T(mass), TCFG.replace(sg_blocks=4))
