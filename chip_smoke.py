@@ -62,18 +62,20 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    ``pass1_sym`` and ``pass2``: the share of slots below nv that are live
    and of live pairs inside the support, and the share ``pass1_sym``'s
    skip leaves out; ``p2p``: the live share, every live pair evaluated;
-   ``gravity_fused``: the far entries accepted and live, the ring and blk
-   slots live; ``filter_sph``: the live slots kept and pre-rejected whole
-   by the bounding boxes, the boxes whose targets a live slot tests and
+   ``gravity_fused``: the far entries accepted and live, the ring, blk
+   and near-tier slots live; ``filter_sph``: the live slots kept and
+   pre-rejected whole by the bounding boxes, the boxes whose targets a
+   live slot tests and
    its exact tests beside the tests the bound charges), the instance's
    registers, shared memory and spills from the build's ``-Xptxas -v``
    log (phase 2 prints every instance), and holds a second launch on the
    same inputs to the same bits. In every case of ``pass1_gradh``,
    ``pass1_sym``, ``pass2``, ``p2p``, ``gravity_fused`` and ``filter_sph``
    it plants NaNs, one field at a time (m, cc, a velocity row, ih; for
-   ``pass1_sym`` and ``p2p`` also a dead slot, m = 0, with a NaN x or ih;
-   for the filter x, sc, ssk and m of a slot it keeps, tc and tsk of its
-   group's targets), where a kernel leaves out work: each output must be
+   ``pass1_sym`` and ``p2p`` also a dead slot, m = 0, with a NaN x or ih,
+   and for ``gravity_fused`` with a near tier such a slot of its P2P
+   window; for the filter x, sc, ssk and m of a slot it keeps, tc and tsk
+   of its group's targets), where a kernel leaves out work: each output must be
    NaN exactly where the plain version's is (the filter's mask equal to
    it). Every case
    prints its wrapper time ``ms`` (CUDA events
@@ -159,7 +161,9 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    ``pass2``, ``gravity_fused``, ``filter_sph``, ``p2p``) and its two
    all-pairs kernels and its ``probe_pass1_tile`` into DIR's own build
    directory, phase 4 times them and this checkout's in turns (parent,
-   this, this, parent) on each case's inputs (the all-pairs kernels each
+   this, this, parent) on each case's inputs (a bf16 case its bf16
+   instances; ``gravity_fused``'s and ``p2p``'s cases each turn's device
+   ms too; the all-pairs kernels each
    with the source splits of its own checkout's wrapper; the tile probe
    also with the parent's device time), and this phase times the two probes
    (``probe_launch`` in a chain beside ``torch.mul``, ``probe_gather``
@@ -234,7 +238,10 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    their table lines.
 
 ``--halo-only`` runs phases 1, 2, 10 and 11 alone (a trial: no kernel
-line, no final line).
+line, no final line). ``--only gravity_fused,p2p`` (any windowed kernels)
+runs phases 1-4 on those kernels' cases alone, in turns with ``--parent``'s
+where it is given (a trial: no kernel line, no final line; the report in
+``chiprun_out/chip_smoke_only.json``).
 
 The second-to-last line of standard output is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. A full
@@ -1694,6 +1701,11 @@ def _gravity_shares(a, kw):
     if kw.get("blk_rows") is not None:
         (out["blk_slots_below_nv"], out["blk_live"],
          out["blk_live_share"]) = window(kw["nv_blk"], kw["blk_rows"][0])
+    if kw.get("p2p_rows") is not None:
+        # the near tier keeps the slots with m != 0
+        (out["near_slots_below_nv"], out["near_live"],
+         out["near_live_share"]) = window(kw["nv_p2p"],
+                                          kw["p2p_rows"][-1].abs())
     return out
 
 
@@ -1921,11 +1933,14 @@ def nan_plantings(name, a, kw):
     and the near tier's). Dead-slot plantings, pass1_sym and p2p: the same
     slot with m = 0 and a NaN ih ("dead ih", under min-h softening for
     p2p) or x ("dead x"), which the compaction must keep where the plain
-    version forms NaN from it. `must_reach`: the plain version's outputs
-    hold a NaN for this planting whatever the inputs (a NaN m of the ring
-    and far tiers is masked out by m > 0, a NaN velocity meets no
-    viscosity where no pair approaches, a dead slot's NaN x meets pass1_sym
-    only inside a spline of a NaN q, which is 0).
+    version forms NaN from it; gravity_fused with a near tier the same in
+    its P2P window's slot ("dead near x", "dead near ih"). `must_reach`:
+    the plain version's outputs hold a NaN for this planting whatever the
+    inputs (a NaN m of the ring and far tiers is masked out by m > 0, a
+    NaN velocity meets no viscosity where no pair approaches, a dead
+    slot's NaN x meets pass1_sym only inside a spline of a NaN q, which is
+    0, and a dead slot's NaN ih gives its pairs x = NaN, the outer branch
+    and m/r = 0).
     filter_sph: :func:`_filter_plantings`."""
     import torch
     if name == "filter_sph":
@@ -1981,6 +1996,13 @@ def nan_plantings(name, a, kw):
             args = (nv, a[1], type(a[2])(_with_nan(dead, k, (gi, j))))
             reach = label == ("ih" if name == "pass1_sym" else "x")
             out.append((f"dead {label}", args, kw, gi, reach))
+    if name == "gravity_fused" and near:
+        dead = _with_nan(prow, len(prow) - 1, (gi, jp), 0.0)
+        soft = None if kw.get("receiver_soft", False) else 3
+        for label, k in (("x", 0), ("ih", soft)):
+            if k is not None:
+                k2 = dict(kw, p2p_rows=_with_nan(dead, k, (gi, jp)))
+                out.append((f"dead near {label}", a, k2, gi, label == "x"))
     return out
 
 
@@ -2098,20 +2120,28 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
             msgs.append(f"differs from its f32 twin by only "
                         f"{extra['bf16_vs_f32']:.3e} of max|g| (a bf16 "
                         "instance that did nothing?)")
-    if parent_libs and name in parent_libs and not kw.get("bf16") and \
+    if parent_libs and name in parent_libs and \
             (name, case) not in GROUP_SIZE_CASES:
         # the parent's kernel and this one in turns: parent, this, this,
         # parent, on the same inputs through the same wrapper (not at the
-        # group sizes the parent's kernels refused)
+        # group sizes the parent's kernels refused), wrapper ms by CUDA
+        # events and device ms by the profiler; a bf16 case its bf16
+        # instance in both
         from planetmodel_sph_tpu_torch.ops.cuda import build
         turns = {"parent": [], "this": []}
+        dev = {"parent": [], "this": []}
         for who in ("parent", "this", "this", "parent"):
             with (build.library(name, parent_libs[name]) if who == "parent"
                   else contextlib.nullcontext()):
                 turns[who].append(cuda_ms(lambda: wrapper(*a, **kw),
                                           KERNEL_REPS))
+                if name in DEVICE_TURNS:
+                    dev[who].append(device_ms(lambda: wrapper(*a, **kw)))
         extra["parent_ms"], extra["ms_in_turns"] = turns["parent"], \
             turns["this"]
+        if name in DEVICE_TURNS:
+            extra["parent_device_ms"], extra["device_ms_in_turns"] = \
+                dev["parent"], dev["this"]
     plain_ms = cuda_ms(lambda: plain_sliced(name, a, kw), PLAIN_REPS)
     b_ms, b_by, nbytes, ops = bound(name, a, kw, out)
     shapes = {"groups": n_groups(a), "b": kw["b"],
@@ -2150,9 +2180,14 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
               " ms", flush=True)
     if "parent_ms" in extra:
         p, t = extra["parent_ms"], extra["ms_in_turns"]
+        dev = ""
+        if "device_ms_in_turns" in extra:
+            pd, td = extra["parent_device_ms"], extra["device_ms_in_turns"]
+            dev = (f"; device parent {fmt_ms(pd[0])}, this {fmt_ms(td[0])}, "
+                   f"this {fmt_ms(td[1])}, parent {fmt_ms(pd[1])} ms")
         print(f"  {label}: in turns, parent {p[0]:.4f}, this {t[0]:.4f}, "
               f"this {t[1]:.4f}, parent {p[1]:.4f} ms "
-              f"({sum(p) / sum(t):.2f}x)", flush=True)
+              f"({sum(p) / sum(t):.2f}x){dev}", flush=True)
     for m in msgs:
         print(f"  {label}: {m}", flush=True)
     del out, ref
@@ -2161,6 +2196,12 @@ def check_one(name, case, a, kw, ptxas=None, parent_libs=None, host=False):
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, bytes=nbytes, ops=ops, shapes=shapes,
                 messages=msgs, **extra)
+
+
+# the kernels whose in-turn lines against --parent also carry each turn's
+# device ms (torch.profiler): the two whose near tier and bf16 bodies
+# changed last
+DEVICE_TURNS = ("gravity_fused", "p2p")
 
 
 # the least difference of g (of max|g|) a bf16 case must show against its
@@ -2205,10 +2246,12 @@ def visits_line(name, extra):
     if name == "gravity_fused":
         blk = (f", blk live {sh['blk_live_share']:.4f} of "
                f"{sh['blk_slots_below_nv']}" if "blk_live" in sh else "")
+        near = (f", near tier live {sh['near_live_share']:.4f} of "
+                f"{sh['near_slots_below_nv']}" if "near_live" in sh else "")
         what = (f"far accepted and live {sh['far_live_share']:.4f} of "
                 f"{sh['far_entries']} (group, entry) slots, ring live "
                 f"{sh['ring_live_share']:.4f} of {sh['ring_slots_below_nv']}"
-                f" slots below nv{blk}")
+                f" slots below nv{blk}{near}")
     elif name == "filter_sph":
         what = (f"kept {sh['kept_share']:.4f} of {sh['live_slots']} live "
                 f"slots, pre-rejected whole {sh['prereject_share']:.4f}; a "
@@ -2326,11 +2369,14 @@ def with_bf16_twins(cases):
             yield bf16_case(name, case, a, kw)
 
 
-def check_kernels(seen, ptxas=None, parent_libs=None):
-    """Phase 4 on the production path's inputs: each kernel against its
-    plain version, timed. Returns ({name: report}, failures)."""
+def check_kernels(seen, ptxas=None, parent_libs=None, only=None):
+    """Phase 4 on the production path's inputs: each kernel (of `only`,
+    where given) against its plain version, timed. Returns ({name:
+    report}, failures)."""
     reports, failures = {}, []
     for name in ("filter_sph", "pass1_gradh", "pass2", "gravity_fused"):
+        if only is not None and name not in only:
+            continue
         if name not in seen:
             failures.append(f"{name}: not called while recording inputs")
             continue
@@ -2343,11 +2389,13 @@ def check_kernels(seen, ptxas=None, parent_libs=None):
     return reports, failures
 
 
-def check_modes(cases, ptxas=None, parent_libs=None):
-    """Phase 4 for every other mode of the windowed kernels. Returns
-    ([report], failures)."""
+def check_modes(cases, ptxas=None, parent_libs=None, only=None):
+    """Phase 4 for every other mode of the windowed kernels (of `only`,
+    where given). Returns ([report], failures)."""
     reports, failures = [], []
     for name, case, legs, a, kw in cases:
+        if only is not None and name not in only:
+            continue
         rep = check_one(name, case, a, kw, ptxas, parent_libs)
         rep["legs"] = list(legs)
         reports.append(rep)
@@ -2382,6 +2430,7 @@ def check_modes(cases, ptxas=None, parent_libs=None):
             ("filter_sph", "exact100k"), ("pass1_gradh", "exact100k"),
             ("pass2", "grad_h@exact100k")} | GROUP_SIZE_CASES | {
                 (name, case + "+bf16") for name, case in BF16_TWINS}
+    want = {w for w in want if only is None or w[0] in only}
     missing = want - {(r["name"], r["case"]) for r in reports}
     if missing:
         failures.append(f"kernel cases not checked: {sorted(missing)}")
@@ -4746,6 +4795,10 @@ def main(argv=None) -> int:
     ap.add_argument("--halo-only", action="store_true",
                     help="a trial of phases 10 and 11 alone after the "
                     "build (no kernel line, no final line)")
+    ap.add_argument("--only", default=None, metavar="KERNEL[,KERNEL]",
+                    help="a trial of phases 1-4 on these windowed kernels' "
+                    "cases alone, with --parent in turns too (no kernel "
+                    "line, no final line)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4878,11 +4931,13 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 4. kernels against their plain versions
+    only = set(args.only.split(",")) if args.only else None
     seen = capture_inputs(state, cfg)
     torch.cuda.synchronize()
-    kreports, failures = check_kernels(seen, ptxas, parent_libs)
-    report["stream_checks"], fails = stream_checks(seen)
-    failures += fails
+    kreports, failures = check_kernels(seen, ptxas, parent_libs, only)
+    if only is None:
+        report["stream_checks"], fails = stream_checks(seen)
+        failures += fails
     prod_twin = [bf16_case("gravity_fused", "far_only",
                            *seen["gravity_fused"])]
     del seen
@@ -4922,10 +4977,19 @@ def main(argv=None) -> int:
             energy_cases(cfg, adia_state, sg_state, basalt_cfg,
                          basalt_state),
             exact_cases(cfg, exact_state), group_size_cases(cfg, state)))),
-        ptxas, parent_libs)
+        ptxas, parent_libs, only)
     del prod_twin
     failures += fails
     report["kernel_modes"] = mode_reports
+    if only is not None:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_only.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        for m in failures:
+            print(f"FAIL: {m}", file=sys.stderr, flush=True)
+        print(f"total {time.perf_counter() - t_all:.1f} s (phases 1-4 on "
+              f"{', '.join(sorted(only))} only)", flush=True)
+        return 1 if failures else 0
     torch.cuda.empty_cache()
     pw_reports = {}
     for n, _ in DENSE_RUNS:

@@ -42,9 +42,10 @@ __device__ __forceinline__ float psph_rsqrt_ftz(float s) {
   return r;
 }
 
-// Dyer-Ip softened point-mass term, accumulated into (phi, g). Finite at
-// r = 0 (x = 0 takes the inner branch, dx = 0 kills the force); phi then
-// holds the -2.4 m/a self term that the caller removes.
+// Dyer-Ip softened point-mass term, accumulated into (phi, g), branching on
+// x < 1 (pass2.cu's merged near window). Finite at r = 0 (x = 0 takes the
+// inner branch, dx = 0 kills the force); phi then holds the -2.4 m/a self
+// term that the caller removes.
 __device__ __forceinline__ void psph_dyer_ip(
     float m, float dxx, float dxy, float dxz, float r2, float inv_r,
     float inv_a, float& phi, float& gx, float& gy, float& gz) {
@@ -72,13 +73,17 @@ __device__ __forceinline__ void psph_dyer_ip(
 // first, then the inner one's, its polynomials as multiply-adds, selected
 // into them where x < 1. The same selection written as one select between
 // the two finished terms was slower on the H100 in p2p, and so were a
-// branch on x < 1 and a warp vote before it. p2p.cu evaluates every pair
-// with it; pairwise_pass1.cu the pairs its q^2 test does not skip.
+// branch on x < 1 and a warp vote before it (the vote in gravity_fused's
+// near tier too). p2p.cu and gravity_fused.cu's near tier evaluate every
+// pair they keep with it; pairwise_pass1.cu the pairs its q^2 test does
+// not skip. 1/r = psph_rsqrt_ftz(max(r2, 1e-30)): max.NaN keeps a NaN r2
+// as torch.clamp does, and past the floor no denormal is left for
+// rsqrtf's scaling, so the bare instruction gives rsqrtf's bits.
 __device__ __forceinline__ void psph_p2p_pair(float m, float dxx, float dxy,
                                               float dxz, float r2,
                                               float inv_a,
                                               float (&acc)[4]) {
-  const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
+  const float inv_r = psph_rsqrt_ftz(psph_max(r2, 1e-30f));
   const float x = (r2 * inv_r) * inv_a;
   const float mr = m * inv_r;
   const bool in = x < 1.0f;
@@ -137,10 +142,6 @@ __device__ __forceinline__ unsigned psph_bsub(unsigned a, unsigned b) {
 __device__ __forceinline__ float psph_lane(unsigned v, int k) {
   return __uint_as_float(k ? (v & 0xffff0000u) : (v << 16));
 }
-// v rounded to bf16, as an f32
-__device__ __forceinline__ float psph_bfr(float v) {
-  return psph_lane(psph_bf2(v, v), 0);
-}
 // |d|^2 rounded after each multiply and add, in the plain versions' order
 __device__ __forceinline__ float psph_r2_rn(float dxx, float dxy,
                                             float dxz) {
@@ -159,21 +160,38 @@ __device__ __forceinline__ float psph_r2_rn(float dxx, float dxy,
 #define PSPH_BF_2P4 0x401A401Au
 #define PSPH_BF_0P4 0x3ECD3ECDu
 
+// v^3 in bf16, (v v) v rounded after each product, as the plain versions
+// form (1/a)^3
+__device__ __forceinline__ unsigned psph_bcube(unsigned v) {
+  return psph_bmul(psph_bmul(v, v), v);
+}
+
 // The Dyer-Ip term of two pairs in bf16, a pair a lane: m, x, 1/a and 1/r
-// rounded to bf16, `in` 0xffff in each lane whose f32 x < 1 (false for a
-// NaN x: the outer branch, as torch.where selects it). Returns the
-// selected mag and p (phi = -p), rounded bf16:
+// rounded to bf16, ia3 = psph_bcube(1/a) (a caller whose 1/a does not
+// change from slot to slot forms it once), `in` 0xffff in each lane whose
+// f32 x < 1 (false for a NaN x: the outer branch, as torch.where selects
+// it). Returns the selected mag and p (phi = -p), rounded bf16:
 //   x < 1:  mag = (m (1/a)^3) ((8 - 9 x) + 2 x^3),
 //           p = (m (1/a)) (((2.4 - 4 x^2) + 3 x^3) - (0.4 x^2) x^3)
 //   x >= 1: mag = ((m (1/r)) (1/r)) (1/r),  p = m (1/r)
-// Both branches are formed and selected per lane, so no warp diverges.
+// The branches are selected per lane, not branched on; the inner one is
+// formed only where some lane of the threads here takes it (a pair that
+// does not gets the outer branch from the select either way, so the bits
+// are the same): 7-10 % faster in turns on the H100 in p2p's and
+// gravity_fused's bf16 instances at 100k than forming both for every
+// pair, slower only at parity3k's 55 groups (PERF.md).
 __device__ __forceinline__ void psph_dyer_ip_bf2(unsigned m, unsigned x,
-                                                 unsigned ia, unsigned ir,
-                                                 unsigned in, unsigned& mag,
+                                                 unsigned ia, unsigned ia3,
+                                                 unsigned ir, unsigned in,
+                                                 unsigned& mag,
                                                  unsigned& p) {
+  const unsigned mr = psph_bmul(m, ir);
+  const unsigned omag = psph_bmul(psph_bmul(mr, ir), ir);
+  mag = omag;
+  p = mr;
+  if (!__any_sync(__activemask(), in != 0u)) return;
   const unsigned x2 = psph_bmul(x, x);
   const unsigned x3 = psph_bmul(x2, x);
-  const unsigned ia3 = psph_bmul(psph_bmul(ia, ia), ia);
   const unsigned imag = psph_bmul(
       psph_bmul(m, ia3),
       psph_badd(psph_bsub(PSPH_BF_8, psph_bmul(PSPH_BF_9, x)),
@@ -183,77 +201,27 @@ __device__ __forceinline__ void psph_dyer_ip_bf2(unsigned m, unsigned x,
       psph_bsub(psph_badd(psph_bsub(PSPH_BF_2P4, psph_bmul(PSPH_BF_4, x2)),
                           psph_bmul(PSPH_BF_3, x3)),
                 psph_bmul(psph_bmul(PSPH_BF_0P4, x2), x3)));
-  const unsigned mr = psph_bmul(m, ir);
-  const unsigned omag = psph_bmul(psph_bmul(mr, ir), ir);
   mag = (imag & in) | (omag & ~in);
   p = (ip & in) | (mr & ~in);
 }
 
-// One pair's Dyer-Ip term in bf16 added into (phi, g): psph_dyer_ip_bf2
-// on lane 0 (the scalar form of gravity_fused's near tier)
-__device__ __forceinline__ void psph_dyer_ip_bf16(
-    float m, float dxx, float dxy, float dxz, float inv_a, float& phi,
-    float& gx, float& gy, float& gz) {
-  const float r2 = psph_r2_rn(dxx, dxy, dxz);
-  const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
-  const float x = __fmul_rn(__fmul_rn(r2, inv_r), inv_a);
-  unsigned mag, p;
-  psph_dyer_ip_bf2(psph_bf2(m, m), psph_bf2(x, x), psph_bf2(inv_a, inv_a),
-                   psph_bf2(inv_r, inv_r), x < 1.0f ? 0xffffffffu : 0u, mag,
-                   p);
-  const float mg = psph_lane(mag, 0);
-  phi -= psph_lane(p, 0);
-  gx = fmaf(psph_bfr(dxx), mg, gx);
-  gy = fmaf(psph_bfr(dxy), mg, gy);
-  gz = fmaf(psph_bfr(dxz), mg, gz);
-}
-
-// Near-field gravity sweep over one window: the first n slots of the rows
-// (x, y, z, [ih,] m) starting at `row`, Dyer-Ip softened with
-// 1/a = ih_i (RECV: receiver softening, the ih row is not read) or
-// min(ih_i, ih_j) (NaN when either is). Adds into (phi, g) and counts the
-// slots with m > 0 into nd; the self pair is one of them (dx = 0: no
-// force, the finite inner potential -2.4 m/a). `c` is the block's staging
-// buffer, at least 5 rows. A block that splits the window into ns slot
-// slices calls it with each thread's slice k: the thread then visits the
-// slots k, k + ns, ... of every tile (the caller adds the slices' sums).
-// BF16: the pair polynomial in bf16 (psph_dyer_ip_bf16). Every thread of
-// the block must call it (it synchronises).
-template <bool RECV, bool BF16 = false>
-__device__ __forceinline__ void psph_p2p_window(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ pih,
-    const float* __restrict__ pm, size_t row, int n, float x, float y,
-    float z, float ih, float (*c)[PSPH_TILE], float& phi, float& gx,
-    float& gy, float& gz, int& nd, int k = 0, int ns = 1) {
-  const int i = threadIdx.x;
-  for (int base = 0; base < n; base += PSPH_TILE) {
-    const int cnt = min(PSPH_TILE, n - base);
-    for (int j = i; j < cnt; j += blockDim.x) {
-      c[0][j] = px[row + base + j];
-      c[1][j] = py[row + base + j];
-      c[2][j] = pz[row + base + j];
-      if (!RECV) c[3][j] = pih[row + base + j];
-      c[4][j] = pm[row + base + j];
-    }
-    __syncthreads();
-    for (int j = k; j < cnt; j += ns) {
-      const float dxx = x - c[0][j];
-      const float dxy = y - c[1][j];
-      const float dxz = z - c[2][j];
-      const float m = c[4][j];
-      const float inv_a = RECV ? ih : psph_min(ih, c[3][j]);
-      if constexpr (BF16) {
-        psph_dyer_ip_bf16(m, dxx, dxy, dxz, inv_a, phi, gx, gy, gz);
-      } else {
-        const float r2 = dxx * dxx + dxy * dxy + dxz * dxz;
-        const float inv_r = rsqrtf(psph_max(r2, 1e-30f));
-        psph_dyer_ip(m, dxx, dxy, dxz, r2, inv_r, inv_a, phi, gx, gy, gz);
-      }
-      nd += (m > 0.0f) ? 1 : 0;
-    }
-    __syncthreads();
-  }
+// The f32 geometry of one bf16 pair, target (x, y, z) and slot p: d, r2
+// and x rounded as the plain version's separate operations round them, 1/r
+// from max(r2, 1e-30) as in psph_p2p_pair, 1/a given
+struct PsphBfPair {
+  float dx, dy, dz, x, ir;
+};
+__device__ __forceinline__ PsphBfPair psph_bf_geometry(float x, float y,
+                                                       float z, float4 p,
+                                                       float inv_a) {
+  PsphBfPair q;
+  q.dx = x - p.x;
+  q.dy = y - p.y;
+  q.dz = z - p.z;
+  const float r2 = psph_r2_rn(q.dx, q.dy, q.dz);
+  q.ir = psph_rsqrt_ftz(psph_max(r2, 1e-30f));
+  q.x = __fmul_rn(__fmul_rn(r2, q.ir), inv_a);
+  return q;
 }
 
 // Staging of the source windows of the two grad-h sweeps (pass1_gradh.cu,

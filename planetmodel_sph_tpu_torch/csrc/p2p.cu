@@ -17,8 +17,8 @@
 //
 // Bound on the H100: f32 operations, about 35 a live pair against 20 bytes
 // a slot shared by the group's 64 targets. What held the first design
-// back (psph_p2p_window, which gravity_fused's near tier still takes):
-// one block of 64 threads per group, each
+// back (a synchronous window sweep, since removed; gravity_fused's near
+// tier now follows this design): one block of 64 threads per group, each
 // thread walking every slot below nv alone, dead slots included; each
 // tile loaded synchronously, five scalar shared loads a pair; and the
 // Dyer-Ip branch on x < 1, which diverges inside a warp. This design
@@ -38,7 +38,7 @@
 //   polynomials as multiply-adds, and the one x takes is selected, so no
 //   warp diverges (psph_p2p_pair, common.cuh); a NaN x selects the outer
 //   branch, as the plain version's torch.where does. The self pair keeps
-//   rsqrtf(max(r2, 1e-30f)), with psph_max, which keeps a NaN r2 as
+//   1/r of max(r2, 1e-30f), with psph_max, which keeps a NaN r2 as
 //   torch.clamp does, and min-h softening psph_min (NaN when either ih
 //   is);
 // - P2P_TPT = 2 targets a thread (targets i and i + ceil(b / 2), which
@@ -50,11 +50,16 @@
 //   each sweeping the whole window for its own.
 // BF16 (grav_pair_dtype="bfloat16"): the same staging, compaction and
 // slice order; the geometry and the x < 1 test stay f32 per target (r2
-// and x rounded as the plain version's separate operations round them),
-// and the thread's two targets' pairs with a slot form the two lanes of
-// each packed bf16x2 operation of the pair polynomial (psph_dyer_ip_bf2,
-// common.cuh), each lane's branch selected by its own x < 1. phi and the
-// three exact products d mag are added into f32 sums.
+// and x rounded as the plain version's separate operations round them,
+// psph_bf_geometry), and the thread's two targets' pairs with a slot form
+// the two lanes of each packed bf16x2 operation of the pair polynomial
+// (psph_dyer_ip_bf2, common.cuh), each lane's branch selected by its own
+// x < 1. phi and the three exact products d mag are added into f32 sums.
+// What does not change from slot to slot is rounded once: m into both
+// lanes when the slot is compacted, and under receiver softening the two
+// targets' 1/a and its cube once a thread. What held the first bf16 loop
+// back: 7 conversions and the cube of 1/a for every slot, around the
+// packed polynomial.
 #include "common.cuh"
 
 // targets a thread: two share each slot's shared loads (faster in turns
@@ -116,6 +121,10 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
       *reinterpret_cast<const float* const(*)[NR]>(&all);
   float acc[P2P_TPT][4] = {};
   int npos = 0;
+  // receiver softening: the two targets' 1/a and its cube in bf16 once,
+  // not for every slot
+  const unsigned ia_r = BF16 && RECV ? psph_bf2(ih[0], ih[P2P_TPT - 1]) : 0u;
+  const unsigned ia3_r = BF16 && RECV ? psph_bcube(ia_r) : 0u;
   psph_window<NR>(rows, (size_t)g * s, n, vec != 0, raw,
                   [&](float (*st)[PSPH_TILE], int c) {
     bool tile_bad;
@@ -127,7 +136,10 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
           return m != 0.0f || keep_all || !psph_all_finite(v);
         },
         [&](int j, int at) {
-          pos[at] = make_float4(st[0][j], st[1][j], st[2][j], st[NR - 1][j]);
+          // BF16: m rounded into both lanes once, as the word's bits
+          const float m = st[NR - 1][j];
+          pos[at] = make_float4(st[0][j], st[1][j], st[2][j],
+                                BF16 ? __uint_as_float(psph_bf2(m, m)) : m);
           if (!RECV) cih[at] = st[3][j];
           return false;
         });
@@ -137,26 +149,24 @@ __global__ void __launch_bounds__(PSPH_WIN_THREADS) p2p_kernel(
       const float jh = RECV ? 0.0f : cih[j];
       if constexpr (BF16) {
         static_assert(P2P_TPT == 2, "a bf16x2 lane a target");
-        float dx[2], dy[2], dz[2], xs[2], ia[2], ir[2];
+        PsphBfPair q[2];
         unsigned in = 0u;
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          dx[u] = x[u] - p.x;
-          dy[u] = y[u] - p.y;
-          dz[u] = z[u] - p.z;
-          const float r2 = psph_r2_rn(dx[u], dy[u], dz[u]);
-          ir[u] = rsqrtf(psph_max(r2, 1e-30f));
-          ia[u] = RECV ? ih[u] : psph_min(ih[u], jh);
-          xs[u] = __fmul_rn(__fmul_rn(r2, ir[u]), ia[u]);
-          in |= xs[u] < 1.0f ? 0xffffu << (16 * u) : 0u;
+          q[u] = psph_bf_geometry(x[u], y[u], z[u], p,
+                                  RECV ? ih[u] : psph_min(ih[u], jh));
+          in |= q[u].x < 1.0f ? 0xffffu << (16 * u) : 0u;
         }
+        const unsigned iab = RECV ? ia_r
+                                  : psph_bf2(psph_min(ih[0], jh),
+                                             psph_min(ih[1], jh));
         unsigned mag, ph;
-        psph_dyer_ip_bf2(psph_bf2(p.w, p.w), psph_bf2(xs[0], xs[1]),
-                         psph_bf2(ia[0], ia[1]), psph_bf2(ir[0], ir[1]), in,
-                         mag, ph);
-        const unsigned bx = psph_bf2(dx[0], dx[1]);
-        const unsigned by = psph_bf2(dy[0], dy[1]);
-        const unsigned bz = psph_bf2(dz[0], dz[1]);
+        psph_dyer_ip_bf2(__float_as_uint(p.w), psph_bf2(q[0].x, q[1].x), iab,
+                         RECV ? ia3_r : psph_bcube(iab),
+                         psph_bf2(q[0].ir, q[1].ir), in, mag, ph);
+        const unsigned bx = psph_bf2(q[0].dx, q[1].dx);
+        const unsigned by = psph_bf2(q[0].dy, q[1].dy);
+        const unsigned bz = psph_bf2(q[0].dz, q[1].dz);
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const float mg = psph_lane(mag, u);

@@ -49,6 +49,7 @@ from planetmodel_sph_tpu_torch.ops.cuda import groups2 as tk
 from planetmodel_sph_tpu_torch.ops.cuda import launch
 from test_torch_groups2 import B, G, _case, _cols, _grav_inputs, _j, _np, _t
 from test_torch_groups2_modes import _blk_rows, _near_rows
+from test_torch_pair_skip import _c_test
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 128
@@ -210,6 +211,38 @@ def test_kernel_constants_are_jax_roundings_and_ops_round():
     assert "template <bool RECV, bool BF16>" in _source("p2p.cu")
     assert "template <int HAS_P2P, int NM, bool BF16>" in \
         _source("gravity_fused.cu")
+
+
+def test_near_tier_compacts_with_the_p2p_predicate():
+    """gravity_fused.cu's near tier stages its P2P window with psph_window,
+    compacts each tile with p2p.cu's predicate (read from the sources:
+    the same expression) and sums f32 pairs through psph_p2p_pair and
+    bf16 pairs on psph_dyer_ip_bf2, two compacted slots a lane pair. The
+    predicate keeps every slot with m != 0, a dead one (m = 0) whose x,
+    y, z or ih is NaN or infinite, and every slot where a target of the
+    block has a non-finite column; it drops a dead finite slot."""
+    src = _source("gravity_fused.cu")
+    near = src[src.index("void near_tier("):]
+    near = near[:near.index("\n}\n")]
+    keep = re.search(r"return (m != 0\.0f[^;]*);", near)
+    p2p = re.search(r"return (m != 0\.0f[^;]*);", _source("p2p.cu"))
+    assert keep and p2p and keep.group(1) == p2p.group(1)
+    for call in ("psph_window<NR>(", "psph_compact_where(",
+                 "psph_p2p_pair(", "psph_dyer_ip_bf2(", "j += 2 * ns"):
+        assert call in near, call
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    m = np.array([1.0, -1.0, nan, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+                 np.float32)
+    x = np.array([0.5, 0.5, 0.5, 0.5, nan, inf, -inf, 0.5, 0.5],
+                 np.float32)
+    ih = np.array([2.0, 2.0, 2.0, 2.0, 2.0, 2.0, 2.0, nan, inf],
+                  np.float32)
+    y = z = np.zeros_like(x)
+    for keep_all in (False, True):
+        got = _c_test(keep.group(1))(m=m, keep_all=np.asarray(keep_all),
+                                     v=np.stack([x, y, z, ih]))
+        assert got.tolist() == ([True] * 9 if keep_all else
+                                [True] * 3 + [False] + [True] * 5)
 
 
 def test_structure_threads_bf16_to_the_sweeps_not_pass2(monkeypatch):

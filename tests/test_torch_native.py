@@ -22,7 +22,7 @@ from planetmodel_sph_tpu_torch.runtime import snapshot as tsnap
 from planetmodel_sph_tpu_torch.state import from_numpy
 from planetmodel_sph_tpu_torch.utils import checkpoint
 
-from test_torch_snapshot import _arrays
+from test_torch_snapshot import _arrays, native_lib  # noqa: F401
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="g++ is absent: the native PSPH1 "
@@ -68,7 +68,7 @@ def test_native_and_numpy_writers_give_the_same_bytes(lib, n, tmp_path):
             np.testing.assert_array_equal(got[k], v, k)
 
 
-def test_reference_reads_the_native_files(lib, tmp_path):
+def test_reference_reads_the_native_files(lib, native_lib, tmp_path):
     arrays = _arrays(seed=5)
     path = str(tmp_path / "port.psph")
     checkpoint.save(path, from_numpy(arrays, device="cpu"),

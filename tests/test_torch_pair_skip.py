@@ -642,14 +642,17 @@ def test_pass1_non_finite_field_reaches_as_in_the_plain_version(field,
 
 def test_gravity_softening_propagates_a_nan_ih():
     """pass2.cu softens with psph_min (min.NaN.f32), NaN when either ih
-    is, as the plain version's torch.minimum; common.cuh's P2P window
-    (p2p, gravity_fused) calls the same."""
+    is, as the plain version's torch.minimum; the P2P windows of p2p.cu
+    and gravity_fused.cu's near tier call the same."""
     nan = np.float32(np.nan)
     got = P2_SOFTENING(ih=np.array([1.0, nan, 2.0], np.float32),
                        jh=np.array([nan, 1.0, 3.0], np.float32))
     assert np.isnan(got[:2]).all() and got[2] == 2.0
     common = _source("common.cuh")
-    assert "RECV ? ih : psph_min(ih, c[3][j])" in common
+    assert "RECV ? ih[u] : psph_min(ih[u], jh)" in _source("p2p.cu")
+    near = _source("gravity_fused.cu")
+    assert "RECV ? ih : psph_min(ih, cih[j])" in near
+    assert "RECV ? ih : psph_min(ih, cih[jb])" in near
     assert 'asm("min.NaN.f32' in common
     for name in ("common.cuh", "pass2.cu"):
         assert "fminf(ih" not in _source(name), name
@@ -658,11 +661,14 @@ def test_gravity_softening_propagates_a_nan_ih():
 
 
 def test_the_r_guard_keeps_a_nan_r2():
-    """Every gravity sweep guards r = 0 with rsqrtf(psph_max(r2, 1e-30f)):
+    """Every gravity sweep guards r = 0 with rsqrtf(psph_max(r2, 1e-30f))
+    or, where the bare instruction stands in for rsqrtf (past the floor
+    no denormal is left to scale), psph_rsqrt_ftz(psph_max(r2, 1e-30f)):
     max.NaN.f32 keeps a NaN r2 (a NaN position) as the plain versions'
     torch.clamp does, where fmaxf would return 1e-30 and a finite
-    potential; for every other r2 the two give the same bits. p2p.cu and
-    pairwise_pass1.cu take it through psph_p2p_pair; pairwise_pass1.cu's
+    potential; for every other r2 the two give the same bits. p2p.cu,
+    gravity_fused.cu's near tier and pairwise_pass1.cu take it through
+    psph_p2p_pair, the bf16 pairs through psph_bf_geometry; pairwise_pass1.cu's
     other 1/r, from its q^2 test's s2 = r2 ihm^2 without the guard,
     reaches only the pairs the test skips (s2 > 4: never 0, a denormal or
     NaN), through selects that give every other pair 0."""
@@ -670,13 +676,27 @@ def test_the_r_guard_keeps_a_nan_r2():
             if n.endswith((".cu", ".cuh"))}
     for name, src in srcs.items():
         assert "fmaxf(r2" not in src, name
+    guard = re.compile(r"(rsqrtf|psph_rsqrt_ftz)\(\s*psph_max\((r2|psph_r2_rn"
+                       r"\([^)]*\)), 1e-30f\)\)")
     for name in ("common.cuh", "pass2.cu", "gravity_fused.cu"):
-        assert "rsqrtf(psph_max(r2, 1e-30f))" in srcs[name], name
+        assert guard.search(srcs[name]), name
     body = re.search(r"void psph_p2p_pair\(.*?\n}\n", srcs["common.cuh"],
                      re.S)
-    assert body and "rsqrtf(psph_max(r2, 1e-30f))" in body.group(0)
-    for name in ("p2p.cu", "pairwise_pass1.cu"):
+    assert body and guard.search(body.group(0))
+    # in gravity_fused.cu every 1/r is guarded: the f32 and bf16 monopoles
+    grav = re.sub(r"//[^\n]*", "", srcs["gravity_fused.cu"])
+    assert len(guard.findall(grav)) == grav.count("rsqrt") == 2
+    for name in ("p2p.cu", "pairwise_pass1.cu", "gravity_fused.cu"):
         assert "psph_p2p_pair(" in srcs[name], name
+    # the bf16 pairs' geometry keeps the same guard
+    geo = re.search(r"PsphBfPair psph_bf_geometry\(.*?\n}\n",
+                    srcs["common.cuh"], re.S)
+    assert geo and guard.search(geo.group(0))
+    # the synchronous window sweep and the one-pair bf16 body are gone:
+    # every gravity pair goes through the bodies above
+    for name, src in srcs.items():
+        assert "psph_p2p_window" not in src, name
+        assert "psph_dyer_ip_bf16" not in src, name
     pw1 = srcs["pairwise_pass1.cu"]
     far = re.search(r"const bool skip = (s2 > PSPH_Q2_SKIP);", pw1)
     assert far and "const float inv_r = psph_rsqrt_ftz(s2) * ihm;" in pw1

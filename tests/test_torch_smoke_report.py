@@ -34,6 +34,22 @@ def _smoke():
 
 cs = _smoke()
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch thread: torch.sqrt on the CPU is MKL's vector math,
+    which picks its code path at its first call in a process, and a first
+    call made from several threads at once (a tensor torch splits, here
+    the [3, 8, 256] pairs) has computed one thread's share on another
+    path (2,045 of 6,144 square roots differed from a second call, in 3
+    of 352 fresh processes on a loaded 8-core host), enough to move a
+    count at the planted q = 2 pairs. A call on one thread takes one
+    path."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 LOG = """ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_Z12pass2_kernelILi0ELb0ELb1ELb1ELi2ELb0ELb1EEv9Pass2Args' for 'sm_90a'
 ptxas info    : Function properties for _Z12pass2_kernelILi0ELb0ELb1ELb1ELi2ELb0ELb1EEv9Pass2Args
@@ -310,6 +326,30 @@ def test_nan_agreement_of_the_filter_and_gravity():
          tuple(_t(far)), torch.from_numpy(acc))
     msg, reached = cs.nan_agreement("gravity_fused", a, {"b": B})
     assert msg is None and set(reached) == {"m", "ih"}
+
+
+@pytest.mark.parametrize("receiver", [False, True],
+                         ids=["min_h", "receiver_h"])
+def test_nan_agreement_plants_the_near_tiers_dead_slot(receiver):
+    """With a near tier gravity_fused also plants NaNs in a dead slot (m =
+    0) of its P2P window, which the near tier's compaction must keep: a
+    NaN x reaches the plain version's outputs (m/r = 0 x NaN), a NaN ih
+    (min-h softening only) gives x = NaN, the outer branch and m/r = 0,
+    and is reported masked."""
+    nv, tgt, ring, far, acc = _grav_inputs(2, 4)
+    nvp, _, src = _case(2)
+    prow = [src[0], src[1], src[2], src[4]] if receiver else src
+    a = (torch.from_numpy(nv), tuple(_t(tgt)), tuple(_t(ring)),
+         tuple(_t(far)), torch.from_numpy(acc))
+    kw = dict(b=B, nv_p2p=torch.from_numpy(nvp), p2p_rows=_t(prow),
+              receiver_soft=receiver)
+    msg, reached = cs.nan_agreement("gravity_fused", a, kw)
+    assert msg is None
+    assert set(reached) == {"m", "ih", "dead near x"} | (
+        set() if receiver else {"dead near ih"})
+    assert reached["m"] and reached["dead near x"]
+    assert not reached.get("dead near ih", False)
+    assert all(bool(torch.isfinite(t).all()) for t in kw["p2p_rows"])
 
 
 def test_library_routes_a_kernel_and_restores_it(monkeypatch):

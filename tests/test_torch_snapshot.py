@@ -38,11 +38,24 @@ def _arrays(n=300, seed=0):
 
 
 @pytest.fixture(scope="module")
-def native_lib():
-    lib = native.load()
-    if lib is None:
-        pytest.fail("the JAX package's native PSPH1 library did not build")
-    return lib
+def native_lib(tmp_path_factory):
+    """The JAX package's native PSPH1 library, built for this test process
+    alone. Its loader compiles straight into one file beside its source,
+    and after a failed load never tries again: test processes that start
+    at once (pytest-xdist) load a file that another one is still writing
+    and lose the library ("native runtime unavailable"). Here it builds
+    into a directory of this process's own, and the loader's state is
+    restored afterwards."""
+    path = str(tmp_path_factory.mktemp("jax_native") / "_psph_io.so")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "lib_path", lambda: path)
+        mp.setattr(native, "_LIB", None)
+        mp.setattr(native, "_TRIED", False)
+        lib = native.load()
+        if lib is None:
+            pytest.fail("the JAX package's native PSPH1 library did not "
+                        "build")
+        yield lib
 
 
 def test_port_writes_jax_reads(tmp_path, native_lib):

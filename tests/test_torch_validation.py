@@ -33,6 +33,7 @@ from planetmodel_sph_tpu_torch.tools import drift100k as tdrift
 from planetmodel_sph_tpu_torch.tools import drift_probe as tprobe
 from planetmodel_sph_tpu_torch.tools import equilibrium_run as teq
 from planetmodel_sph_tpu_torch.tools import rotating_l_check as trot
+from test_torch_snapshot import native_lib  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R5 = os.path.join(ROOT, "docs", "results", "drift100k_r5ship")
@@ -150,8 +151,10 @@ DRIVE = ["--settle", "0", "--target", "16", "--chunk", "8", "--set",
          f"n={SMALL_N}"]
 
 
-def test_drift_tool_matches_the_reference(small, tmp_path, monkeypatch,
-                                            capsys):
+def test_drift_tool_matches_the_reference(small, native_lib, tmp_path,
+                                            monkeypatch, capsys):
+    # native_lib: the reference reads and writes its checkpoints through
+    # the JAX package's native library, built for this process alone
     ref = _root_tool("drift100k", monkeypatch)
     out = {w: str(tmp_path / w) for w in ("ref", "port")}
     for d in out.values():
