@@ -34,8 +34,11 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    production form (``filter_sph``, ``pass1_gradh``, the merged grad-h
    ``pass2``, the far-only ``gravity_fused``) and under `sym100k`'s step
    (``pass1_sym``, ``pass2``, ``p2p``, ``gravity_fused`` with its near
-   tier), b = 1024 for ``filter_sph``'s second word of boxes, and b = 33
-   for ``p2p``'s one-target tail; and the bf16 instances
+   tier), b = 1024 for ``filter_sph``'s second word of boxes, b = 33
+   for ``p2p``'s one-target tail, and b = 9,821 and 16,384 for
+   ``filter_sph``'s tiled path (a group past one block's shared memory
+   cut into tiles, one block a group and tile in one grid, their masks
+   ORed); and the bf16 instances
    (``grav_pair_dtype="bfloat16"``), each a twin of an f32 case on the
    same inputs with ``bf16=True`` against its plain bf16 version:
    ``p2p`` min-h and ``receiver_h`` at `sym100k` and at b = 33, and
@@ -146,7 +149,12 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    included), `unsorted100k` (the production step with
    ``sorted_chunks=False``, 64 steps, held against the sorted main path's
    state at rtol 2e-5, atol 1e-6, counts equal) and `dense3k_k4`
-   (``jupiter_3k`` at n = 3000 with rebuild_every=4, 200 steps);
+   (``jupiter_3k`` at n = 3000 with rebuild_every=4, 200 steps); and
+   (5g) ``cli run --debug-nans``: the settled state's 64-step run without
+   the flag, with, with, without, the same bits, launches and overflow 0
+   with both walls printed, then the state with one NaN mass, which must
+   stop with a ``FloatingPointError`` naming a field, a step and the first
+   op or kernel, and write no checkpoint;
 6. small input: the 2048 innermost particles run 8 steps of the cached
    pipeline and 8 of the unfused symmetric one, and 512 particles from
    ``ics.jupiter`` 8 steps of the dense one, on the card and on the CPU
@@ -160,7 +168,8 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    DIR's six redesigned kernels (``pass1_gradh``, ``pass1_sym``,
    ``pass2``, ``gravity_fused``, ``filter_sph``, ``p2p``) and its two
    all-pairs kernels and its ``probe_pass1_tile`` into DIR's own build
-   directory, phase 4 times them and this checkout's in turns (parent,
+   directory (``filter_sph``'s one-block instances must have DIR's SASS,
+   instruction for instruction, ``cuobjdump``), phase 4 times them and this checkout's in turns (parent,
    this, this, parent) on each case's inputs (a bf16 case its bf16
    instances; ``gravity_fused``'s and ``p2p``'s cases each turn's device
    ms too; the all-pairs kernels each
@@ -235,7 +244,12 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    path at n = 3000 and 10,000, the grid path at 30,000 and 100,000),
    ``neighbors_of`` (no true neighbour missing), ``span_stats``, one
    ``ksweep`` and one ``ksweep2`` variant, ``micro_gather``: exit 0 and
-   their table lines.
+   their table lines; then ``profile_block --ck <state> --k 4`` (every
+   stage label of the reference's, with a finite checksum),
+   ``trace_run --steps 16`` (its trace under ``chiprun_out/tools/trace``)
+   and ``trace_summary --by-category`` on it (eight categories that sum
+   to its total, hand kernels among them, and the idle share of the
+   traced window and of the untraced run).
 
 ``--halo-only`` runs phases 1, 2, 10 and 11 alone (a trial: no kernel
 line, no final line). ``--only gravity_fused,p2p`` (any windowed kernels)
@@ -252,6 +266,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import glob
 import itertools
 import json
 import math
@@ -313,7 +328,8 @@ BASALT100K_STEPS = 16
 # the supergroup far tier on sym100k
 SG_KW = dict(sg_blocks=4, blk_window=768)
 # group sizes past the windowed kernels' old limits of 256 targets (and
-# 512 boxed targets for filter_sph) and an odd one for p2p: (b, nbr_sub,
+# 512 boxed targets and one block's shared memory for filter_sph) and an
+# odd one for p2p: (b, nbr_sub,
 # the leg's settings, the windows' first growth, (kernel, case) checked)
 GROUP_SIZE_LEGS = (
     (512, 32, {}, 2, (("filter_sph", "filter"), ("pass1_gradh", "grad_h"),
@@ -324,6 +340,11 @@ GROUP_SIZE_LEGS = (
                           ("gravity_fused", "near+min_h"))),
     (1024, 32, {}, 3, (("filter_sph", "filter"),)),
     (33, 11, SYM_KW, 1, (("p2p", "min_h"),)),
+    # past one block's shared memory (groups2.FILTER_MAX_GROUP = 9,820):
+    # the tiled path (groups2.filter_tiles: 14 tiles of 704 and 32 of 512
+    # on 132 multiprocessors; 9,821 = 7 * 23 * 61)
+    (9821, 61, {}, 3, (("filter_sph", "filter"),)),
+    (16384, 32, {}, 4, (("filter_sph", "filter"),)),
 )
 GROW_WINDOWS = ("nbr_window", "sph_refined_window", "p2p_window",
                 "m2p_window")
@@ -355,6 +376,9 @@ FMA_RTOL = 1e-4
 TILE_TOL = 1e-5
 # elements of one [groups, B, S] intermediate of a sliced plain version
 SLICE_ELEMS = SLICE_GROUPS * 64 * 2560
+# and of the filter's models (bound, shares): the production filter's
+# 256 groups of 64 targets by 7,680 slots
+FILTER_MODEL_ELEMS = SLICE_GROUPS * 64 * 7680
 
 # published peaks of one H100 SXM (dense, no sparsity): f32 outside the
 # tensor cores and HBM3 bandwidth
@@ -838,8 +862,9 @@ def group_size_cases(cfg, state):
     ``gravity_fused``: two blocks a group) and under `sym100k`'s unfused
     symmetric step (``pass1_sym``, ``pass2``, ``p2p``, and
     ``gravity_fused`` with its near tier), b = 1024 for ``filter_sph``'s
-    second word of boxes, and b = 33 (sub-blocks of 11) under `sym100k`
-    for ``p2p``'s odd tail. No leg launches them."""
+    second word of boxes, b = 33 (sub-blocks of 11) under `sym100k` for
+    ``p2p``'s odd tail, and b = 9,821 (sub-blocks of 61) and 16,384 for
+    ``filter_sph``'s tiled path. No leg launches them."""
     from planetmodel_sph_tpu_torch.models import planet
     from planetmodel_sph_tpu_torch.ops import structure
     for b, sub, kw, grow, kernels in GROUP_SIZE_LEGS:
@@ -916,12 +941,47 @@ def slice_groups(a, kw):
     return max(1, min(SLICE_GROUPS, SLICE_ELEMS // (kw["b"] * widest)))
 
 
+def _slot_slices(groups, b, s, elems):
+    """[s0, s1) slices of a window's S slots such that [groups, b, slots]
+    stays at `elems` elements (one slice when it does whole)."""
+    step = max(1, elems // (groups * b))
+    return [(s0, min(s, s0 + step)) for s0 in range(0, s, step)]
+
+
+def _slot_cut(nv, rows, s0, s1):
+    """nv and window rows restricted to the slots [s0, s1)."""
+    import torch
+    return (torch.clamp(nv - s0, 0, s1 - s0).to(nv.dtype),
+            type(rows)(r[:, s0:s1].contiguous() for r in rows))
+
+
+def filter_plain(nv, tgt, src):
+    """``filter_sph_plain``, a slice of slots at a time where a group's
+    [B, S] intermediates would not fit (b = 16,384 takes some 150,000
+    candidate slots: 10 GB an intermediate whole); the mask of a slot
+    depends on its own column alone."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    g, s = src[0].shape
+    parts = []
+    for s0, s1 in _slot_slices(g, tgt[0].shape[0] // g, s, SLICE_ELEMS):
+        nv_c, rows = _slot_cut(nv, src, s0, s1)
+        parts.append(gk2.filter_sph_plain(nv_c, tgt, rows))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def plain_fn(name):
+    """A windowed kernel's plain version (the filter's slot-sliced)."""
+    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
+    return filter_plain if name == "filter_sph" else getattr(
+        gk2, name + "_plain")
+
+
 def plain_sliced(name, a, kw):
     """The plain version over every group, a slice of groups at a time
     (its [G, B, S] intermediates would not fit whole)."""
     import torch
-    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
-    fn = getattr(gk2, name + "_plain")
+    fn = plain_fn(name)
     g = n_groups(a)
     step = slice_groups(a, kw)
     parts = []
@@ -995,9 +1055,9 @@ def device_ms(fn, reps=DEVICE_REPS, tries=3):
     kernels it launched, from torch.profiler over `reps` calls (one
     warm-up call first), divided by `reps`. Beside cuda_ms, which runs
     from before the wrapper's host work to after the kernel, it tells the
-    kernel's own time from the host's. A trace that holds no kernel is
-    taken again, up to `tries` times; then the time is None (not
-    measured), never 0."""
+    kernel's own time from the host's. A trace whose averages hold no
+    device time is taken again, up to `tries` times; then the last one's
+    Chrome trace is read (:func:`trace_device_ms`). Never 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1012,6 +1072,32 @@ def device_ms(fn, reps=DEVICE_REPS, tries=3):
                  if ev.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / reps / 1e3
+    return trace_device_ms(prof, reps)
+
+
+def trace_device_ms(prof, reps):
+    """The device ms a call of a profile whose ``key_averages`` held no
+    device time, summed over the device ops of its exported Chrome trace
+    (``tools.trace_summary``), or None (not measured) when the trace holds
+    none either; prints which, and what the trace holds."""
+    import tempfile
+    from planetmodel_sph_tpu_torch.tools import trace_summary
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        events = trace_summary.load(path)
+    ops, total, _, _ = trace_summary.summarise(events)
+    if total > 0:
+        names = ", ".join(sorted(n.removeprefix("void ").split("(")[0]
+                                 for n in ops))
+        print(f"  device_ms from the Chrome trace: its averages held no "
+              f"device time, the trace {len(ops)} device ops ({names}), "
+              f"{total / reps / 1e3:.4f} ms a call", flush=True)
+        return total / reps / 1e3
+    cats = sorted({str(e.get("cat")) for e in events})
+    print(f"  device_ms not measured: neither the averages nor the Chrome "
+          f"trace hold a device op ({len(events)} events, categories "
+          f"{cats})", flush=True)
     return None
 
 
@@ -1084,19 +1170,31 @@ def _filter_ops(a):
     g, s = src[0].shape
     b = tgt[0].shape[0] // g
     tests = 0
-    for g0, g1 in _group_slices(g, _step(b, s)):
+    for g0, g1, nv_c, rows in _filter_slices(nv, b, src):
         tx, ty, tz, tc, tsk = (c[g0 * b:g1 * b].reshape(g1 - g0, b, 1)
                                for c in tgt)
-        sx, sy, sz, sc, ssk, sm = (r[g0:g1, None, :] for r in src)
+        sx, sy, sz, sc, ssk, sm = (r[:, None, :] for r in rows)
         dxx, dxy, dxz = tx - sx, ty - sy, tz - sz
         r2 = dxx * dxx + dxy * dxy + dxz * dxz
         cut = torch.maximum(tc, sc) + tsk + ssk
         hit = r2 < cut * cut
         first = torch.where(hit.any(dim=1),
                             hit.int().argmax(dim=1) + 1, b)
-        live = _live(nv[g0:g1], sm)[:, 0, :]
+        live = _live(nv_c, sm)[:, 0, :]
         tests += int(torch.where(live, first, 0).sum())
     return OPS_FILTER * tests + OPS_SLOT_TEST * _slots_below_nv(nv, s)
+
+
+def _filter_slices(nv, b, src):
+    """(g0, g1, nv, rows) of the filter's models: slices of groups
+    (``_step``), each in slices of its slots where one group's [B, S]
+    intermediates would not fit (``_slot_slices``); nv and the rows cut to
+    them."""
+    g, s = src[0].shape
+    for g0, g1 in _group_slices(g, _step(b, s)):
+        rows = [r[g0:g1] for r in src]
+        for s0, s1 in _slot_slices(g1 - g0, b, s, FILTER_MODEL_ELEMS):
+            yield (g0, g1, *_slot_cut(nv[g0:g1], rows, s0, s1))
 
 
 def _pass1_ops(a):
@@ -1598,6 +1696,52 @@ def ptxas_instances(log):
     return out
 
 
+def one_block_sass(lib):
+    """{WIDE: [instruction, ...]} of filter_sph.cu's one-block instances
+    (no TILED argument, or 0) in a library's SASS (``cuobjdump -sass``):
+    each instruction's text, without its address and encoding."""
+    import re
+    from planetmodel_sph_tpu_torch.ops.cuda import build
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True).stdout
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            args = [int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1))]
+            cur = None
+            if "filter_sph_kernel" in m.group(1) and (
+                    len(args) == 1 or args[1:] == [0]):
+                cur = out.setdefault(args[0], [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(.*?)\s*;", ln)
+        if m and cur is not None:
+            cur.append(m.group(1))
+    return out
+
+
+def sass_against_parent(parent_lib):
+    """filter_sph's one-block instances here against the parent's
+    (``--parent``): (report {WIDE: dict(instructions, parent, same)},
+    failures). The tiled path must leave them as they were."""
+    from planetmodel_sph_tpu_torch.ops.cuda import build
+    mine = one_block_sass(build.lib_path("filter_sph"))
+    theirs = one_block_sass(parent_lib)
+    rep = {w: dict(instructions=len(mine.get(w, [])),
+                   parent=len(theirs.get(w, [])),
+                   same=bool(mine.get(w)) and mine.get(w) == theirs.get(w))
+           for w in sorted(set(mine) | set(theirs))}
+    for w, r in rep.items():
+        print(f"  sass filter_sph one-block WIDE={w}: {r['instructions']} "
+              f"instructions, the parent's {r['parent']}, the same: "
+              f"{r['same']}", flush=True)
+    bad = [w for w, r in rep.items() if not r["same"]]
+    return rep, ([f"filter_sph's one-block SASS (WIDE={bad}) differs from "
+                  "the parent's"] if bad or len(rep) != 2 else [])
+
+
 def sass_pair_loops(sass):
     """probe_pass1_tile's sweep loops in its SASS (``cuobjdump -sass``):
     {kernel instance: [(instructions a live pair, exact)]}, one entry per
@@ -1643,11 +1787,18 @@ def instance_key(name, kw, a=None):
     energy, as pass2.cu orders them; gravity_fused: its near tier 0/1/2,
     the moment fields of the ring rows `a[2]` and bf16 0/1; p2p: receiver
     softening 0/1 and bf16 0/1; filter_sph: more than 32 boxes of 16
-    targets a group, 0/1;
+    targets a block, 0/1, and the tiled path, 0/1 (a tile's targets as
+    the wrapper cuts them, ``groups2.filter_tiles``);
     pass1_gradh and pass1_sym have none)."""
     from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
     if name == "filter_sph":
-        return (name, (int(kw["b"] > 32 * 16),))
+        b, tiled = kw["b"], kw["b"] > gk2.FILTER_MAX_GROUP
+        if tiled:
+            import torch
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            _, b = gk2.filter_tiles(b, n_groups(a),
+                                    gk2.FILTER_BLOCKS_PER_SM * sms)
+        return (name, (int(b > 32 * 16), int(tiled)))
     bf16 = int(bool(kw.get("bf16")))
     if name == "gravity_fused":
         near = (2 if kw.get("receiver_soft") else 1) \
@@ -1727,12 +1878,12 @@ def _filter_shares(a, kw):
     pad = nbox * size - b
     nan = float("nan")
     live_n = kept = rejected = boxes = tests = charged = 0
-    for g0, g1 in _group_slices(g, _step(b, s)):
-        gs = g1 - g0
+    for g0, g1, nv_c, rows in _filter_slices(nv, b, src):
+        gs, s = g1 - g0, rows[0].shape[1]
         tx, ty, tz, tc, tsk = (c[g0 * b:g1 * b].reshape(gs, b, 1)
                                for c in tgt)
-        sx, sy, sz, sc, ssk, sm = (r[g0:g1, None, :] for r in src)
-        live = _live(nv[g0:g1], sm)[:, 0, :]
+        sx, sy, sz, sc, ssk, sm = (r[:, None, :] for r in rows)
+        live = _live(nv_c, sm)[:, 0, :]
         dxx, dxy, dxz = tx - sx, ty - sy, tz - sz
         r2 = dxx * dxx + dxy * dxy + dxz * dxz
         cut = torch.maximum(tc, sc) + tsk + ssk
@@ -1897,11 +2048,10 @@ def _filter_plantings(a, kw):
     test (the planted slot, or every slot of the group), and a NaN m fails
     m > 0."""
     import torch
-    from planetmodel_sph_tpu_torch.ops.cuda import groups2 as gk2
     b = kw["b"]
     nv, tgt, src = a
     for g0, g1 in _group_slices(n_groups(a), slice_groups(a, kw)):
-        keep = gk2.filter_sph_plain(*slice_args(a, kw, g0, g1)[0])
+        keep = filter_plain(*slice_args(a, kw, g0, g1)[0])
         groups = torch.nonzero(keep.any(dim=1))
         if len(groups):
             gi = g0 + int(groups[0])
@@ -2024,13 +2174,13 @@ def nan_agreement(name, a, kw):
         out = tuple(o[gi:gi + 1] if rows_out else o[gi * b:(gi + 1) * b]
                     for o in out)
         sa, skw = slice_args(pa, pkw, gi, gi + 1)
-        ref = getattr(gk2, name + "_plain")(*sa, **skw)
+        ref = plain_fn(name)(*sa, **skw)
         ref = ref if isinstance(ref, tuple) else (ref,)
         msg = non_finite_agree(out, ref)
         if msg:
             return f"{label}: {msg}", reached
         if rows_out:
-            base = getattr(gk2, name + "_plain")(
+            base = plain_fn(name)(
                 *slice_args(a, kw, gi, gi + 1)[0])
             reached[label] = not torch.equal(ref[0], base)
         else:
@@ -2393,16 +2543,26 @@ def check_modes(cases, ptxas=None, parent_libs=None, only=None):
     """Phase 4 for every other mode of the windowed kernels (of `only`,
     where given). Returns ([report], failures)."""
     reports, failures = [], []
+    t_next = time.perf_counter()
     for name, case, legs, a, kw in cases:
         if only is not None and name not in only:
+            t_next = time.perf_counter()
             continue
+        t0 = time.perf_counter()
         rep = check_one(name, case, a, kw, ptxas, parent_libs)
         rep["legs"] = list(legs)
+        # the wall of making the case's inputs and of its checks
+        rep["wall_s"] = dict(inputs=t0 - t_next,
+                             checks=time.perf_counter() - t0)
+        if sum(rep["wall_s"].values()) >= 5:
+            print(f"  {name} [{case}]: inputs {rep['wall_s']['inputs']:.1f}"
+                  f" s, checks {rep['wall_s']['checks']:.1f} s", flush=True)
         reports.append(rep)
         if not rep["ok"]:
             failures.append(f"{name} [{case}]: disagrees with its plain "
                             "version")
         del a, kw
+        t_next = time.perf_counter()
     want = {("filter_sph", "sym100k"), ("filter_sph", "settle100k"),
             ("pass1_gradh", "settle100k"),
             ("pass1_sym", "symmetric"), ("p2p", "min_h"),
@@ -3820,6 +3980,125 @@ def counted_run(label, module, args, timeout=900, logdir=LONG_DIR):
                 out=r.stdout, err_tail=r.stderr[-2000:])
 
 
+DEBUG_NANS_DIR = os.path.join(OUT_DIR, "debug_nans")
+DEBUG_NANS_STEPS = 64     # two diagnostics chunks of 32: phase 5's cell
+NAN_PARTICLE = 12345      # the particle whose mass phase 5g makes NaN
+
+
+def _cli_in_process(args):
+    """``cli.main(args)`` in this process, its stderr captured and its
+    launches counted from 0: (exit code, stderr, wall s, launches)."""
+    import contextlib
+    import io
+    import torch
+    from planetmodel_sph_tpu_torch import cli
+    from planetmodel_sph_tpu_torch.ops.cuda import launch
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(buf):
+        try:
+            rc = cli.main(args)
+        except Exception:               # noqa: BLE001 - reported, fails
+            rc = 1
+            traceback.print_exc()
+    torch.cuda.synchronize()
+    return (rc, buf.getvalue(), time.perf_counter() - t0,
+            {k: v for k, v in launch.LAUNCHES.items() if v})
+
+
+def debug_nans_phase(card):
+    """Phase 5g: ``cli run --debug-nans`` on the card. The settled state's
+    64-step production run (``--restore``, diagnostics every 32 steps) in
+    this process, after a warm-up run, without the flag, with, with,
+    without: the same bits (its npz checkpoints equal), the same launches,
+    overflow 0, each run's own "steps in" wall and the call's wall (the
+    state's load included, the same in all four) printed. Then the same
+    state with one mass made NaN: the ``FloatingPointError`` (a non-zero
+    exit from ``python -m``) naming a field, a step and the first op or
+    kernel, and no checkpoint. Returns (report, failures)."""
+    import re
+    import numpy as np
+    from planetmodel_sph_tpu_torch.utils import checkpoint
+    shutil.rmtree(DEBUG_NANS_DIR, ignore_errors=True)
+    os.makedirs(DEBUG_NANS_DIR)
+    print(f"phase 5g (--debug-nans) on {card}", flush=True)
+    t_all = time.perf_counter()
+    base = ["run", "--restore", STATE, "--steps", str(DEBUG_NANS_STEPS),
+            "--diag-every", "32"]
+    runs, fails = [], []
+    _cli_in_process(base)               # a warm-up, its numbers not kept
+    for k, flag in enumerate((False, True, True, False)):
+        ck = os.path.join(DEBUG_NANS_DIR, f"run{k}.npz")
+        m = os.path.join(DEBUG_NANS_DIR, f"run{k}.jsonl")
+        rc, err, wall, launches = _cli_in_process(
+            base + ["--checkpoint", ck, "--metrics-jsonl", m]
+            + (["--debug-nans"] if flag else []))
+        said = re.search(r"(\d+) steps in ([\d.]+)s", err)
+        rows = [json.loads(ln) for ln in open(m)] if os.path.exists(m) \
+            else []
+        over = {key: sum(int(r.get(key, 0)) for r in rows)
+                for key in ("nbr_overflow", "tree_overflow")}
+        r = dict(debug_nans=flag, rc=rc, wall_s=wall,
+                 run_s=float(said.group(2)) if said else None,
+                 launches=launches, overflow=over, checkpoint=ck)
+        runs.append(r)
+        print(f"  {'with' if flag else 'without'} --debug-nans: exit {rc}, "
+              f"{DEBUG_NANS_STEPS} steps in {r['run_s']} s (the call "
+              f"{wall:.4f} s with the state's load), launches {launches}, "
+              f"overflow {over}", flush=True)
+        if (rc != 0 or any(over.values()) or not os.path.exists(ck)
+                or r["run_s"] is None):
+            fails.append(f"phase 5g run {k} (--debug-nans {flag}): exit "
+                         f"{rc}, overflow {over}: {err[-500:]}")
+    if not fails:
+        ref = np.load(runs[0]["checkpoint"])
+        for k, r in enumerate(runs[1:], 1):
+            z = np.load(r["checkpoint"])
+            r["same_bits"] = sorted(z.files) == sorted(ref.files) and all(
+                np.array_equal(ref[f], z[f]) for f in ref.files)
+            if not r["same_bits"] or r["launches"] != runs[0]["launches"]:
+                fails.append(f"phase 5g run {k}: same bits "
+                             f"{r['same_bits']}, launches {r['launches']} "
+                             f"against {runs[0]['launches']}")
+        with_s = [r["wall_s"] for r in runs if r["debug_nans"]]
+        without_s = [r["wall_s"] for r in runs if not r["debug_nans"]]
+        print(f"  same bits and launches in all four: {not fails}; the "
+              f"calls' walls with {[round(x, 4) for x in with_s]}, without "
+              f"{[round(x, 4) for x in without_s]} s "
+              f"({sum(with_s) / sum(without_s):.3f}x)", flush=True)
+    state, cfg, step = checkpoint.load(STATE, device="cpu")
+    state.mass[NAN_PARTICLE] = float("nan")
+    bad = os.path.join(DEBUG_NANS_DIR, "nan_mass.npz")
+    never = os.path.join(DEBUG_NANS_DIR, "never.npz")
+    checkpoint.save(bad, state, cfg, step)
+    rc, err, wall, launches = _cli_in_process(
+        base[:2] + [bad] + base[3:] + ["--debug-nans", "--checkpoint",
+                                       never])
+    with open(os.path.join(DEBUG_NANS_DIR, "nan_mass.log"), "w") as f:
+        f.write(err)
+    msg = [ln for ln in err.splitlines()
+           if ln.startswith("FloatingPointError")]
+    nan_run = dict(rc=rc, wall_s=wall, launches=launches,
+                   message=msg[-1] if msg else None)
+    print(f"  planted NaN mass (particle {NAN_PARTICLE}): exit "
+          f"{nan_run['rc']}, {nan_run['message']} ({nan_run['wall_s']:.1f}"
+          " s)", flush=True)
+    m = nan_run["message"] or ""
+    if (nan_run["rc"] == 0 or "NaN in the state's" not in m
+            or "step" not in m or "came out of" not in m
+            or os.path.exists(never)):
+        fails.append(f"phase 5g planted NaN: exit {nan_run['rc']}, message "
+                     f"{m!r}, checkpoint written {os.path.exists(never)}")
+    for f in glob.glob(os.path.join(DEBUG_NANS_DIR, "*.npz")):
+        os.remove(f)            # 12 MB each: the logs and report stay
+    rep = dict(runs=runs, nan_run=nan_run,
+               total_s=time.perf_counter() - t_all)
+    print(f"phase 5g: {rep['total_s']:.1f} s", flush=True)
+    return rep, fails
+
+
 def _http(port, path, payload=None):
     import urllib.request
     req = urllib.request.Request(
@@ -4431,6 +4710,7 @@ def dp_failures(rep):
 
 HALO_DIR = os.path.join(OUT_DIR, "halo")
 TOOLS_DIR = os.path.join(OUT_DIR, "tools")
+TRACE_DIR = os.path.join(TOOLS_DIR, "trace")     # phase 11's trace_run
 TOOLS_PKG = "planetmodel_sph_tpu_torch.tools."
 # the halo step's kernels: the production set, and p2p (the collision's
 # configuration leaves the fusion flags at False: an unfused near tier)
@@ -4716,7 +4996,62 @@ A8_TOOLS = (
                           "same, Morton-local ids",
                           "take_along_axis [2067,5120]->[,512] x6",
                           "entry-gather [4134,160] (640B rows)")),
+    # the trace and stage tools: the reference's stage labels, a traced
+    # production chunk and its device time by category
+    ("profile_block", ["--ck", STATE, "--k", "4"],
+     ("n=100000  bsz=64", "groups=2067")),
+    ("trace_run", ["--ck", STATE, "--steps", "16", "--out", TRACE_DIR],
+     ("warm:", "trace ->", "total device self time:",
+      "of the traced window", "of the untraced run")),
+    ("trace_summary", [TRACE_DIR, "--by-category"],
+     ("total device self time:", "of the traced window",
+      "of the untraced run")),
 )
+# the stage labels of the reference's tools/profile_block.py, each of
+# which must begin a line of the port's
+PROFILE_BLOCK_STAGES = (
+    "forces (full)", "build", "prep (sorts)", "sph rows gather (geom x5)",
+    "window gather (p2p geom x5)", "h-solve (newton, throwaway build)",
+    "pass1 kernel", "pass2 kernel", "p2p kernel",
+    "unsort (inverse-perm gather x3)")
+
+
+def trace_categories(lines):
+    """(total ms, {category: ms}) of ``trace_summary --by-category``'s
+    printout."""
+    import re
+    total, cats = None, {}
+    for ln in lines:
+        m = re.match(r"total device self time: ([\d.]+) ms", ln)
+        if m:
+            total = float(m.group(1))
+        m = re.match(r"\s*([\d.]+) ms\s+[\d.]+%\s+(.+)$", ln)
+        if m:
+            cats[m.group(2)] = float(m.group(1))
+    return total, cats
+
+
+def tools_a8_checks(name, lines):
+    """What phase 11 holds beyond a tool's lines: every stage label of the
+    reference's profile_block beginning a line, with a finite checksum;
+    trace_summary's eight categories summing to its total (each rounded
+    to 1e-3 ms), with device time and hand kernels in it."""
+    import re
+    if name == "profile_block":
+        bad = []
+        for label in PROFILE_BLOCK_STAGES:
+            hit = [ln for ln in lines if ln.startswith(label + " ")]
+            m = hit and re.search(r"checksum (\S+)\)", hit[0])
+            if not m or not math.isfinite(float(m.group(1))):
+                bad.append(label)
+        return [f"stages missing or not finite: {bad}"] if bad else []
+    if name == "trace_summary":
+        total, cats = trace_categories(lines)
+        if total is None or len(cats) != 8 or not total > 0 \
+                or not cats.get("hand kernels", 0) > 0 \
+                or abs(sum(cats.values()) - total) > 1e-3 * len(cats):
+            return [f"categories {cats} against the total {total} ms"]
+    return []
 
 
 def tools_a8_phase(card):
@@ -4762,7 +5097,13 @@ def tools_a8_phase(card):
         for ln in lines[-12:]:
             print(f"    {ln}", flush=True)
         r["failed_lines"] = [ln for ln in lines if "FAILED" in ln]
+        r["failed_lines"] += tools_a8_checks(name, lines)
         torch.cuda.empty_cache()
+    trace = os.path.join(TRACE_DIR, "trace.json")
+    if os.path.exists(trace):
+        # tens of MB with its Python stacks: its summary stays in the logs
+        runs["trace_run"]["trace_mb"] = os.path.getsize(trace) / 2**20
+        os.remove(trace)
     rep = dict(runs=runs, total_s=time.perf_counter() - t_all)
     print(f"phase 11: {rep['total_s']:.1f} s", flush=True)
     return rep, tools_a8_failures(rep)
@@ -4782,6 +5123,12 @@ def tools_a8_failures(rep):
                          f"{r['missing']}, {r['failed_lines']}: "
                          f"{r['error']}")
     return fails
+
+def mark(phase, t_all):
+    """Print when a phase starts, in seconds since the run's start."""
+    print(f"phase {phase} starts {time.perf_counter() - t_all:.1f} s into "
+          "the run", flush=True)
+
 
 def main(argv=None) -> int:
     import argparse
@@ -4859,6 +5206,7 @@ def main(argv=None) -> int:
         for ln in spills:
             print(f"    {ln}", flush=True)
     parent_libs = parent_splits = None
+    sass_fails = []
     if args.parent:
         # the other checkout's two sweeps, built into its own directory
         pkg = os.path.join(os.path.abspath(args.parent),
@@ -4875,11 +5223,14 @@ def main(argv=None) -> int:
                   "not timed in turns", flush=True)
         in_turns = tuple(n for n in in_turns if n not in changed)
         try:
-            build.build_all(in_turns, force=True,
+            # filter_sph also for its SASS, whatever its C interface
+            build.build_all(sorted({*in_turns, "filter_sph"}), force=True,
                             src=os.path.join(pkg, "csrc"), out=pout)
         except RuntimeError as e:
             return fail(f"the parent's kernels: {e}")
         parent_libs = {n: build.lib_path(n, pout) for n in in_turns}
+        report["filter_sass"], sass_fails = sass_against_parent(
+            build.lib_path("filter_sph", pout))
         parent_splits = parent_splits_for(os.path.abspath(args.parent))
         print(f"build of the parent's {', '.join(in_turns)}: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -4935,6 +5286,7 @@ def main(argv=None) -> int:
     seen = capture_inputs(state, cfg)
     torch.cuda.synchronize()
     kreports, failures = check_kernels(seen, ptxas, parent_libs, only)
+    failures += sass_fails
     if only is None:
         report["stream_checks"], fails = stream_checks(seen)
         failures += fails
@@ -5008,6 +5360,7 @@ def main(argv=None) -> int:
     failures += fails
     report["probes"] = probe_reports
 
+    mark("5", t_all)
     # 5. main path
     e0 = diagnostics.measure(state, cfg)
     p0 = momentum(state)
@@ -5059,6 +5412,7 @@ def main(argv=None) -> int:
     del out
     torch.cuda.empty_cache()
 
+    mark("5b", t_all)
     # 5b. the dense main path from its initial conditions
     dense_reports = {}
     for n, steps in DENSE_RUNS:
@@ -5066,6 +5420,7 @@ def main(argv=None) -> int:
         failures += fails
     report["dense_main_path"] = list(dense_reports.values())
 
+    mark("5c", t_all)
     # 5c. the general grid + tree step
     leg_reports, fails = grid_legs(cfg, sym_state, settle_state, settle_cfg)
     failures += fails
@@ -5090,6 +5445,7 @@ def main(argv=None) -> int:
     del sg_state, basalt_state
     torch.cuda.empty_cache()
 
+    mark("5e", t_all)
     # 5e. the roofline and microbench tools: the probes' main path
     tools, fails = tools_phase(state, cfg, main_wall, card)
     failures += fails
@@ -5103,6 +5459,12 @@ def main(argv=None) -> int:
     del main_out, exact_state
     torch.cuda.empty_cache()
 
+    mark("5g", t_all)
+    # 5g. cli run --debug-nans: a clean run's bits and a planted NaN
+    report["debug_nans"], fails = debug_nans_phase(card)
+    failures += fails
+
+    mark("6", t_all)
     # 6. small-input agreement, card against CPU
     small = small_agreement(state, cfg)
     report["small_input"] = small
@@ -5164,6 +5526,7 @@ def main(argv=None) -> int:
         report["parent"], fails = parent_phase(args.parent, state, cfg)
         failures += fails
 
+    mark("8", t_all)
     # 8. the long horizon: the drift gate and the validation tools, the
     # bench lines, rendering and the live viewer (this checkout only)
     del state

@@ -10,11 +10,18 @@ card unless ``--device cpu`` is given.
         --steps 300 --diag-every 100
     python -m planetmodel_sph_tpu_torch.cli bench --n 3000 --steps 200
 
-What the reference's CLI has and this one refuses by name: ``--debug-nans``
-and ``--platform`` (JAX switches; ``--device cpu|cuda`` picks the device
-here). Checkpoints
+What the reference's CLI has and this one refuses by name: ``--platform``
+(a JAX switch; ``--device cpu|cuda`` picks the device here). Checkpoints
 are PSPH1 for a ``.psph`` path and npz otherwise, read and written as the
 reference does (``utils/checkpoint.py``).
+
+``--debug-nans`` stops the run with ``FloatingPointError`` at the end of
+the first chunk (``--diag-every`` steps, or a frame) after which a field
+of the state holds a NaN, naming the field, the step and the first op or
+kernel that made a NaN (``utils/debug_nans.py``); no checkpoint is written
+then. Without it a run does nothing of the kind.
+
+    python -m planetmodel_sph_tpu_torch.cli run --debug-nans --steps 200
 
 ``--devices D`` (D > 1) runs the replicated data-parallel layout
 (``parallel/dp.py``): the command starts D ranks of its own, one a card over
@@ -59,7 +66,7 @@ from . import bench as bench_mod
 from . import config as config_mod
 from .models import ics, planet
 from .state import resolve_device, to_numpy
-from .utils import checkpoint, diagnostics, render
+from .utils import checkpoint, debug_nans, diagnostics, render
 
 _PRESETS = {name: getattr(config_mod, name) for name in bench_mod.PRESETS}
 _ICS = ("jupiter", "two_planet_collision", "rotating_planet",
@@ -68,7 +75,6 @@ _ICS = ("jupiter", "two_planet_collision", "rotating_planet",
 # options of the reference's CLI that select something not ported: accepted
 # by the parser so the refusal can name them
 _UNPORTED = {
-    "debug_nans": "a JAX debugging switch",
     "platform": "a JAX backend switch (--device cpu or --device cuda picks "
                 "the device here)",
 }
@@ -169,7 +175,7 @@ def _viewer_control(viewer, cfg):
     return cfg
 
 
-def _run_frames(args, state, cfg, start_step, viewer, t0):
+def _run_frames(args, state, cfg, start_step, viewer, t0, nan_check):
     """Frame-by-frame mode: chunks of --render-every (or --diag-every)
     steps, a PNG frame after each with --render-every, each pushed to the
     live viewer with --serve, whose steering is applied between chunks.
@@ -183,7 +189,8 @@ def _run_frames(args, state, cfg, start_step, viewer, t0):
     diags_list, step_nos, cur = [], [], start_step
     for fi in range(n_frames + (1 if rem else 0)):
         k = r_every if fi < n_frames else rem
-        state, d = planet.run_with_diagnostics(state, cfg, 1, k)
+        state, d = planet.run_with_diagnostics(state, cfg, 1, k,
+                                               nan_check=nan_check)
         cur += k
         diags_list.append(d)
         step_nos.append(cur)
@@ -239,24 +246,28 @@ def cmd_run(args) -> int:
         viewer = LiveViewer(args.serve)
         _log(f"live view -> http://127.0.0.1:{viewer.port}")
 
+    # --debug-nans: every chunk checked at its end (utils/debug_nans.py)
+    nan_check = (debug_nans.NaNCheck(start_step) if args.debug_nans
+                 else debug_nans.unchecked)
     # run exactly --steps: full diag chunks plus a DIAGNOSED remainder chunk
     t0 = time.perf_counter()
     try:
         if args.render_every or viewer is not None:
             state, cfg, diags_list, step_nos = _run_frames(
-                args, state, cfg, start_step, viewer, t0)
+                args, state, cfg, start_step, viewer, t0, nan_check)
         else:
             every = max(1, min(args.diag_every, args.steps))
             n_chunks, rem = divmod(args.steps, every)
             diags_list, step_nos = [], []
             if n_chunks:
-                state, d = planet.run_with_diagnostics(state, cfg, n_chunks,
-                                                       every)
+                state, d = planet.run_with_diagnostics(
+                    state, cfg, n_chunks, every, nan_check=nan_check)
                 diags_list.append(d)
                 step_nos.extend(start_step + (i + 1) * every
                                 for i in range(n_chunks))
             if rem:
-                state, d = planet.run_with_diagnostics(state, cfg, 1, rem)
+                state, d = planet.run_with_diagnostics(
+                    state, cfg, 1, rem, nan_check=nan_check)
                 diags_list.append(d)
                 step_nos.append(start_step + args.steps)
     finally:
@@ -348,10 +359,14 @@ def _dp_rank(mesh, args, cfg, arrays, start_step):
         # all-gathered far-chunk moments (parallel/halo.py)
         state = halo.morton_shard_state(state, mesh)
         state = halo.make_prime(cfg, mesh)(state)
-        runner = halo.make_run_diag(cfg, mesh)
+        runner = halo.make_run_diag
     else:
         state = dp.make_prime(cfg, mesh)(state)
-        runner = dp.make_run_diag(cfg, mesh)
+        runner = dp.make_run_diag
+    # --debug-nans: every rank checks each chunk, the ranks decide together
+    nan_check = (debug_nans.NaNCheck(start_step, axis=mesh)
+                 if args.debug_nans else debug_nans.unchecked)
+    runner = runner(cfg, mesh, nan_check=nan_check)
 
     # as the single path: full diag chunks plus a diagnosed remainder
     every = max(1, min(args.diag_every, args.steps))
@@ -491,9 +506,12 @@ def main(argv=None) -> int:
                     help="data parallelism over D ranks (the replicated "
                          "layout): one a card, clamped to the visible "
                          "cards; D ranks on the CPU with --device cpu")
-    # refused by name in main (see _UNPORTED)
     pr.add_argument("--debug-nans", action="store_true",
-                    help=argparse.SUPPRESS)
+                    help="stop at the end of the first chunk after which "
+                         "the state holds a NaN, with a FloatingPointError "
+                         "naming the field, the step and the first op or "
+                         "kernel that made one (the reference's "
+                         "jax_debug_nans; infinities are not checked)")
     pr.set_defaults(fn=cmd_run)
 
     pb = sub.add_parser("bench", help="benchmark steps/sec from a cold "

@@ -19,9 +19,17 @@ instead of ignoring it.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import sys
 from typing import Literal
 
 import torch
+
+
+@functools.cache
+def _say_float64() -> None:
+    print("dtype='float64' runs as float32, as the reference's does (JAX's "
+          "x64 is off there)", file=sys.stderr, flush=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +153,12 @@ class SimConfig:
 
     @property
     def torch_dtype(self) -> torch.dtype:
+        """The state's dtype. 'float64' gives float32, as in the reference,
+        which never enables JAX's x64 (one line on stderr says so, once a
+        process)."""
+        if self.dtype == "float64":
+            _say_float64()
+            return torch.float32
         return getattr(torch, self.dtype)
 
     @property
@@ -213,8 +227,14 @@ def _check_common(cfg: SimConfig) -> None:
     if cfg.eos_mode not in ("polytropic", "adiabatic", "tillotson"):
         raise ValueError(f"eos_mode={cfg.eos_mode!r}: 'polytropic', "
                          "'adiabatic' or 'tillotson'")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"dtype={cfg.dtype!r}: kernels are f32")
+    if cfg.dtype == "bfloat16":
+        raise NotImplementedError(
+            "dtype='bfloat16': the reference's grid path raises a TypeError "
+            "on it (its chunk's scan carry changes type), and the card's "
+            "dense step runs the f32 all-pairs kernels; use 'float32'")
+    if cfg.dtype not in ("float32", "float64"):
+        raise ValueError(f"dtype={cfg.dtype!r}: 'float32', or 'float64' "
+                         "(run as float32, as in the reference)")
 
 
 def _check_tree(cfg: SimConfig) -> None:

@@ -18,9 +18,15 @@
 // those, and a warp waited for its slowest lane. This design:
 // - the group's targets are split into boxes of PSPH_FILTER_BOX targets in
 //   their Morton order, each with its bounding box, the largest tc and
-//   the largest tsk, computed once a block in shared memory; a group is
-//   one block whatever its size (its mask row is the OR over all its
-//   targets), the boxes taken 32 at a time, one word of box bits each;
+//   the largest tsk, computed once a block in shared memory; a group of
+//   up to 9,820 targets (FILTER_MAX_DYNAMIC: one block's shared memory)
+//   is one block (its mask row is the OR over all its targets), the boxes
+//   taken 32 at a time, one word of box bits each; a larger group is cut
+//   into T tiles of at most that many targets (whole boxes), one block a
+//   (group, tile) in one g x T grid (the TILED instance: the same body,
+//   the tile's targets read from a tile-major copy, its mask row written
+//   to the [T, g, s] partial masks), and a second kernel ORs the T masks
+//   of each slot (the same tests, so the same mask, and no atomics);
 // - every live slot meets every box as a whole first (the same work in
 //   every lane): the squared distance d2 from the slot to the box (per
 //   axis the gap lo - x or x - hi, 0 inside) cannot exceed any target's
@@ -107,8 +113,12 @@ struct Slot {
 
 // WIDE: more than 32 boxes a group (b > 512), taken a word of 32 at a
 // time; otherwise one word, with no loop over words (slower in turns on
-// the H100 at b = 64)
-template <bool WIDE>
+// the H100 at b = 64). TILED: block (g, t) of a g x T grid takes tile t
+// of group g, its b targets at ((t G + g) b) of the tile-major copy and
+// its mask row at ((t G + g) s) of the [T, G, s] partial masks; the slot
+// rows and nv are the group's. Without it the code is the one-block
+// path's as it was before the tiles (its SASS unchanged).
+template <bool WIDE, bool TILED = false>
 __global__ void __launch_bounds__(FILTER_THREADS) filter_sph_kernel(
     const float* __restrict__ tx, const float* __restrict__ ty,
     const float* __restrict__ tz, const float* __restrict__ tc,
@@ -129,7 +139,8 @@ __global__ void __launch_bounds__(FILTER_THREADS) filter_sph_kernel(
   float4* box = sh + b;
   float* tskin = reinterpret_cast<float*>(sh + b + 2 * nbox);
   const int g = blockIdx.x;
-  const size_t t0 = (size_t)g * b;
+  const size_t cell = TILED ? (size_t)blockIdx.y * gridDim.x + g : g;
+  const size_t t0 = cell * b;
   for (int i = threadIdx.x; i < b; i += blockDim.x) {
     tgt[i] = make_float4(tx[t0 + i], ty[t0 + i], tz[t0 + i], tc[t0 + i]);
     tskin[i] = tsk[t0 + i];
@@ -157,6 +168,7 @@ __global__ void __launch_bounds__(FILTER_THREADS) filter_sph_kernel(
   __syncthreads();
 
   const size_t row = (size_t)g * s;
+  const size_t out = cell * s;         // the mask row (row without TILED)
   const int n = min(nv[g], s);
   const int lane = threadIdx.x & 31;
   float4* qp = qpos + 2 * (threadIdx.x & ~31);
@@ -170,7 +182,7 @@ __global__ void __launch_bounds__(FILTER_THREADS) filter_sph_kernel(
       const int i1 = min(b, i0 + PSPH_FILTER_BOX);
       for (int i = i0; i < i1; ++i)
         if (filter_hit(tgt, tskin, i, c.x, c.y, c.z, c.w, r.x)) {
-          keep[row + __float_as_int(r.y)] = 1.0f;
+          keep[out + __float_as_int(r.y)] = 1.0f;
           break;
         }
     }
@@ -196,7 +208,7 @@ __global__ void __launch_bounds__(FILTER_THREADS) filter_sph_kernel(
   for (int t = 0; t < tiles; ++t) {
     const int j = t * blockDim.x + threadIdx.x;
     const Slot after = load(j + 2 * blockDim.x);
-    if (j < s) keep[row + j] = 0.0f;
+    if (j < s) keep[out + j] = 0.0f;
     for (int q0 = 0; q0 < (WIDE ? nbox : 1); q0 += 32) {
       const int nq = WIDE ? min(32, nbox - q0) : nbox;
       const unsigned boxes =
@@ -230,28 +242,93 @@ __global__ void __launch_bounds__(FILTER_THREADS) filter_sph_kernel(
   }
   sweep(count);
   for (int j = tiles * blockDim.x + threadIdx.x; j < s; j += blockDim.x)
-    keep[row + j] = 0.0f;
+    keep[out + j] = 0.0f;
 }
 
+// The tiled path's targets, tile-major: column c of tile t of group
+// gi at tt[((c T + t) g + gi) tile + i], from target t tile + i of the
+// group; past the group's last target, copies of it (a copy tests a slot
+// as its original does, so the OR is unchanged, and the last tile's boxes
+// bound what the one-block path's do).
+__global__ void filter_sph_tile_targets(
+    const float* __restrict__ tx, const float* __restrict__ ty,
+    const float* __restrict__ tz, const float* __restrict__ tc,
+    const float* __restrict__ tsk, float* __restrict__ tt, int g, int b,
+    int tile, int tiles) {
+  const size_t per = (size_t)tiles * g * tile;   // one column's elements
+  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < per;
+       k += (size_t)gridDim.x * blockDim.x) {
+    const int i = (int)(k % tile);
+    const int gi = (int)(k / tile % g);
+    const int t = (int)(k / tile / g);
+    const size_t src = (size_t)gi * b + min(t * tile + i, b - 1);
+    tt[k] = tx[src];
+    tt[per + k] = ty[src];
+    tt[2 * per + k] = tz[src];
+    tt[3 * per + k] = tc[src];
+    tt[4 * per + k] = tsk[src];
+  }
+}
+
+// keep[g, j] = 1 where the mask of some tile part[t, g, j] is 1: the OR
+// over the tiles' targets, as the one-block path's mask is over all.
+__global__ void filter_sph_or(const float* __restrict__ part,
+                              float* __restrict__ keep, size_t n,
+                              int tiles) {
+  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n;
+       k += (size_t)gridDim.x * blockDim.x) {
+    bool hit = false;
+    for (int t = 0; t < tiles; ++t) hit = hit || part[t * n + k] != 0.0f;
+    keep[k] = hit ? 1.0f : 0.0f;
+  }
+}
+
+static unsigned filter_grid(size_t n) {
+  const size_t blocks = (n + 255) / 256;
+  return (unsigned)(blocks < 65535 ? blocks : 65535);
+}
+
+// `scratch` null: a group a block (b at most 9,820). Otherwise the tiled
+// path, `tile` targets a tile, T = ceil(b / tile) tiles, one g x T grid:
+// scratch holds the T masks [T, g, s] and then the tile-major targets
+// [5, T, g, tile].
 extern "C" int psph_filter_sph(
     const float* tx, const float* ty, const float* tz, const float* tc,
     const float* tsk, const float* sx, const float* sy, const float* sz,
     const float* sc, const float* ssk, const float* sm, const int* nv,
-    float* keep, int g, int b, int s, void* stream) {
-  const int nbox = (b + PSPH_FILTER_BOX - 1) / PSPH_FILTER_BOX;
-  const size_t smem = (size_t)(b + 2 * nbox) * sizeof(float4) +
-                      (size_t)b * sizeof(float);
-  if (g > 0 && smem > FILTER_MAX_DYNAMIC) return (int)cudaErrorInvalidValue;
+    float* keep, float* scratch, int g, int b, int s, int tile,
+    void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int bb = scratch == nullptr ? b : tile;      // targets a block
+  const int nbox = (bb + PSPH_FILTER_BOX - 1) / PSPH_FILTER_BOX;
+  const size_t smem = (size_t)(bb + 2 * nbox) * sizeof(float4) +
+                      (size_t)bb * sizeof(float);
+  if (g > 0 && (bb < 1 || smem > FILTER_MAX_DYNAMIC))
+    return (int)cudaErrorInvalidValue;
+  const bool tiled = scratch != nullptr;
   const auto kernel =
-      nbox > 32 ? filter_sph_kernel<true> : filter_sph_kernel<false>;
+      tiled ? (nbox > 32 ? filter_sph_kernel<true, true>
+                         : filter_sph_kernel<false, true>)
+            : (nbox > 32 ? filter_sph_kernel<true> : filter_sph_kernel<false>);
   if (g > 0 && smem > 48 * 1024) {
     // above 48 KB only as opted-in dynamic shared memory
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (g > 0)
-    kernel<<<g, FILTER_THREADS, smem, (cudaStream_t)stream>>>(
+  if (g > 0 && !tiled)
+    kernel<<<g, FILTER_THREADS, smem, st>>>(
         tx, ty, tz, tc, tsk, sx, sy, sz, sc, ssk, sm, nv, keep, b, s);
+  if (g > 0 && tiled) {
+    const int tiles = (b + tile - 1) / tile;
+    const size_t n = (size_t)g * s, per = (size_t)tiles * g * tile;
+    float* tt = scratch + tiles * n;
+    filter_sph_tile_targets<<<filter_grid(per), 256, 0, st>>>(
+        tx, ty, tz, tc, tsk, tt, g, b, tile, tiles);
+    kernel<<<dim3(g, tiles), FILTER_THREADS, smem, st>>>(
+        tt, tt + per, tt + 2 * per, tt + 3 * per, tt + 4 * per, sx, sy, sz,
+        sc, ssk, sm, nv, scratch, tile, s);
+    filter_sph_or<<<filter_grid(n), 256, 0, st>>>(scratch, keep, n, tiles);
+  }
   return (int)cudaGetLastError();
 }

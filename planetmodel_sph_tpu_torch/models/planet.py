@@ -49,6 +49,7 @@ from ..ops import dense, eos as eos_ops, structure
 from ..ops.cuda import pairwise
 from ..parallel import mesh as mesh_mod
 from ..state import ParticleState
+from ..utils import debug_nans
 
 
 class Forces(NamedTuple):
@@ -771,16 +772,20 @@ def run(state: ParticleState, cfg: SimConfig, n_steps: int) -> ParticleState:
 
 
 def run_with_diagnostics(state: ParticleState, cfg: SimConfig,
-                         n_chunks: int, chunk: int):
+                         n_chunks: int, chunk: int,
+                         nan_check=debug_nans.unchecked):
     """Advance n_chunks*chunk steps, measuring diagnostics every `chunk`
     steps. Returns (state, diags): each value of diags is an [n_chunks]
     tensor on the state's device (stacked once, at the end), with the
-    chunk's summed overflow counters beside the measured quantities."""
+    chunk's summed overflow counters beside the measured quantities.
+    `nan_check`: what each chunk runs through, a
+    ``utils.debug_nans.NaNCheck`` under ``cli run --debug-nans``."""
     from ..utils import diagnostics
 
     rows = []
     for _ in range(n_chunks):
-        state, info = _run_span(state, cfg, chunk)
+        state, info = nan_check(lambda s: _run_span(s, cfg, chunk), state,
+                                chunk)
         d = diagnostics.measure(state, cfg)
         d.update({k: v.to(torch.int32) for k, v in info.items()})
         rows.append(d)

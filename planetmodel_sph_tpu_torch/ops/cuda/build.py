@@ -25,7 +25,9 @@ BUILD = os.path.join(_PKG, "build")
 # name -> C argument signature: "p" pointer (incl. the stream), "i" int,
 # "f" float. Each C function returns cudaGetLastError() after its launch.
 SIGNATURES = {
-    "filter_sph": "p" * 13 + "iii" + "p",
+    # 5 target columns, 6 rows, nv, keep, the tiled path's scratch (null
+    # for one block a group); g, b, s, tile
+    "filter_sph": "p" * 14 + "iiii" + "p",
     "pass1_gradh": "p" * 12 + "iii" + "p",
     "pass1_sym": "p" * 12 + "iii" + "p",
     # 12 target columns, 13 source rows, 5 P2P rows, nv, nv2, 16 outputs;

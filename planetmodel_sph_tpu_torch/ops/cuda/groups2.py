@@ -429,9 +429,30 @@ def gravity_fused_plain(nv_ring, tgt, ring_rows, far_rows, accept, *,
 # wrappers
 # ---------------------------------------------------------------------------
 
-# targets of a group filter_sph holds in shared memory (the H100's 227 KB a
-# block: FILTER_MAX_DYNAMIC, csrc/filter_sph.cu)
+# targets of a group filter_sph holds in one block's shared memory (the
+# H100's 227 KB a block: FILTER_MAX_DYNAMIC, csrc/filter_sph.cu); a larger
+# group is cut into tiles of at most this many targets
 FILTER_MAX_GROUP = 9820
+# targets of one pre-reject box (PSPH_FILTER_BOX, csrc/filter_sph.cu)
+FILTER_BOX = 16
+# blocks of the tiled path's grid a multiprocessor, at the least: the
+# groups past FILTER_MAX_GROUP are few (8 at b = 16,384 and n = 100,000),
+# so they are cut into more tiles than shared memory asks for
+FILTER_BLOCKS_PER_SM = 2
+
+
+def filter_tiles(b, g=1, blocks=1):
+    """(T, tile): the tiles of `tile` targets a group of `b` takes on the
+    tiled path: as few as fit one block and give the `g` groups `blocks`
+    blocks in all (no tile below one box), as even as they can be, and a
+    whole number of boxes where that fits (then each tile's boxes are
+    the one-block path's). The mask is the same whatever the tiles."""
+    tiles = max(-(-b // FILTER_MAX_GROUP),
+                min(-(-blocks // g), -(-b // FILTER_BOX)))
+    tile = -(-b // tiles)
+    boxed = -(-tile // FILTER_BOX) * FILTER_BOX
+    tile = boxed if boxed <= FILTER_MAX_GROUP else tile
+    return -(-b // tile), tile
 
 
 def filter_sph(nv, tgt, src, *, b):
@@ -439,19 +460,28 @@ def filter_sph(nv, tgt, src, *, b):
 
     tgt cols ([G*B,1]): x, y, z, kappa_eff*h, skin. src rows ([G,S]): x,
     y, z, kappa_eff*h, skin, m. Returns f32 [G, S] (1.0 = some target of
-    the group interacts)."""
+    the group interacts). A group of more than FILTER_MAX_GROUP targets
+    takes the kernel's tiled path (filter_tiles, FILTER_BLOCKS_PER_SM
+    blocks a multiprocessor): one block a (group, tile), the tiles' masks
+    ORed; the same mask."""
     name = "filter_sph"
     if len(tgt) != 5 or len(src) != 6:
         raise ValueError(f"{name}: 5 target columns and 6 source rows")
     cuda = _is_cuda(name, [nv, *tgt, *src])
     g, s = _check_window(name, nv, tgt, src, b)
-    if b > FILTER_MAX_GROUP:
-        raise ValueError(f"{name}: a group of {b} targets; the kernel holds "
-                         f"at most {FILTER_MAX_GROUP} in shared memory")
     if not cuda:
         return filter_sph_plain(nv, tgt, src)
     keep = torch.empty((g, s), dtype=torch.float32, device=nv.device)
-    _launch(name, [*tgt, *src, nv, keep, g, b, s])
+    if b <= FILTER_MAX_GROUP:
+        _launch(name, [*tgt, *src, nv, keep, None, g, b, s, 0])
+    else:
+        # the tiles' masks [T, g, s], then their targets [5, T, g, tile]
+        sms = torch.cuda.get_device_properties(
+            nv.device).multi_processor_count
+        tiles, tile = filter_tiles(b, g, FILTER_BLOCKS_PER_SM * sms)
+        scratch = torch.empty(tiles * g * (s + 5 * tile),
+                              dtype=torch.float32, device=nv.device)
+        _launch(name, [*tgt, *src, nv, keep, scratch, g, b, s, tile])
     return keep
 
 

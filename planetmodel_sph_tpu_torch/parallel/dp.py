@@ -27,6 +27,7 @@ import torch
 from ..config import SimConfig, check_slice
 from ..models import planet
 from ..ops import dense, eos as eos_ops, structure
+from ..utils import debug_nans
 from . import mesh as mesh_mod
 
 Mesh = mesh_mod.Mesh
@@ -204,21 +205,24 @@ def make_run_info(cfg: SimConfig, mesh: Mesh):
     return run
 
 
-def make_run_diag(cfg: SimConfig, mesh: Mesh):
+def make_run_diag(cfg: SimConfig, mesh: Mesh,
+                  nan_check=debug_nans.unchecked):
     """(local state, n_chunks, chunk) -> (local state, diagnostics): the
     run in chunks with the GLOBAL state's diagnostics after each (every
     field gathered, then ``utils.diagnostics.measure``, so a row equals the
     measure of the gathered state), beside the chunk's summed overflow
     counters; each value an [n_chunks] tensor on the rank's device, the
-    same on every rank."""
+    same on every rank. `nan_check`: what each chunk runs through, a
+    ``utils.debug_nans.NaNCheck`` over this mesh under ``--debug-nans``."""
     from ..utils import diagnostics
     check_slice(cfg)
 
     def run(state, n_chunks, chunk):
         rows = []
         for _ in range(n_chunks):
-            state, info = local_run_steps_info(state, cfg=cfg, axis=mesh,
-                                               n_steps=chunk)
+            state, info = nan_check(
+                lambda s: local_run_steps_info(s, cfg=cfg, axis=mesh,
+                                               n_steps=chunk), state, chunk)
             d = diagnostics.measure(mesh_mod.gather_state(state, mesh), cfg)
             d.update({k: v.to(torch.int32) for k, v in info.items()})
             rows.append(d)

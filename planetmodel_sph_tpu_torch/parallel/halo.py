@@ -42,6 +42,7 @@ import torch
 from ..config import SimConfig, check_slice
 from ..models import planet
 from ..ops import morton, structure
+from ..utils import debug_nans
 from . import mesh as mesh_mod
 
 Mesh = mesh_mod.Mesh
@@ -349,19 +350,22 @@ def make_run(cfg: SimConfig, mesh: Mesh):
     return run
 
 
-def make_run_diag(cfg: SimConfig, mesh: Mesh):
+def make_run_diag(cfg: SimConfig, mesh: Mesh,
+                  nan_check=debug_nans.unchecked):
     """(local state, n_chunks, chunk) -> (local state, diagnostics): the
     halo mirror of ``dp.make_run_diag``, with ``halo_violations`` in every
     row (the loud re-shard signal); each value an [n_chunks] tensor, the
-    same on every rank."""
+    same on every rank. `nan_check`: what each chunk runs through, a
+    ``utils.debug_nans.NaNCheck`` over this mesh under ``--debug-nans``."""
     from ..utils import diagnostics
     _check(cfg, mesh)
 
     def run(state, n_chunks, chunk):
         rows = []
         for _ in range(n_chunks):
-            state, info = local_run_steps_info(state, cfg=cfg, axis=mesh,
-                                               n_steps=chunk)
+            state, info = nan_check(
+                lambda s: local_run_steps_info(s, cfg=cfg, axis=mesh,
+                                               n_steps=chunk), state, chunk)
             d = diagnostics.measure(mesh_mod.gather_state(state, mesh), cfg)
             d.update({k: v.to(torch.int32) for k, v in info.items()})
             rows.append(d)

@@ -2,7 +2,8 @@
 
 :func:`trace` records the block with ``torch.profiler`` (host activity, and
 the card's kernels where one is present) and exports a Chrome trace,
-viewable in Perfetto or ``chrome://tracing``. :func:`steps_per_sec` times a
+viewable in Perfetto or ``chrome://tracing`` and summarised by
+``tools.trace_summary``. :func:`steps_per_sec` times a
 run with the device synchronized before each clock read, so the time is the
 device's work and not the enqueue; :func:`seconds_per_call` times calls of
 a function with CUDA events after a warm-up call (the developer tools'
@@ -20,16 +21,25 @@ import time
 import torch
 
 
+def default_logdir() -> str:
+    """Where :func:`trace` writes by default: ``psph_trace`` under the
+    temporary directory."""
+    return os.path.join(tempfile.gettempdir(), "psph_trace")
+
+
 @contextlib.contextmanager
-def trace(logdir: str | None = None):
+def trace(logdir: str | None = None, with_stack: bool = False):
     """Profile the block; its Chrome trace goes to ``logdir/trace.json``
-    (default: ``psph_trace`` under the temporary directory). Yields
-    `logdir`."""
-    logdir = logdir or os.path.join(tempfile.gettempdir(), "psph_trace")
+    (default: :func:`default_logdir`). `with_stack` records the Python
+    frames too (``tools.trace_summary`` names the source line of each
+    device op from them), which slows the host several times over.
+    Yields `logdir`."""
+    logdir = logdir or default_logdir()
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts,
+                                with_stack=with_stack) as prof:
         yield logdir
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

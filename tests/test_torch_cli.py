@@ -175,8 +175,6 @@ def test_bench_set_overrides_preset_and_checkpoint(tmp_path, capsys):
     (["--materials", "basalt,ice"], "--materials"),
     (["--materials", "basalt", "--ic", "two_planet_collision"],
      "--materials"),
-    (["--debug-nans"], "--debug-nans"),
-    (["--debug-nans", "--serve", "8080"], "--debug-nans"),
 ])
 def test_unported_flags_exit_nonzero_naming_the_flag(extra, word):
     with pytest.raises(SystemExit) as e:
@@ -270,7 +268,7 @@ def test_animate_needs_frames():
     (["--neighbor", "grid", "--gravity", "tree", "--set",
       "grav_pair_dtype=float16"], "grav_pair_dtype"),
     (["--neighbor", "grid", "--gravity", "tree", "--set",
-      "sorted_chunks=false", "--set", "dtype=float64"], "dtype"),
+      "sorted_chunks=false", "--set", "dtype=bfloat16"], "dtype"),
 ])
 def test_unported_configurations_exit_nonzero_naming_the_option(
         extra, word, capsys):

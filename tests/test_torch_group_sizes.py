@@ -14,7 +14,9 @@ the same numpy cloud:
   near gravity and the residual-P2P window merged into pass 2, the
   windows refined through filter_sph);
 - b = 33 with nbr_sub = 11 on the grid path's unfused near tier, whose
-  RESPA inner force launches ``p2p``.
+  RESPA inner force launches ``p2p``;
+- ``filter_sph`` at b = FILTER_MAX_GROUP and one more, where the kernel
+  cuts a group into tiles (``groups2.filter_tiles``).
 
 Window indices, counts and overflow IDENTICAL; floats within the
 tolerances of tests/test_structure.py (rho rtol 2e-6; gradients rtol 1e-4
@@ -116,6 +118,15 @@ def test_odd_group_near_tier_matches_jax_through_p2p(monkeypatch):
     assert int(out.n_direct.sum()) > 0 and int(out.n_approx.sum()) == 0
 
 
+def _filter_box():
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "planetmodel_sph_tpu_torch", "csrc",
+        "filter_sph.cu")).read()
+    return int(re.search(r"#define\s+PSPH_FILTER_BOX\s+(\d+)", src).group(1))
+
+
 def _filter_max_group():
     """The largest group filter_sph.cu holds in shared memory: b float4
     targets, 2 ceil(b / PSPH_FILTER_BOX) float4 boxes and b float skins
@@ -137,15 +148,78 @@ def _filter_max_group():
     return b
 
 
+def _filter_inputs(b, g=2, s=96, seed=0):
+    """Seeded filter_sph inputs for g groups of b targets in the unit cube
+    (a fair share of the live slots kept), with NaNs planted in a target's
+    x, tc and tsk of group 0 and in a slot's x and sc of the last group,
+    and a dead slot (m = 0) there."""
+    rng = np.random.default_rng(seed)
+    tgt = [rng.random((g * b, 1), dtype=np.float32) for _ in range(3)]
+    tgt += [np.full((g * b, 1), 0.025, np.float32),
+            np.full((g * b, 1), 1e-3, np.float32)]
+    src = [rng.random((g, s), dtype=np.float32) for _ in range(3)]
+    src += [np.full((g, s), 0.025, np.float32),
+            np.full((g, s), 1e-3, np.float32),
+            rng.random((g, s), dtype=np.float32) + 0.5]
+    nv = np.array([s - 16, s][:g], np.int32)
+    tgt[0][7, 0] = np.nan
+    tgt[3][b - 1, 0] = np.nan
+    tgt[4][b // 2, 0] = np.nan
+    src[0][g - 1, 5] = np.nan
+    src[3][g - 1, 9] = np.nan
+    src[5][g - 1, 11] = 0.0
+    return nv, tgt, src
+
+
 def test_filter_sph_refuses_a_group_past_its_shared_memory():
+    """No longer refused: the wrapper takes a group past one block's
+    shared memory (FILTER_MAX_GROUP, read from filter_sph.cu). On the CPU
+    it returns its plain version before any tiling, so this holds that
+    version at b = FILTER_MAX_GROUP and + 1 exactly against the JAX
+    package's filter_sph (its jnp fallback), planted NaNs included; the
+    tiled kernel itself is held against the plain version only on the
+    card, by chip_smoke.py's filter@b9821 and filter@b16384 cases."""
+    from planetmodel_sph_tpu.ops.pallas import groups2 as jk
+    import jax.numpy as jnp
     assert gk2.FILTER_MAX_GROUP == _filter_max_group()
-    s = 8
     for b in (gk2.FILTER_MAX_GROUP, gk2.FILTER_MAX_GROUP + 1):
-        nv = torch.full((1,), s, dtype=torch.int32)
-        tgt = [torch.zeros((b, 1)) for _ in range(5)]
-        src = [torch.ones((1, s)) for _ in range(6)]
-        if b > gk2.FILTER_MAX_GROUP:
-            with pytest.raises(ValueError, match="shared memory"):
-                gk2.filter_sph(nv, tgt, src, b=b)
+        nv, tgt, src = _filter_inputs(b)
+        ref = np.asarray(jk.filter_sph(jnp.asarray(nv),
+                                       [jnp.asarray(x) for x in tgt],
+                                       [jnp.asarray(r) for r in src], b=b,
+                                       chunk=32))
+        out = gk2.filter_sph(T(nv), [T(x) for x in tgt], [T(r) for r in src],
+                             b=b)
+        np.testing.assert_array_equal(out.numpy(), ref, err_msg=str(b))
+        kept = ref[:, :80].mean()
+        assert 0.05 < kept < 0.95, kept
+        assert not ref[1, 11] and not ref[:, 80:][0].any()
+
+
+@pytest.mark.parametrize("b", [9821, 16384, 19641, 29461])
+def test_filter_tiles_cover_the_group_within_one_block(b):
+    """The tiled path's tiles: as few as fit one block's shared memory, or
+    more to give 8 groups 264 blocks (two an H100 multiprocessor, as the
+    wrapper asks), each at most FILTER_MAX_GROUP targets and whole boxes
+    of PSPH_FILTER_BOX, together exactly the group; the OR of the tiles'
+    plain masks is the whole group's."""
+    assert gk2.FILTER_BOX == _filter_box()
+    fewest = -(-b // gk2.FILTER_MAX_GROUP)
+    nv, tgt, src = _filter_inputs(b, g=1, s=64, seed=b)
+    whole = gk2.filter_sph_plain(T(nv), [T(x) for x in tgt],
+                                 [T(r) for r in src])
+    for g, blocks in ((1, 1), (8, 264)):
+        tiles, tile = gk2.filter_tiles(b, g, blocks)
+        assert tile <= gk2.FILTER_MAX_GROUP == _filter_max_group()
+        assert (tiles - 1) * tile < b <= tiles * tile
+        assert tile % gk2.FILTER_BOX == 0
+        if blocks == 1:
+            assert tiles == fewest
         else:
-            assert gk2.filter_sph(nv, tgt, src, b=b).shape == (1, s)
+            # the even split for 33 tiles, up to a whole box
+            assert tiles > fewest and tile < -(-b // 33) + gk2.FILTER_BOX
+        parts = [gk2.filter_sph_plain(
+            T(nv), [T(x[t * tile:(t + 1) * tile]) for x in tgt],
+            [T(r) for r in src]) for t in range(tiles)]
+        np.testing.assert_array_equal(
+            torch.stack(parts).amax(dim=0).numpy(), whole.numpy())

@@ -24,7 +24,8 @@ from planetmodel_sph_tpu_torch.tools import halo_collision, halo_debug
 from planetmodel_sph_tpu_torch.tools import ksweep, ksweep2, micro_gather
 from planetmodel_sph_tpu_torch.tools import neighbors_of, profile_build
 from planetmodel_sph_tpu_torch.tools import scaling_bench, settle_ball
-from planetmodel_sph_tpu_torch.tools import span_stats
+from planetmodel_sph_tpu_torch.tools import profile_block, span_stats
+from planetmodel_sph_tpu_torch.tools import trace_run
 from planetmodel_sph_tpu_torch.utils import checkpoint
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,7 +82,9 @@ def test_scan_sees_the_package():
             "tools/profile_build.py", "tools/scaling_bench.py",
             "tools/neighbors_of.py", "tools/span_stats.py",
             "tools/ksweep.py", "tools/ksweep2.py",
-            "tools/micro_gather.py"} <= names
+            "tools/micro_gather.py", "tools/profile_block.py",
+            "tools/trace_run.py", "tools/trace_summary.py",
+            "utils/debug_nans.py"} <= names
     assert os.path.exists(os.path.join(PKG, "runtime", "psph_io.cpp"))
 
 
@@ -148,6 +151,8 @@ def test_entry_points_default_to_cuda(fn):
     lambda: ksweep.main([]),
     lambda: ksweep2.main([]),
     lambda: micro_gather.main([]),
+    lambda: profile_block.main([]),
+    lambda: trace_run.main([]),
 ], ids=["jupiter", "polytrope", "rotating_planet", "two_planet_collision",
         "bench_cold_start", "cli_run", "cli_bench", "tools_roofline",
         "tools_microbench", "checkpoint_load", "bench_lines",
@@ -156,7 +161,7 @@ def test_entry_points_default_to_cuda(fn):
         "tools_settle_ball", "tools_halo_collision", "tools_halo_debug",
         "tools_profile_build", "tools_scaling_bench", "tools_neighbors_of",
         "tools_span_stats", "tools_ksweep", "tools_ksweep2",
-        "tools_micro_gather"])
+        "tools_micro_gather", "tools_profile_block", "tools_trace_run"])
 def test_new_entry_points_raise_without_a_card(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

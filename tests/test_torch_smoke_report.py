@@ -230,15 +230,18 @@ def test_instance_key_of_gravity_fused():
         ("gravity_fused", (2, 10, 0))
     assert cs.instance_key("gravity_fused", dict(bf16=True), a10) == \
         ("gravity_fused", (0, 10, 1))
-    # filter_sph.cu's one template parameter: WIDE, more than 32 boxes of
-    # 16 targets a group
+    # filter_sph.cu's template parameters: WIDE, more than 32 boxes of 16
+    # targets a block, and TILED, 0 on the one-block path (b up to
+    # FILTER_MAX_GROUP)
     fsrc = open(os.path.join(ROOT, "planetmodel_sph_tpu_torch", "csrc",
                              "filter_sph.cu")).read()
-    assert "template <bool WIDE>" in fsrc
+    assert "template <bool WIDE, bool TILED = false>" in fsrc
     assert cs.instance_key("filter_sph", {"b": 512}, None) == \
-        ("filter_sph", (0,))
+        ("filter_sph", (0, 0))
     assert cs.instance_key("filter_sph", {"b": 1024}, None) == \
-        ("filter_sph", (1,))
+        ("filter_sph", (1, 0))
+    assert cs.instance_key("filter_sph", {"b": gk2.FILTER_MAX_GROUP},
+                           None) == ("filter_sph", (1, 0))
 
 
 @pytest.mark.parametrize("blk", [False, True], ids=["far_only", "blk"])
@@ -681,7 +684,7 @@ def test_phase10_recorded_report_passes():
     collision's two legs (8 gloo ranks, R = 3), every halo kernel launched
     on each leg and held against its plain version on rank 0's inputs,
     the one-device run of the same state, halo_debug's lines, the
-    command line's refusal, and the seven developer tools."""
+    command line's refusal, and the ten developer tools."""
     rep = _phase10()
     halo, tools = rep["halo"], rep["tools_a8"]
     assert cs.halo_failures(halo) == []
