@@ -34,6 +34,12 @@ the CFL minimum and the centre-of-mass sums are then reduced over the ranks.
 The reference's ``lax.scan`` loops are Python loops here and its
 ``lax.cond`` an ``if``; the eager operations run on whatever device holds
 the state's tensors, and nothing in a step reads a value back to the host.
+
+Under a profiler the runner's layers are spans (``utils/profiling``):
+``psph.frame`` (:func:`run_info`) around ``psph.step`` (each step) or
+``psph.chunk`` (:func:`run_chunk_cached`: ``psph.rebuild``,
+``psph.permute``, ``psph.step``, ``psph.far_kick``), ``psph.forces`` (each
+force evaluation) and ``psph.com_correct``.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ from ..ops import dense, eos as eos_ops, structure
 from ..ops.cuda import pairwise
 from ..parallel import mesh as mesh_mod
 from ..state import ParticleState
-from ..utils import debug_nans
+from ..utils import debug_nans, profiling
 
 
 class Forces(NamedTuple):
@@ -140,19 +146,21 @@ def com_correct(grad_phi, mass, cfg: SimConfig, axis=None):
     every run."""
     if not (cfg.grav_com_correction and cfg.gravity_solver == "tree"):
         return grad_phi
-    f = (mass[:, None].double() * grad_phi.double()).sum(dim=0)
-    m = mass.double().sum()
-    if axis is not None:
-        # both partial sums in one all-reduce
-        fm = mesh_mod.psum(torch.cat([f, m[None]]), axis)
-        f, m = fm[:3], fm[3]
-    mean = (f / m).to(grad_phi.dtype)
-    return grad_phi - mean[None, :]
+    with profiling.span(profiling.COM_CORRECT):
+        f = (mass[:, None].double() * grad_phi.double()).sum(dim=0)
+        m = mass.double().sum()
+        if axis is not None:
+            # both partial sums in one all-reduce
+            fm = mesh_mod.psum(torch.cat([f, m[None]]), axis)
+            f, m = fm[:3], fm[3]
+        mean = (f / m).to(grad_phi.dtype)
+        return grad_phi - mean[None, :]
 
 
 balsara_factor = dense.balsara_factor
 
 
+@profiling.spanned(profiling.FORCES)
 def compute_forces(pos, h, mass, cfg: SimConfig, vel=None, u=None,
                    matid=None, fbal=None) -> Forces:
     """Full field evaluation at the given positions and smoothing lengths
@@ -380,6 +388,7 @@ class Carry(NamedTuple):
     st: Optional[structure.BlockStructure]
 
 
+@profiling.spanned(profiling.FORCES)
 def _forces_cached(pos, h, mass, cfg: SimConfig, st, vel=None, u=None,
                    matid=None, fbal=None) -> Forces:
     """One force evaluation against the cached structure, in the state's
@@ -571,6 +580,7 @@ def step(state: ParticleState, cfg: SimConfig, forces_fn=None,
                     return_info=return_info)
 
 
+@profiling.spanned(profiling.PERMUTE)
 def _permute_state(state: ParticleState, idx):
     """Reorder every state field by `idx` via one packed row gather."""
     names = [f.name for f in dataclasses.fields(state)]
@@ -594,6 +604,7 @@ def _respa(cfg: SimConfig) -> bool:
     return respa
 
 
+@profiling.spanned(profiling.REBUILD)
 def _chunk_rebuild(state: ParticleState, cfg: SimConfig, groups=None):
     """The rebuild at a chunk boundary: the smoothing-length update (the
     bounded Newton solve, warm-started from the state's density, under
@@ -622,6 +633,7 @@ def chunk_setup(state: ParticleState, cfg: SimConfig, groups=None):
     return _permute_state(state, st.groups.tgt_idx), st
 
 
+@profiling.spanned(profiling.CHUNK)
 def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
                      groups=None, return_groups=False):
     """Rebuild structures once, then advance k fixed-structure steps.
@@ -666,10 +678,11 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
             return lambda p, hh, m, vel=None, u=None, matid=None, \
                 fbal=None: _forces_cached(p, hh, m, cfg, st, vel=vel, u=u,
                                           matid=matid, fbal=fbal)
-        return lambda p, hh, m, vel=None, u=None, matid=None, fbal=None: \
+        return profiling.spanned(profiling.FORCES)(
+            lambda p, hh, m, vel=None, u=None, matid=None, fbal=None:
             _forces_block(p, hh, m, cfg, st, vel=vel, u=u, matid=matid,
                           fbal=fbal, solve_h=False, sorted_io=sorted_chunk,
-                          grav_tiers=tiers)
+                          grav_tiers=tiers))
 
     one_step = step_staggered if cfg.integrator == "staggered_euler" \
         else step_kdk
@@ -682,9 +695,10 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
         mass_r = run_state.mass
 
         def far_eval(s):
-            phi_f, gphi_f, na_f = structure.gravity_far(
-                s.pos, s.h, mass_r, cfg, st, sorted_io=sorted_chunk)
-            return phi_f, com_correct(gphi_f, mass_r * live_w, cfg), na_f
+            with profiling.span(profiling.FAR_KICK):
+                phi_f, gphi_f, na_f = structure.gravity_far(
+                    s.pos, s.h, mass_r, cfg, st, sorted_io=sorted_chunk)
+                return phi_f, com_correct(gphi_f, mass_r * live_w, cfg), na_f
 
         near_fn = forces_fn("near")
         # seed the carried accel with the near-only part: state.accel is
@@ -694,8 +708,9 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
         for _ in range(k // m):
             out = out.replace(vel=out.vel - (0.5 * m * dt) * gphi_f)
             for _ in range(m):
-                out = step_kdk(_tracked(out), cfg, near_fn,
-                               update_smoothing=False)
+                with profiling.span(profiling.STEP):
+                    out = step_kdk(_tracked(out), cfg, near_fn,
+                                   update_smoothing=False)
             phi_f, gphi_f, na_f = far_eval(out)
             out = out.replace(vel=out.vel - (0.5 * m * dt) * gphi_f)
         # restore the full-field invariant (all at the final positions)
@@ -705,8 +720,9 @@ def run_chunk_cached(state: ParticleState, cfg: SimConfig, k: int,
     else:
         full_fn = forces_fn("all")
         for _ in range(k):
-            out = one_step(_tracked(out), cfg, full_fn,
-                           update_smoothing=False)
+            with profiling.span(profiling.STEP):
+                out = one_step(_tracked(out), cfg, full_fn,
+                               update_smoothing=False)
     if sorted_chunk:
         out = _permute_state(out, st.groups.unsort_idx)
     if return_groups:
@@ -748,8 +764,9 @@ def _run_steps(state: ParticleState, cfg: SimConfig, n_steps: int):
     """n_steps uncached steps; returns (state, summed overflow info)."""
     info = overflow_zero(state.pos.device)
     for _ in range(n_steps):
-        state, i1 = step(state, cfg, return_info=True)
-        info = _add_info(info, i1)
+        with profiling.span(profiling.STEP):
+            state, i1 = step(state, cfg, return_info=True)
+            info = _add_info(info, i1)
     return state, info
 
 
@@ -760,6 +777,7 @@ def _run_span(state: ParticleState, cfg: SimConfig, n_steps: int):
     return _run_steps(state, cfg, n_steps)
 
 
+@profiling.spanned(profiling.FRAME)
 def run_info(state: ParticleState, cfg: SimConfig, n_steps: int):
     """Advance n_steps; returns (state, info) where info sums the structure
     overflow counters over every rebuild in the run."""

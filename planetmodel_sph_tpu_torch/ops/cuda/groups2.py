@@ -15,7 +15,9 @@ each with
 - a launch counter, ``LAUNCHES[name]`` (shared by every kernel module, see
   ``launch.py``), incremented only where the wrapper launches its kernel;
   ``p2p`` and ``gravity_fused`` also count their bfloat16 instances'
-  launches (``bf16=True``) in ``BF16_LAUNCHES[name]``.
+  launches (``bf16=True``) in ``BF16_LAUNCHES[name]``;
+- a span, ``psph.kernel.<name>``, around the wrapper's CUDA path while a
+  profiler records (``launch.spanned``).
 
 The shared contract (``groups2.py:6-40`` of the reference): targets are
 [G*B, 1] sorted-layout columns, sources [G, S] window rows of which the
@@ -30,7 +32,8 @@ import torch
 
 from .launch import (BF16_LAUNCHES, LAUNCHES,  # noqa: F401
                      is_cuda as _is_cuda, launch as _launch, need as _need,
-                     need_all as _need_all, reset_launches)
+                     need_all as _need_all, reset_launches,
+                     spanned as _spanned)
 
 INV_PI = 1.0 / 3.14159265358979323846
 KERNELS = ("filter_sph", "pass1_gradh", "pass1_sym", "pass2", "p2p",
@@ -455,6 +458,7 @@ def filter_tiles(b, g=1, blocks=1):
     return -(-b // tile), tile
 
 
+@_spanned("filter_sph")
 def filter_sph(nv, tgt, src, *, b):
     """Per-candidate true-interaction mask over the group's window.
 
@@ -485,6 +489,7 @@ def filter_sph(nv, tgt, src, *, b):
     return keep
 
 
+@_spanned("pass1_gradh")
 def pass1_gradh(nv, tgt, src, *, b):
     """Grad-h density sweep: tgt = (x, y, z, ih) cols, src = (x, y, z, m)
     rows. Returns (rho, nn, xi) [G*B,1]; nn INCLUDES the self pair."""
@@ -501,6 +506,7 @@ def pass1_gradh(nv, tgt, src, *, b):
     return rho, nn, xi
 
 
+@_spanned("pass1_sym")
 def pass1_sym(nv, tgt, src, *, b):
     """Symmetric-density sweep: tgt = (x, y, z, ih) cols, src = (x, y, z,
     ih, m) rows. rho_i = sum m_j (W(h_i) + W(h_j)) / 2. Returns (rho, nn)
@@ -533,6 +539,7 @@ def _pass2_layout(mode, av, balsara, energy=False):
     return (4 if mode == "reference_asymmetric" else 5) + extra, 6 + extra
 
 
+@_spanned("pass2")
 def pass2(nv, tgt, src, *, b, mode="grad_h", av=False, sign_bug=False,
           av_alpha=0.0, av_beta=0.0, balsara=False, energy=False,
           grav=False, receiver_soft=False, g_const=1.0, nv_p2p=None,
@@ -613,6 +620,7 @@ def pass2(nv, tgt, src, *, b, mode="grad_h", av=False, sign_bug=False,
                  if o is not None)
 
 
+@_spanned("p2p")
 def p2p(nv, tgt, src, *, b, receiver_soft, g_const=1.0, bf16=False):
     """Near-field gravity sweep over the P2P window.
 
@@ -640,6 +648,7 @@ def p2p(nv, tgt, src, *, b, receiver_soft, g_const=1.0, bf16=False):
     return (*outs, nd)
 
 
+@_spanned("gravity_fused")
 def gravity_fused(nv_ring, tgt, ring_rows, far_rows, accept, *, b,
                   g_const=1.0, nv_p2p=None, p2p_rows=None,
                   receiver_soft=False, nv_blk=None, blk_rows=None,

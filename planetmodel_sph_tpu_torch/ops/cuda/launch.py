@@ -6,6 +6,9 @@ run can show that its path went through a kernel; a wrapper that takes its
 plain version (CPU tensors) leaves the count alone. ``BF16_LAUNCHES[name]``
 counts, within ``LAUNCHES[name]``, the launches of the kernels' bfloat16
 instances (``grav_pair_dtype="bfloat16"``: ``p2p`` and ``gravity_fused``).
+``SPANS[name]`` is the span (``utils/profiling``) that :func:`spanned` puts
+around a wrapper's CUDA path in a trace: its checks, its output
+allocations and the launch.
 
 Every wrapper call pays this path on the host, so it is kept thin:
 
@@ -24,10 +27,12 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import profiling
 from . import build
 
 LAUNCHES = dict.fromkeys(build.SIGNATURES, 0)
 BF16_LAUNCHES = dict.fromkeys(("p2p", "gravity_fused"), 0)
+SPANS = {k: profiling.KERNEL + k for k in LAUNCHES}
 
 _Tensor = torch.Tensor
 _LIBS = build._LIBS          # the loaded entry points (build.library swaps)
@@ -38,6 +43,12 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, BF16_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def spanned(name):
+    """Decorator of the wrapper of kernel `name`: its calls on CUDA
+    tensors inside the span ``SPANS[name]`` while a profiler records."""
+    return profiling.spanned(SPANS[name], cuda_only=True)
 
 
 def is_cuda(name, tensors) -> bool:

@@ -15,7 +15,9 @@ Monaghan viscosity and Balsara div/curl sums), each with
 - a plain PyTorch version (:func:`pass1_plain`, :func:`pass2_plain`): the
   expressions of the Pallas bodies (q = sqrt(r2) * (1/h), 1/a = min of the
   1/h, one rsqrt) as a [block, n] broadcast over blocks of target rows;
-- a launch counter, ``LAUNCHES['pairwise_pass1']`` / ``['pairwise_pass2']``.
+- a launch counter, ``LAUNCHES['pairwise_pass1']`` / ``['pairwise_pass2']``;
+- a span, ``psph.kernel.pairwise_pass1`` / ``pairwise_pass2``, around the
+  wrapper's CUDA path while a profiler records (``launch.spanned``).
 
 The self pair is masked by index (unlike the windowed kernels) and the
 self-density term m_i/(pi h_i^3) is added once. Nothing is padded: the
@@ -32,7 +34,7 @@ import torch
 from .. import eos as eos_ops
 from ..dense import Pass1Out
 from .launch import (LAUNCHES, is_cuda, launch, need,  # noqa: F401
-                     reset_launches)
+                     reset_launches, spanned)
 
 INV_PI = 1.0 / 3.14159265358979323846
 KERNELS = ("pairwise_pass1", "pairwise_pass2")
@@ -236,6 +238,7 @@ def _check_particles(name, pos, fields):
     return n
 
 
+@spanned("pairwise_pass1")
 def pass1(pos, h, mass, cfg) -> Pass1Out:
     """Density, neighbour count and (gravity_solver='direct') Dyer-Ip
     gravity over all pairs. pos [n,3], h [n], mass [n], f32 contiguous on
@@ -262,6 +265,7 @@ def pass1(pos, h, mass, cfg) -> Pass1Out:
     return Pass1Out(rho, nn, phi, gphi, nd)
 
 
+@spanned("pairwise_pass2")
 def pass2(pos, h, mass, rho, pressure, cfg, vel=None, fbal=None):
     """Pressure gradient grad P [n,3] over all pairs
     (cfg.grad_p_mode 'symmetric' or 'reference_asymmetric', with

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+
 # Tillotson constants (cgs: g/cm^3, dyne/cm^2, erg/g) from Benz & Asphaug
 # (1999) table 1 and Melosh (1989) appendix II; the port's own copy of the
 # reference's table, in the same order (the order IS the matid encoding).
@@ -196,6 +198,7 @@ def _need_u(cfg, u):
         raise ValueError(f"{cfg.eos_mode} EOS needs the internal energy u")
 
 
+@profiling.spanned(profiling.EOS)
 def pressure_cfg(rho, cfg, u=None, matid=None):
     """P from the configured EOS. 'adiabatic' is the ideal gas
     P = (gamma-1) rho u, 'tillotson' the material EOS above, both with u

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import SimConfig, check_slice, fuse_active  # noqa: F401
+from ..utils import profiling
 from . import eos as eos_ops
 from . import grouping
 from .cuda import groups2 as gk2
@@ -223,6 +224,7 @@ def _block_stats(pos_b, h_b, m_b, live):
     return mass, cm, amin, amax, bmax2, hmax
 
 
+@profiling.spanned(profiling.BUILD)
 def build(pos, h, mass, cfg: SimConfig, skin=0.0, src=None,
           target_offset: int = 0, h_margin: float = 0.0, groups=None,
           sph_only: bool = False, skin_src=None) -> BlockStructure:
@@ -972,6 +974,7 @@ def gravity_far(pos, h, mass, cfg: SimConfig, st: BlockStructure,
     return tuple(_unsort(st, [phi_t, grad_phi_t, na_t]))
 
 
+@profiling.spanned(profiling.SOLVE_H)
 def solve_h_newton(pos, h, mass, cfg: SimConfig, eta: float, src=None,
                    target_offset=0, groups=None, rho0=None):
     """Fixed-point solve of h = eta (m/rho(h))^(1/3) on the block pipeline.

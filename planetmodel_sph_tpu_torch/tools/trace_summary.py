@@ -3,7 +3,7 @@
 xplane trace).
 
     python -m planetmodel_sph_tpu_torch.tools.trace_summary [TRACE] \\
-        [--top N] [--by-category]
+        [--top N] [--by-category | --by-span]
 
 TRACE is a ``trace.json`` (``utils/profiling.trace`` exports one; a
 directory is searched for its newest ``*.json``). The device ops are the
@@ -17,6 +17,13 @@ kernel is named at its wrapper's caller). ``--by-category`` prints ms and %
 of each category instead: the hand kernels (the names of
 ``ops/cuda/launch.LAUNCHES``), gathers and index ops, copies, memcpy and
 memset, sorts, reductions, elementwise and other; they sum to the total.
+``--by-span`` prints the program's spans instead (``utils/profiling``: the
+``psph.*`` host ranges of the thread that holds most of them, ``cpu_op``
+or ``user_annotation`` events): for each name
+its count, host ms (summed duration), self ms (the part no child span
+covers) and idle ms (the device-idle time at which it was the innermost
+open span), then the idle time outside every span and the time inside
+any; the idle of the spans and outside them sum to the window's idle.
 Last, the device's idle share over the traced window (from the first to
 the last event of the trace, host or device): the share of the window in
 which no device op ran. The profiler slows the host (Python frames most),
@@ -38,6 +45,7 @@ import re
 import sys
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "user_annotation")       # a program span is either
 CATEGORIES = ("hand kernels", "gathers and index ops", "copies",
               "memcpy and memset", "sorts", "reductions", "elementwise",
               "other")
@@ -166,6 +174,102 @@ def summarise(events):
     return ops, total, busy, window
 
 
+def _idle(events, w0, w1):
+    """The device-idle intervals of [w0, w1], sorted and disjoint."""
+    gaps, t = [], w0
+    for e in sorted((e for e in events if e.get("cat") in DEVICE_CATS),
+                    key=lambda e: float(e["ts"])):
+        t0 = max(w0, float(e["ts"]))
+        t1 = min(w1, float(e["ts"]) + float(e["dur"]))
+        if t1 <= t0:
+            continue
+        if t0 > t:
+            gaps.append((t, t0))
+        t = max(t, t1)
+    if w1 > t:
+        gaps.append((t, w1))
+    return gaps
+
+
+def _span_segments(spans, w0, w1):
+    """The window cut where spans open and close: (t0, t1, innermost span's
+    name or None) in time order, and {name: [count, host us]}. `spans`:
+    (t0, t1, name) sorted by start then longest first; a span that
+    outlasts the span around it is cut at its end."""
+    segs, stack, stats = [], [], {}
+    t_out = w0                     # where the time outside every span resumes
+
+    def close(t):
+        nonlocal t_out
+        while stack and stack[-1][1] <= t:
+            name, end, cursor = stack.pop()
+            segs.append((cursor, end, name))
+            if stack:
+                stack[-1][2] = end
+            else:
+                t_out = end
+
+    for t0, t1, name in spans:
+        close(t0)
+        if stack:
+            t1 = min(t1, stack[-1][1])
+            segs.append((stack[-1][2], t0, stack[-1][0]))
+        else:
+            segs.append((t_out, t0, None))
+        stack.append([name, t1, t0])
+        st = stats.setdefault(name, [0, 0.0])
+        st[0] += 1
+        st[1] += t1 - t0
+    close(float("inf"))
+    segs.append((t_out, w1, None))
+    return segs, stats
+
+
+def by_span(events):
+    """(spans, outside_us, program_us) of the program's spans over the
+    trace's window (its first to its last event) on the thread holding
+    most of them: spans {name: dict(count, host_us, self_us, idle_us)},
+    the device-idle time inside no span and the time inside any."""
+    from ..utils.profiling import PREFIX
+    if not events:
+        return {}, 0.0, 0.0
+    mine = [e for e in events if e.get("cat") in HOST_CATS
+            and e.get("name", "").startswith(PREFIX)]
+    w0 = min(float(e["ts"]) for e in events)
+    w1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    idle = _idle(events, w0, w1)
+    if not mine:
+        return {}, sum(b - a for a, b in idle), 0.0
+    threads = {}
+    for e in mine:
+        key = (e.get("pid"), e.get("tid"))
+        threads[key] = threads.get(key, 0) + 1
+    thread = max(threads, key=threads.get)
+    spans = sorted(((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     e["name"]) for e in mine
+                    if (e.get("pid"), e.get("tid")) == thread),
+                   key=lambda s: (s[0], -s[1]))
+    segs, stats = _span_segments([s for s in spans if s[1] > s[0]], w0, w1)
+    self_us = dict.fromkeys(stats, 0.0)
+    idle_us = dict.fromkeys(list(stats) + [None], 0.0)
+    k = 0
+    for a, b, name in segs:
+        if b <= a:
+            continue
+        if name is not None:
+            self_us[name] += b - a
+        while k < len(idle) and idle[k][1] <= a:
+            k += 1
+        j = k
+        while j < len(idle) and idle[j][0] < b:
+            idle_us[name] += min(b, idle[j][1]) - max(a, idle[j][0])
+            j += 1
+    outside = sum(b - a for a, b, name in segs if name is None)
+    table = {n: dict(count=c, host_us=h, self_us=self_us[n],
+                     idle_us=idle_us[n]) for n, (c, h) in stats.items()}
+    return table, idle_us[None], (w1 - w0) - outside
+
+
 def untraced(path):
     """The untraced run's {"steps", "ms_per_step"} written beside the
     trace at `path`, or None."""
@@ -190,7 +294,11 @@ def main(argv=None) -> int:
     ap.add_argument("trace", nargs="?", default=default_logdir(),
                     help="a trace.json, or a directory holding one")
     ap.add_argument("--top", type=int, default=30)
-    ap.add_argument("--by-category", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--by-category", action="store_true")
+    mode.add_argument("--by-span", action="store_true",
+                      help="the program's spans (psph.*) and the device's "
+                           "idle time put down to them")
     args = ap.parse_args(argv)
 
     events = load(args.trace)
@@ -201,6 +309,18 @@ def main(argv=None) -> int:
         for c, us in by_category(ops).items():
             share = 100 * us / total if total else 0.0
             print(f"{us/1e3:10.3f} ms  {share:5.1f}%  {c}")
+    elif args.by_span:
+        spans, outside, program = by_span(events)
+        print(f"{'count':>7} {'host ms':>10} {'self ms':>10} "
+              f"{'idle ms':>10}  span")
+        for name, r in sorted(spans.items(),
+                              key=lambda kv: -kv[1]["host_us"]):
+            print(f"{r['count']:7d} {r['host_us']/1e3:10.3f} "
+                  f"{r['self_us']/1e3:10.3f} {r['idle_us']/1e3:10.3f}  "
+                  f"{name}")
+        print(f"device idle outside the program's spans "
+              f"{outside/1e3:.3f} ms; the program's spans hold "
+              f"{program/1e3:.3f} ms of the host", flush=True)
     else:
         print(f"{'self ms':>9} {'%':>5} {'occ':>5}  {'category':21} "
               f"{'op':28} source")

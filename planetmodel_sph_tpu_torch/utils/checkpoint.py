@@ -23,8 +23,10 @@ from .. import config as config_mod
 from ..config import SimConfig
 from ..ops import eos as eos_ops
 from ..state import ParticleState, resolve_device, to_numpy
+from . import profiling
 
 
+@profiling.spanned(profiling.CHECKPOINT)
 def save(path: str, state: ParticleState, cfg: SimConfig,
          step: int = 0) -> None:
     """Save a checkpoint: PSPH1 for a ``.psph`` path, else npz at exactly

@@ -15,6 +15,7 @@ import torch
 from ..config import SimConfig
 from ..ops import eos as eos_ops
 from ..state import ParticleState
+from . import profiling
 
 
 def _safe_norm(x):
@@ -23,6 +24,7 @@ def _safe_norm(x):
     return s * torch.sqrt(((x / s) ** 2).sum())
 
 
+@profiling.spanned(profiling.MEASURE)
 def measure(state: ParticleState, cfg: SimConfig) -> dict:
     m = state.mass
     v2 = (state.vel * state.vel).sum(dim=-1)

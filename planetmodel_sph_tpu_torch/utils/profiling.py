@@ -3,22 +3,88 @@
 :func:`trace` records the block with ``torch.profiler`` (host activity, and
 the card's kernels where one is present) and exports a Chrome trace,
 viewable in Perfetto or ``chrome://tracing`` and summarised by
-``tools.trace_summary``. :func:`steps_per_sec` times a
-run with the device synchronized before each clock read, so the time is the
-device's work and not the enqueue; :func:`seconds_per_call` times calls of
-a function with CUDA events after a warm-up call (the developer tools'
-timer). ``bench._device_times`` sums a profiler
-run's device time by kernel.
+``tools.trace_summary`` (``--by-span`` reads the program's spans).
+:func:`steps_per_sec` times a run with the device synchronized before each
+clock read, so the time is the device's work and not the enqueue;
+:func:`seconds_per_call` times calls of a function with CUDA events after a
+warm-up call (the developer tools' timer). ``bench._device_times`` sums a
+profiler run's device time by kernel.
+
+The program's spans: :func:`span` (a ``with`` block) and :func:`spanned`
+(a whole function) put the program's layers into a trace as host ranges
+named ``psph.*`` (the constants below), on the same clock as the card's
+kernels. While a profiler records, a span is PyTorch's fast record
+function, kept in the trace as a host op (category ``cpu_op``); it costs a
+tenth of ``record_function`` (a ``user_annotation``, the fallback where
+PyTorch lacks the fast one). While no profiler records, a span is one
+check of the profiler's flag and a shared null context: no allocation, no
+record function, no device call. A span never synchronizes, reads no
+tensor's values and changes no value. The spans count as well as time:
+over a traced run, the number of ``psph.kernel.<name>`` spans is the
+hand-kernel launches and the number of ``psph.rebuild`` spans the
+rebuilds.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
 import time
 
 import torch
+
+
+# the program's spans, by layer (``tools.trace_summary --by-span`` and the
+# benchmark's ``spans.py`` read them); a kernel wrapper's span is
+# KERNEL + its launch name (``ops/cuda/launch.SPANS``)
+FRAME = "psph.frame"                # models/planet.run_info
+STEP = "psph.step"                  # one step of an uncached run or a chunk
+CHUNK = "psph.chunk"                # models/planet.run_chunk_cached
+REBUILD = "psph.rebuild"            # a chunk's h update and structure
+SOLVE_H = "psph.solve_h"            # ops/structure.solve_h_newton
+BUILD = "psph.build"                # ops/structure.build
+FAR_KICK = "psph.far_kick"          # a RESPA far-tier evaluation
+PERMUTE = "psph.permute"            # a chunk's state into or out of order
+FORCES = "psph.forces"              # one force evaluation
+EOS = "psph.eos"                    # ops/eos.pressure_cfg
+COM_CORRECT = "psph.com_correct"    # models/planet.com_correct
+MEASURE = "psph.measure"            # utils/diagnostics.measure
+CHECKPOINT = "psph.checkpoint"      # utils/checkpoint.save
+PREFIX = "psph."                    # every span's name begins so
+KERNEL = "psph.kernel."
+
+# torch.profiler.profile sets this module's flag while it records
+_PROFILER = torch.autograd.profiler
+_NULL = contextlib.nullcontext()
+_RECORD = getattr(torch._C._profiler, "_RecordFunctionFast",
+                  torch.profiler.record_function)
+
+
+def span(name: str):
+    """A context for the block: a record function named `name` while a
+    profiler records, else one shared null context."""
+    if _PROFILER._is_profiler_enabled:
+        return _RECORD(name)
+    return _NULL
+
+
+def spanned(name: str, cuda_only: bool = False):
+    """Decorator: each call of the function inside :func:`span` (name).
+    `cuda_only`: only the calls whose first argument is a CUDA tensor (a
+    kernel wrapper's path to its kernel; its plain version gets no
+    span)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if _PROFILER._is_profiler_enabled and (
+                    not cuda_only or args[0].is_cuda):
+                with _RECORD(name):
+                    return fn(*args, **kwargs)
+            return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def default_logdir() -> str:
