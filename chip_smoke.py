@@ -59,7 +59,16 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    outputs NaN exactly where the plain version's are, and a second launch
    held to the same bits; each case prints the share of pairs inside
    either support and the share the q^2 test skips, and its instance's
-   registers and spills. For every case of the six redesigned kernels it
+   registers and spills. From the plan's size on (``pairwise.PLAN_MIN_N``)
+   each case runs with a plan built from its positions, as the main path
+   does, on the cold ball and on the ball past its first collapse
+   (COLLAPSE_STEPS on); it prints the plan's near share, the values are
+   planted after the plan was built (the planted particle's sub-tile far
+   from most warps: the share of boxes far from it is printed), and its
+   bound counts the planned sweep's work. Then the plan's cost and gain
+   (``plan n=`` lines, PLAN_SIZES): both sweeps with a plan (its build
+   included) and without, in turns, wrapper and device ms, and the plan
+   alone. For every case of the six redesigned kernels it
    also prints what
    the kernel visits (the three compacted sweeps ``pass1_gradh``,
    ``pass1_sym`` and ``pass2``: the share of slots below nv that are live
@@ -172,8 +181,9 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
    instruction for instruction, ``cuobjdump``), phase 4 times them and this checkout's in turns (parent,
    this, this, parent) on each case's inputs (a bf16 case its bf16
    instances; ``gravity_fused``'s and ``p2p``'s cases each turn's device
-   ms too; the all-pairs kernels each
-   with the source splits of its own checkout's wrapper; the tile probe
+   ms too; the all-pairs kernels through the other checkout's own
+   wrappers, loaded from its source (``parent_pairwise``), wrapper and
+   device ms of each turn, and with the plan's sizes; the tile probe
    also with the parent's device time), and this phase times the two probes
    (``probe_launch`` in a chain beside ``torch.mul``, ``probe_gather``
    beside ``packed[idx]``) and runs the production step, `sym100k`,
@@ -255,7 +265,9 @@ It never imports JAX or the JAX package. Phases, any failure exits non-zero:
 line, no final line). ``--only gravity_fused,p2p`` (any windowed kernels)
 runs phases 1-4 on those kernels' cases alone, in turns with ``--parent``'s
 where it is given (a trial: no kernel line, no final line; the report in
-``chiprun_out/chip_smoke_only.json``).
+``chiprun_out/chip_smoke_only.json``); ``--only
+pairwise_pass1,pairwise_pass2`` builds those two alone and runs their
+phase 4 and the plan's sizes, in turns with ``--parent``'s where given.
 
 The second-to-last line of standard output is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. A full
@@ -458,7 +470,9 @@ OPS_EN_AV = 3             # cav / 2, * v.d, +  (approaching pairs)
 # The all-pairs kernels, per pair j != i of the n particles: every pair
 # its q^2 test, a pair the test keeps (r2 ihm^2 <= PSPH_Q2_SKIP) the rest
 # of its geometry, and a pair inside either support its spline or
-# gradient terms. Per-source and per-target factors (1/h^3, P/rho^2, the
+# gradient terms. Under a plan only the pairs of near (warp, sub-tile)
+# pairs take the test; the far ones OPS_PW_FAR (pass 1 with gravity) or
+# nothing. Per-source and per-target factors (1/h^3, P/rho^2, the
 # sound speed) and the self test of the diagonal tiles are O(n) and not
 # counted.
 OPS_PW_SKIP = 12          # dx(3) r2(5) min(ih_i, ih_j) (r2 ihm) ihm; >
@@ -469,6 +483,9 @@ OPS_PW_W = dict(inner=8,  # q<1; q2 q3 poly(4) *c
 OPS_PW_RHO = 9            # c_j(3); m/2 W_i+W_j * +=; q_i<2 count
 OPS_PW_GRAV_FAR = 11      # a pair the test skips: the outer Dyer-Ip branch,
 #                           rsqrt m/r mag(2) sums(7)
+OPS_PW_FAR = 19           # a pair of a far (warp, sub-tile) pair under a
+#                           plan, with gravity: dx(3) r2(5) rsqrt m/r mag(2)
+#                           sums(7); without gravity it is not swept
 OPS_PW_GRAV = 2           # a pair the test keeps: fmax rsqrt (then
 #                           OPS_DYER_IP, less its fmin under receiver
 #                           softening)
@@ -1438,11 +1455,44 @@ def _row_blocks(n, block=512):
     return [(i0, min(n, i0 + block)) for i0 in range(0, n, block)]
 
 
-def _pw_branches(pos, inv_h, i0, i1):
+def plan_cells(pos, h, perm):
+    """The boxes of a plan as the kernels form them (``common.cuh``
+    psph_box_far, here in float64 on the card: a model for the counts,
+    not the kernels' bits): each particle's box (its position's rank in
+    the plan over the box size) and the [boxes, boxes] mask of far box
+    pairs."""
+    import torch
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    n = pos.shape[0]
+    rank = torch.empty_like(perm)
+    rank[perm] = torch.arange(n, device=perm.device)
+    cell = rank // pw.SUB
+    nb = -(-n // pw.SUB)
+    inv_h = (1.0 / torch.where(h > 0, h, 1.0)).double()
+    p = pos.double()
+    lo = torch.full((nb, 3), math.inf, dtype=torch.float64,
+                    device=pos.device).index_reduce_(0, cell, p, "amin")
+    hi = torch.full((nb, 3), -math.inf, dtype=torch.float64,
+                    device=pos.device).index_reduce_(0, cell, p, "amax")
+    ihm = torch.full((nb,), math.inf, dtype=torch.float64,
+                     device=pos.device).index_reduce_(0, cell, inv_h,
+                                                      "amin")
+    gap = torch.clamp(torch.maximum(lo[:, None] - hi[None, :],
+                                    lo[None, :] - hi[:, None]), min=0.0)
+    d2 = (gap * gap).sum(dim=-1)
+    m = torch.minimum(ihm[:, None], ihm[None, :])
+    far = (d2 * m) * m > _cu_define("pairwise_pass1", "PSPH_FAR_Q2",
+                                    "common.cuh")
+    return cell, far & (d2 >= _cu_define("pairwise_pass1", "PSPH_R2_FLOOR",
+                                         "common.cuh"))
+
+
+def _pw_branches(pos, inv_h, i0, i1, cells=None):
     """[block, n] masks and q of the pairs of target rows [i0, i1): not the
     self pair, the pairs the q^2 test keeps (r2 ihm^2 <= PSPH_Q2_SKIP, ihm
-    the smaller 1/h), and q_i and q_j as the all-pairs kernels form
-    them."""
+    the smaller 1/h), and q_i and q_j as the all-pairs kernels form them;
+    with `cells` (:func:`plan_cells`), the pairs of near box pairs last
+    (all pairs without)."""
     import torch
     x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
     dxx = x[i0:i1, None] - x[None, :]
@@ -1454,8 +1504,12 @@ def _pw_branches(pos, inv_h, i0, i1):
     ihm = torch.minimum(inv_h[i0:i1, None], inv_h[None, :])
     kept = pair & ~((r2 * ihm) * ihm > _q2_skip())
     r = torch.sqrt(r2)
+    near = torch.ones_like(pair)
+    if cells is not None:
+        cell, far = cells
+        near = ~far[cell[i0:i1, None], cell[None, :]]
     return pair, kept, r2, r * inv_h[i0:i1, None], r * inv_h[None, :], \
-        (dxx, dxy, dxz)
+        (dxx, dxy, dxz), near
 
 
 @functools.lru_cache(maxsize=None)
@@ -1463,41 +1517,46 @@ def _q2_skip():
     return _cu_define("pairwise_pass1", "PSPH_Q2_SKIP", "common.cuh")
 
 
-def _pairwise_pass1_ops(pos, h, mass, cfg):
+def _pairwise_pass1_ops(pos, h, mass, cfg, cells=None):
     """Pass 1's operations on this data: every pair's q^2 test, the rest of
     the geometry on the pairs it keeps, the spline branches of q_i and q_j
     on pairs inside either support, and, with direct gravity, the outer
     Dyer-Ip branch on the pairs the test skips and the branch of x = r / a
-    on those it keeps."""
+    on those it keeps. Under a plan (`cells`, :func:`plan_cells`) only the
+    pairs of near box pairs take the test; with gravity the others
+    OPS_PW_FAR."""
     import torch
     n = pos.shape[0]
     inv_h = 1.0 / torch.where(h > 0, h, 1.0)
     gravity = cfg.gravity_solver == "direct"
     receiver = cfg.softening_mode == "receiver_h"
-    ops = OPS_PW_SKIP * n * (n - 1)
+    ops = 0
     for i0, i1 in _row_blocks(n):
-        pair, kept, r2, qi, qj, _ = _pw_branches(pos, inv_h, i0, i1)
+        pair, kept, r2, qi, qj, _, near = _pw_branches(pos, inv_h, i0, i1,
+                                                       cells)
         sph = pair & ((qi < 2.0) | (qj < 2.0))
-        ops += (OPS_PW_NEAR * _n(kept) + OPS_PW_RHO * _n(sph)
-                + _by_branch(OPS_PW_W, sph, qi)
+        ops += (OPS_PW_SKIP * _n(pair & near) + OPS_PW_NEAR * _n(kept)
+                + OPS_PW_RHO * _n(sph) + _by_branch(OPS_PW_W, sph, qi)
                 + _by_branch(OPS_PW_W, sph, qj))
         if gravity:
             inv_a = inv_h[i0:i1, None].expand_as(r2) if receiver \
                 else torch.minimum(inv_h[i0:i1, None], inv_h[None, :])
             x = (r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))) * inv_a
-            ops += (OPS_PW_GRAV_FAR * _n(pair & ~kept)
+            ops += (OPS_PW_GRAV_FAR * _n(pair & ~kept & near)
+                    + OPS_PW_FAR * _n(pair & ~near)
                     + (OPS_PW_GRAV - (1 if receiver else 0)) * _n(kept)
                     + _dyer_ip_ops(kept, x))
     return ops
 
 
-def _pairwise_pass2_ops(pos, h, mass, cfg, vel):
+def _pairwise_pass2_ops(pos, h, mass, cfg, vel, cells=None):
     """Pass 2's operations on this data: every pair's q^2 test, the rest of
     the geometry on the pairs it keeps; on pairs inside either support the
     gradient branches, the pressure coefficient and the sums; with
     viscosity v.x on those pairs, Pi_ij on the approaching ones, the
     correct-derivative gradient again under the sign bug and the div/curl
-    sums under Balsara."""
+    sums under Balsara. Under a plan (`cells`) only the pairs of near box
+    pairs take the test."""
     import torch
     n = pos.shape[0]
     inv_h = 1.0 / torch.where(h > 0, h, 1.0)
@@ -1505,10 +1564,11 @@ def _pairwise_pass2_ops(pos, h, mass, cfg, vel):
     balsara = cfg.av_balsara and av
     mode = ("asymmetric" if cfg.grad_p_mode == "reference_asymmetric"
             else "symmetric")
-    ops = OPS_PW_SKIP * n * (n - 1)
+    ops = 0
     for i0, i1 in _row_blocks(n):
-        pair, kept, r2, qi, qj, (dxx, dxy, dxz) = _pw_branches(
-            pos, inv_h, i0, i1)
+        pair, kept, r2, qi, qj, (dxx, dxy, dxz), near = _pw_branches(
+            pos, inv_h, i0, i1, cells)
+        ops += OPS_PW_SKIP * _n(pair & near)
         sup = pair & ((qi < 2.0) | (qj < 2.0))
         grad = (_by_branch(OPS_PW_GW, sup, qi) + _by_branch(OPS_PW_GW, sup, qj)
                 + OPS_PW_GW_CJ * _n(sup & (qj < 2.0))
@@ -1538,7 +1598,7 @@ def pairwise_shares(pos, h):
     inv_h = 1.0 / torch.where(h > 0, h, 1.0)
     inside = skipped = 0
     for i0, i1 in _row_blocks(n):
-        pair, kept, _, qi, qj, _ = _pw_branches(pos, inv_h, i0, i1)
+        pair, kept, _, qi, qj, _, _ = _pw_branches(pos, inv_h, i0, i1)
         inside += _n(pair & ((qi < 2.0) | (qj < 2.0)))
         skipped += _n(pair & ~kept)
     pairs = n * (n - 1)
@@ -1546,18 +1606,19 @@ def pairwise_shares(pos, h):
                 skipped_share=skipped / pairs)
 
 
-def pairwise_bound(name, args, kw, cfg, out):
+def pairwise_bound(name, args, kw, cfg, out, cells=None):
     """(bound_ms, bound_by, bytes, ops) of one all-pairs call: every input
     array read once and every output written once over the HBM rate,
-    against the f32 operations this data needs over the f32 peak."""
+    against the f32 operations this data needs over the f32 peak (under a
+    plan's `cells`, those of its sweep)."""
     out = list(out) if isinstance(out, tuple) else [out]
     tensors = [*args, *(v for v in kw.values() if v is not None), *out]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     if name == "pairwise_pass1":
-        ops = _pairwise_pass1_ops(*args, cfg)
+        ops = _pairwise_pass1_ops(*args, cfg, cells)
     else:
         pos, h, mass = args[:3]
-        ops = _pairwise_pass2_ops(pos, h, mass, cfg, kw.get("vel"))
+        ops = _pairwise_pass2_ops(pos, h, mass, cfg, kw.get("vel"), cells)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32 * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -2597,14 +2658,23 @@ def check_modes(cases, ptxas=None, parent_libs=None, only=None):
     return reports, failures
 
 
+# steps of the dense scene from its cold ball to past its first collapse
+# (free-fall time some 39, dt 0.02: the benchmark's 2,500-step cycle)
+COLLAPSE_STEPS = 2100
+
+
 def pairwise_cases(n):
     """The all-pairs kernels' inputs at n particles: (name, case, cfg, args,
-    kw, on_main_path) from primed ``ics.jupiter`` states. The viscosity
-    case takes ``ics.rotating_planet`` with a homologous contraction added
-    (v -= 0.02 x), so every pair approaches and the curl is not zero, and
-    the Balsara factors its own priming pass leaves in the state."""
+    kw, on_main_path) from primed ``ics.jupiter`` states (the cold ball).
+    The viscosity case takes ``ics.rotating_planet`` with a homologous
+    contraction added (v -= 0.02 x), so every pair approaches and the curl
+    is not zero, and the Balsara factors its own priming pass leaves in
+    the state. From the plan's size on (``pairwise.PLAN_MIN_N``), also the
+    ball past its first collapse (COLLAPSE_STEPS of the dense step): its
+    centre dense, its boxes smaller."""
     from planetmodel_sph_tpu_torch import config as config_mod
     from planetmodel_sph_tpu_torch.models import ics, planet
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
     cfg = config_mod.jupiter_3k(n=n)
     st = planet.prime(ics.jupiter(cfg), cfg)
     base = (st.pos, st.h, st.mass)
@@ -2634,6 +2704,13 @@ def pairwise_cases(n):
                   ("pairwise_pass2", "parity3k", pcfg,
                    (pst.pos, pst.h, pst.mass, pst.rho, pst.pressure), {},
                    False)]
+    if n >= pw.PLAN_MIN_N:
+        late = planet.run(st, cfg, COLLAPSE_STEPS)
+        cases += [("pairwise_pass1", "symmetric_max@collapse", cfg,
+                   (late.pos, late.h, late.mass), {}, False),
+                  ("pairwise_pass2", "symmetric@collapse", cfg,
+                   (late.pos, late.h, late.mass, late.rho, late.pressure),
+                   {}, False)]
     return cases
 
 
@@ -2697,16 +2774,17 @@ def pairwise_nan_agreement(name, kernel, plain, args, kw, cfg):
     return None, reached
 
 
-def pairwise_instance(name, cfg, kw):
+def pairwise_instance(name, cfg, kw, planned=False):
     """The template arguments of the all-pairs instance a call launches
     (pass 1: direct gravity, receiver softening with it; pass 2:
-    viscosity, Balsara with it)."""
+    viscosity, Balsara with it; both: a plan)."""
     if name == "pairwise_pass1":
         grav = cfg.gravity_solver == "direct"
         return (name, (int(grav),
-                       int(grav and cfg.softening_mode == "receiver_h")))
+                       int(grav and cfg.softening_mode == "receiver_h"),
+                       int(planned)))
     av = cfg.av_alpha > 0.0 and kw.get("vel") is not None
-    return (name, (int(av), int(av and cfg.av_balsara)))
+    return (name, (int(av), int(av and cfg.av_balsara), int(planned)))
 
 
 def parent_signatures(parent):
@@ -2725,51 +2803,86 @@ def parent_signatures(parent):
     return ns["SIGNATURES"]
 
 
-def parent_splits_for(parent):
-    """The other checkout's ``splits_for`` (ops/cuda/pairwise.py), read
-    from its source: its kernels are timed with the source splits their
-    own wrapper gives them. Its module constants and the function are
-    executed alone (the module itself imports the other checkout's
-    package)."""
-    import ast
+def parent_pairwise(parent):
+    """The other checkout's ``ops/cuda/pairwise.py``, loaded from its
+    source as a module of this package: its relative imports (the EOS,
+    ``dense.Pass1Out``, the launch path) resolve here, and its wrappers
+    launch with its own C interface and source splits. Its kernels are
+    timed through it inside ``build.library(name, its library, its
+    signature)``."""
+    import importlib.util
     path = os.path.join(parent, "planetmodel_sph_tpu_torch", "ops", "cuda",
                         "pairwise.py")
-    with open(path) as f:
-        tree = ast.parse(f.read())
-    keep = [node for node in tree.body
-            if (isinstance(node, ast.Assign)
-                and all(isinstance(t, ast.Name) for t in node.targets)
-                and not any(isinstance(v, (ast.Name, ast.Call))
-                            for v in ast.walk(node.value)))
-            or (isinstance(node, ast.FunctionDef)
-                and node.name == "splits_for")]
-    ns = {}
-    exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)
-    return ns["splits_for"]
+    spec = importlib.util.spec_from_file_location(
+        "planetmodel_sph_tpu_torch.ops.cuda.parent_pairwise", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def check_pairwise(n, parent_libs=None, ptxas=None, parent_splits=None):
-    """Phase 4 for the all-pairs kernels at n particles, with planted
-    non-finite values and a second launch held to the same bits; with
-    `parent_libs` ({kernel: library} of another checkout's build) each case
-    is also timed in turns with that build, launched with the source
-    splits of that checkout's wrapper (`parent_splits`). `ptxas`: the
-    build's instances by (kernel, template arguments). Returns ({name:
-    report of the main path's case, "cases": [...]}, failures)."""
-    import torch
+def _pw_turns(fns, reps=KERNEL_REPS):
+    """Each of `fns` ({who: (fn, context)}) timed in the turns given by
+    the order of `fns`' keys there and back (a, b, ..., b, a): wrapper ms
+    (cuda_ms) and device ms (device_ms) of each turn, {who: [(ms,
+    device_ms), ...]}."""
+    order = list(fns) + list(fns)[::-1]
+    out = {who: [] for who in fns}
+    for who in order:
+        fn, ctx = fns[who]
+        with ctx():
+            out[who].append((cuda_ms(fn, reps), device_ms(fn)))
+    return out
+
+
+def _parent_ctx(parent, *names):
+    """A context in which the named kernels launch the other checkout's
+    libraries (`parent`: dict(libs, sigs, module))."""
     from planetmodel_sph_tpu_torch.ops.cuda import build
+
+    @contextlib.contextmanager
+    def ctx():
+        with contextlib.ExitStack() as stack:
+            for name in names:
+                stack.enter_context(build.library(
+                    name, parent["libs"][name], parent["sigs"][name]))
+            yield
+    return ctx
+
+
+def check_pairwise(n, parent=None, ptxas=None):
+    """Phase 4 for the all-pairs kernels at n particles, with planted
+    non-finite values and a second launch held to the same bits. From
+    ``pairwise.PLAN_MIN_N`` on each case runs as the main path does, with
+    a plan built from its positions (the non-finite values are planted
+    after it was built, so their sub-tile is far from most warps), and
+    prints the plan's near share and its boxes' far share for the
+    planted particles. With `parent`
+    (dict(libs, sigs, module): another checkout's build, C signatures and
+    wrapper module, :func:`parent_pairwise`) each case is also timed in
+    turns with that checkout's wrapper and kernel (parent, this, this,
+    parent: wrapper and device ms). `ptxas`: the build's instances by
+    (kernel, template arguments). Returns ({name: report of the main
+    path's case, "cases": [...]}, failures)."""
+    import torch
     from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
     wrappers = {"pairwise_pass1": (pw.pass1, pw.pass1_plain),
                 "pairwise_pass2": (pw.pass2, pw.pass2_plain)}
     reports, failures = {"cases": []}, []
-    shares = {}
+    shares, plans = {}, {}
+    as_tuple = lambda o: tuple(o) if isinstance(o, tuple) else (o,)
     for name, case, cfg, args, kw, on_main in pairwise_cases(n):
-        kernel, plain = wrappers[name]
+        key = (args[0].data_ptr(), args[1].data_ptr())
+        if key not in plans:
+            plan = pw.plan_for(args[0])
+            plans[key] = (plan, plan_cells(args[0], args[1], plan.perm)
+                          if plan is not None else None)
+        plan, cells = plans[key]
+        kernel = functools.partial(wrappers[name][0], plan=plan)
+        plain = wrappers[name][1]
         out = kernel(*args, cfg, **kw)
         torch.cuda.synchronize()
         ref = plain(*args, cfg, **kw)
         torch.cuda.synchronize()
-        as_tuple = lambda o: tuple(o) if isinstance(o, tuple) else (o,)
         ok, err, msgs = compare(name, as_tuple(out), as_tuple(ref))
         again = kernel(*args, cfg, **kw)
         torch.cuda.synchronize()
@@ -2783,41 +2896,45 @@ def check_pairwise(n, parent_libs=None, ptxas=None, parent_splits=None):
         if nan_msg:
             ok = False
             msgs.append(f"planted NaNs: {nan_msg}")
+        near = None
+        if plan is not None:
+            plan.counts.zero_()
+            kernel(*args, cfg, **kw)
+            near = pw.near_share(plan)
         ms = cuda_ms(lambda: kernel(*args, cfg, **kw), KERNEL_REPS)
         dev_ms = device_ms(lambda: kernel(*args, cfg, **kw))
         turns = None
-        if parent_libs and name in parent_libs:
-            # the parent's kernel and this one in turns, as check_one, each
-            # with its own wrapper's source splits
-            turns = {"parent": [], "this": []}
-            own_splits = pw.splits_for
-            for who in ("parent", "this", "this", "parent"):
-                if who == "parent":
-                    pw.splits_for = parent_splits
-                try:
-                    with (build.library(name, parent_libs[name])
-                          if who == "parent" else contextlib.nullcontext()):
-                        turns[who].append(cuda_ms(
-                            lambda: kernel(*args, cfg, **kw), KERNEL_REPS))
-                finally:
-                    pw.splits_for = own_splits
+        if parent:
+            pkernel = getattr(parent["module"], wrappers[name][0].__name__)
+            turns = _pw_turns({
+                "parent": (lambda: pkernel(*args, cfg, **kw),
+                           _parent_ctx(parent, name)),
+                "this": (lambda: kernel(*args, cfg, **kw),
+                         contextlib.nullcontext)})
         plain_ms = cuda_ms(lambda: plain(*args, cfg, **kw), PLAIN_REPS)
         b_ms, b_by, nbytes, ops = pairwise_bound(name, args, kw, cfg,
-                                                 as_tuple(out))
-        key = (args[0].data_ptr(), args[1].data_ptr())
+                                                 as_tuple(out), cells)
         if key not in shares:
             shares[key] = pairwise_shares(args[0], args[1])
         sh = shares[key]
-        px = (ptxas or {}).get(pairwise_instance(name, cfg, kw)) or {}
+        far = None
+        if cells is not None:
+            # the planted particles' boxes: far from this share of boxes
+            cell, far_cells = cells
+            far = {j: float(far_cells[cell[j]].double().mean())
+                   for j in (n - 1, n // 3)}
+        px = (ptxas or {}).get(pairwise_instance(name, cfg, kw,
+                                                 plan is not None)) or {}
         rep = dict(name=name, case=case, n=n, ok=ok, max_abs_err=err, ms=ms,
                    device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by,
-                   bytes=nbytes, ops=ops, splits=pw.splits_for(n),
-                   same_bits=same, shares=sh, ptxas=px or None,
-                   nan_agrees=nan_msg is None, nan_reached=reached,
-                   messages=msgs)
+                   bound_by=b_by, bytes=nbytes, ops=ops,
+                   splits=pw.splits_for(n),
+                   planned=plan is not None, near_share=near,
+                   planted_far_share=far, same_bits=same, shares=sh,
+                   ptxas=px or None, nan_agrees=nan_msg is None,
+                   nan_reached=reached, messages=msgs)
         if turns:
-            rep["parent_ms"], rep["ms_in_turns"] = turns["parent"], \
+            rep["parent_turns"], rep["turns"] = turns["parent"], \
                 turns["this"]
         reports["cases"].append(rep)
         if on_main:
@@ -2834,6 +2951,12 @@ def check_pairwise(n, parent_libs=None, ptxas=None, parent_splits=None):
               f"{px.get('smem')} B shared, spills {px.get('spill_stores')}/"
               f"{px.get('spill_loads')} B; two launches "
               f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+        if plan is not None:
+            print(f"  {label}: planned, near share {near:.5f} of the "
+                  f"(warp, sub-tile) pairs; the planted particles' boxes "
+                  f"far from " + ", ".join(
+                      f"{v:.4f} (particle {j})" for j, v in far.items())
+                  + " of the boxes", flush=True)
         got = ", ".join(f"{k} {'reached' if v else 'masked'}"
                         for k, v in reached.items())
         print(f"  {label}: planted NaNs "
@@ -2841,9 +2964,12 @@ def check_pairwise(n, parent_libs=None, ptxas=None, parent_splits=None):
               flush=True)
         if turns:
             p, t = turns["parent"], turns["this"]
-            print(f"  {label}: in turns, parent {p[0]:.4f}, this "
-                  f"{t[0]:.4f}, this {t[1]:.4f}, parent {p[1]:.4f} ms "
-                  f"({sum(p) / sum(t):.2f}x)", flush=True)
+            print(f"  {label}: in turns, parent {p[0][0]:.4f}, this "
+                  f"{t[0][0]:.4f}, this {t[1][0]:.4f}, parent {p[1][0]:.4f}"
+                  f" ms ({sum(a for a, _ in p) / sum(a for a, _ in t):.2f}x);"
+                  " device " + ", ".join(fmt_ms(d) for d in (
+                      p[0][1], t[0][1], t[1][1], p[1][1])) + " ms",
+                  flush=True)
         for m in msgs:
             print(f"  {name} [{case}]: {m}", flush=True)
         if not ok:
@@ -2852,6 +2978,59 @@ def check_pairwise(n, parent_libs=None, ptxas=None, parent_splits=None):
         del out, ref
         torch.cuda.empty_cache()
     return reports, failures
+
+
+# the sizes at which the plan's cost and gain are timed (PLAN_MIN_N)
+PLAN_SIZES = (3000, 8192, 16384, 32768)
+
+
+def plan_times(n, parent=None):
+    """A force evaluation's two sweeps at n particles of the primed cold
+    ball: with a plan (its build included), without, and with `parent`'s
+    wrappers and kernels, in turns (parent, planned, unplanned, unplanned,
+    planned, parent): wrapper and device ms of each, and the plan's own.
+    What ``pairwise.PLAN_MIN_N`` was chosen from."""
+    import torch
+    from planetmodel_sph_tpu_torch import config as config_mod
+    from planetmodel_sph_tpu_torch.models import ics, planet
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    cfg = config_mod.jupiter_3k(n=n)
+    st = planet.prime(ics.jupiter(cfg), cfg)
+    a1 = (st.pos, st.h, st.mass)
+    a2 = (*a1, st.rho, st.pressure)
+
+    def sweeps(mod, planned):
+        def fn():
+            plan = mod.plan(st.pos) if planned else None
+            kw = {"plan": plan} if planned else {}
+            mod.pass1(*a1, cfg, **kw)
+            mod.pass2(*a2, cfg, **kw)
+        return fn
+    fns = {}
+    if parent:
+        fns["parent"] = (sweeps(parent["module"], False),
+                         _parent_ctx(parent, *ALL_PAIRS))
+    fns["planned"] = (sweeps(pw, True), contextlib.nullcontext)
+    fns["unplanned"] = (sweeps(pw, False), contextlib.nullcontext)
+    turns = _pw_turns(fns)
+    plan_ms = cuda_ms(lambda: pw.plan(st.pos), KERNEL_REPS)
+    plan_dev = device_ms(lambda: pw.plan(st.pos))
+    plan = pw.plan(st.pos)
+    pw.pass1(*a1, cfg, plan=plan)
+    share = pw.near_share(plan)
+    rep = dict(n=n, turns=turns, plan_ms=plan_ms, plan_device_ms=plan_dev,
+               near_share=share, planned_by_default=pw.plan_for(st.pos)
+               is not None)
+    line = "; ".join(f"{who} " + ", ".join(
+        f"{ms:.4f} ({fmt_ms(d)})" for ms, d in v) for who, v in
+        turns.items())
+    print(f"plan n={n}: pass 1 + pass 2 wrapper ms (device ms) in turns: "
+          f"{line}; the plan alone {plan_ms:.4f} ({fmt_ms(plan_dev)}); near "
+          f"share {share:.5f}; planned by default "
+          f"{rep['planned_by_default']}", flush=True)
+    del st
+    torch.cuda.empty_cache()
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -3820,6 +3999,7 @@ def dense_main(n, steps, label=None, **kw):
     from planetmodel_sph_tpu_torch import config as config_mod
     from planetmodel_sph_tpu_torch.models import ics, planet
     from planetmodel_sph_tpu_torch.ops.cuda import launch
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
     from planetmodel_sph_tpu_torch.utils import diagnostics
     cfg = config_mod.jupiter_3k(n=n, **kw)
     label = label or f"dense n={n}"
@@ -3835,7 +4015,8 @@ def dense_main(n, steps, label=None, **kw):
     wall = time.perf_counter() - t0
     launches = dict(launch.LAUNCHES)
     expect = dict.fromkeys(launches, 0)
-    expect.update(pairwise_pass1=steps, pairwise_pass2=steps)
+    expect.update(pairwise_pass1=steps, pairwise_pass2=steps,
+                  pairwise_plan=steps if n >= pw.PLAN_MIN_N else 0)
     overflow = {k: int(v) for k, v in info.items()}
     e1 = diagnostics.measure(out, cfg)
     de = float((e1["total_energy"] - e0["total_energy"])
@@ -5181,17 +5362,20 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
-    # 2. build
+    # 2. build (with --only of the all-pairs kernels, theirs alone)
+    only = set(args.only.split(",")) if args.only else None
+    pairs_only = only is not None and only <= set(ALL_PAIRS)
     t0 = time.perf_counter()
     try:
-        logs = build.build_all(force=True)
+        logs = build.build_all(ALL_PAIRS if pairs_only else None, force=True)
     except RuntimeError as e:
         return fail(str(e))
     t_build = time.perf_counter() - t0
     report["build_s"] = t_build
     print(f"build: {len(logs)} kernels in {t_build:.2f} s", flush=True)
-    if set(logs) != set(KERNELS):
-        return fail(f"built {sorted(logs)}, expected {sorted(KERNELS)}")
+    built = set(ALL_PAIRS) if pairs_only else set(KERNELS)
+    if set(logs) != built:
+        return fail(f"built {sorted(logs)}, expected {sorted(built)}")
     for n, (_, log) in logs.items():
         # one line per source: its entry points, the most registers any of
         # them uses, and the spill reports that are not all zero
@@ -5205,45 +5389,73 @@ def main(argv=None) -> int:
               "spills", flush=True)
         for ln in spills:
             print(f"    {ln}", flush=True)
-    parent_libs = parent_splits = None
+    parent_libs = parent_pw = None
     sass_fails = []
+    in_turns = ALL_PAIRS if pairs_only else \
+        REDESIGNED + ALL_PAIRS + ("probe_pass1_tile",)
     if args.parent:
-        # the other checkout's two sweeps, built into its own directory
-        pkg = os.path.join(os.path.abspath(args.parent),
-                           "planetmodel_sph_tpu_torch")
+        # the other checkout's kernels, built into its own directory
+        parent = os.path.abspath(args.parent)
+        pkg = os.path.join(parent, "planetmodel_sph_tpu_torch")
         pout = os.path.join(pkg, "build")
         t0 = time.perf_counter()
-        in_turns = REDESIGNED + ALL_PAIRS + ("probe_pass1_tile",)
-        # a kernel whose C interface changed since cannot be called through
-        # this checkout's wrapper
-        psig = parent_signatures(os.path.abspath(args.parent))
-        changed = [n for n in in_turns if psig.get(n) != build.SIGNATURES[n]]
+        # the all-pairs kernels are timed through the other checkout's own
+        # wrappers; any other kernel whose C interface changed since cannot
+        # be called through this checkout's wrapper
+        psig = parent_signatures(parent)
+        changed = [n for n in in_turns if n not in ALL_PAIRS
+                   and psig.get(n) != build.SIGNATURES[n]]
         if changed:
             print(f"the parent's {', '.join(changed)}: another C interface, "
                   "not timed in turns", flush=True)
         in_turns = tuple(n for n in in_turns if n not in changed)
         try:
             # filter_sph also for its SASS, whatever its C interface
-            build.build_all(sorted({*in_turns, "filter_sph"}), force=True,
-                            src=os.path.join(pkg, "csrc"), out=pout)
+            build.build_all(sorted({*in_turns, *(
+                () if pairs_only else ("filter_sph",))}), force=True,
+                src=os.path.join(pkg, "csrc"), out=pout)
         except RuntimeError as e:
             return fail(f"the parent's kernels: {e}")
         parent_libs = {n: build.lib_path(n, pout) for n in in_turns}
-        report["filter_sass"], sass_fails = sass_against_parent(
-            build.lib_path("filter_sph", pout))
-        parent_splits = parent_splits_for(os.path.abspath(args.parent))
+        if not pairs_only:
+            report["filter_sass"], sass_fails = sass_against_parent(
+                build.lib_path("filter_sph", pout))
+        parent_pw = dict(libs=parent_libs, sigs=psig,
+                         module=parent_pairwise(parent))
         print(f"build of the parent's {', '.join(in_turns)}: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = {}
-    for n in REDESIGNED + ALL_PAIRS + ("probe_pass1_tile",):
+    for n in (ALL_PAIRS if pairs_only else
+              REDESIGNED + ALL_PAIRS + ("probe_pass1_tile",)):
         # every instance of the redesigned kernels, by template arguments
         for inst in ptxas_instances(logs[n][1]):
-            ptxas[(n, inst["args"])] = inst
+            # the all-pairs sources' other entry points (the plan's keys,
+            # the stages, the reduces) apart from their sweeps' instances
+            sweep = n not in ALL_PAIRS or f"{n}_kernel" in inst["entry"]
+            ptxas[(n, inst["args"] if sweep else inst["entry"])] = inst
             print(f"  ptxas {n}{list(inst['args']) if inst['args'] else ''}"
                   f": {inst['regs']} registers, {inst['smem']} B shared, "
                   f"{inst['stack']} B stack, spills {inst['spill_stores']}/"
                   f"{inst['spill_loads']} B", flush=True)
     report["ptxas"] = [dict(name=k[0], **v) for k, v in ptxas.items()]
+    if pairs_only:
+        # phase 4 for the all-pairs kernels alone, and the plan's sizes
+        failures = []
+        report["pairwise_cases"] = []
+        for n, _ in DENSE_RUNS:
+            r, fails = check_pairwise(n, parent_pw, ptxas)
+            failures += fails
+            report["pairwise_cases"] += r["cases"]
+        report["plan_sizes"] = [plan_times(n, parent_pw)
+                                for n in PLAN_SIZES]
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_only.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        for m in failures:
+            print(f"FAIL: {m}", file=sys.stderr, flush=True)
+        print(f"total {time.perf_counter() - t_all:.1f} s (phases 1, 2 and "
+              f"4 on {', '.join(sorted(only))} only)", flush=True)
+        return 1 if failures else 0
     # the tile probe's sweep loops in SASS: instructions a live pair
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -5282,7 +5494,6 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 4. kernels against their plain versions
-    only = set(args.only.split(",")) if args.only else None
     seen = capture_inputs(state, cfg)
     torch.cuda.synchronize()
     kreports, failures = check_kernels(seen, ptxas, parent_libs, only)
@@ -5345,9 +5556,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pw_reports = {}
     for n, _ in DENSE_RUNS:
-        pw_reports[n], fails = check_pairwise(n, parent_libs, ptxas,
-                                              parent_splits)
+        pw_reports[n], fails = check_pairwise(n, parent_pw, ptxas)
         failures += fails
+    report["plan_sizes"] = [plan_times(n, parent_pw) for n in PLAN_SIZES]
     # the kernels line carries the all-pairs kernels at the default
     # preset's size; the larger size rides along under its own key
     n_main, n_big = DENSE_RUNS[0][0], DENSE_RUNS[1][0]

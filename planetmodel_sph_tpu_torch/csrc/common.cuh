@@ -416,6 +416,92 @@ __device__ __forceinline__ void psph_combine(T (&acc)[N], T* red, int b,
 // skip leaves out is outside the support of that ih
 #define PSPH_Q2_SKIP 4.0009765625f
 
+// The all-pairs kernels' cull (pairwise_pass1.cu, pairwise_pass2.cu). In
+// the Morton order of a plan, box k holds the particles [k PSPH_SUB,
+// (k + 1) PSPH_SUB): a warp's targets and a source sub-tile are each one
+// box. Box k is two float4 (lo, hi): the bounds of x, y and z, lo.w the
+// smallest 1/h of the box, or NaN when a value that a pass reads of one
+// of its particles is not finite (hi.w is 0).
+#define PSPH_SUB 64
+
+// A plan's two counters (near and tested (warp, sub-tile) pairs) are each
+// this many slots, which the warps' atomic adds share round robin: one
+// address taken by every warp of a sweep serialises some 10^4 adds
+#define PSPH_PLAN_SLOTS 64
+
+// 4 (1 + 2^-10): a box pair with (d2 ihm) ihm above this is far. d2 is
+// formed from the gaps between the boxes as r2 is formed from a pair's
+// d, every step monotone, so each pair of the two boxes has r2 >= d2; its
+// 1/h are >= ihm; its (r2 ihm_pair) ihm_pair is then above PSPH_FAR_Q2,
+// which lies above PSPH_Q2_SKIP: the q^2 test skips every pair of a far
+// box pair, with 2^-10 - 2^-12 to spare beyond the rounding
+#define PSPH_FAR_Q2 4.00390625f
+
+// the plain versions' floor on r2 before 1/sqrt(r2) (torch.clamp): a far
+// box pair also has d2 at or above it, so its pairs' r2 needs no clamp
+// and leaves no denormal to rsqrtf's scaling
+#define PSPH_R2_FLOOR 1e-30f
+
+// the gap between [alo, ahi] and [blo, bhi] on one axis, 0 where they
+// meet, NaN where a bound is
+__device__ __forceinline__ float psph_gap(float alo, float ahi, float blo,
+                                          float bhi) {
+  return psph_max(psph_max(alo - bhi, blo - ahi), 0.0f);
+}
+
+// Box a (alo, ahi) against box b: true when no pair of them lies inside
+// either support, and every pair's r2 is at or above PSPH_R2_FLOOR. NaN
+// in a bound or in either lo.w (a flagged box) is never far.
+__device__ __forceinline__ bool psph_box_far(float4 alo, float4 ahi,
+                                             float4 blo, float4 bhi) {
+  const float gx = psph_gap(alo.x, ahi.x, blo.x, bhi.x);
+  const float gy = psph_gap(alo.y, ahi.y, blo.y, bhi.y);
+  const float gz = psph_gap(alo.z, ahi.z, blo.z, bhi.z);
+  const float d2 = fmaf(gz, gz, fmaf(gy, gy, gx * gx));
+  const float ihm = psph_min(alo.w, blo.w);
+  return (d2 * ihm) * ihm > PSPH_FAR_Q2 && d2 >= PSPH_R2_FLOOR;
+}
+
+// One box from a warp's particles: each lane passes the bounds of its own
+// (x, y, z and 1/h in lo.w; lo = +inf and hi = -inf for none) and whether
+// a value of them is not finite; lane 0 writes the box to box[0..1]. Every
+// lane of the warp calls it.
+__device__ __forceinline__ void psph_box_store(float4 lo, float4 hi,
+                                               bool bad, float4* box) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo.x = psph_min(lo.x, __shfl_xor_sync(0xffffffffu, lo.x, o));
+    lo.y = psph_min(lo.y, __shfl_xor_sync(0xffffffffu, lo.y, o));
+    lo.z = psph_min(lo.z, __shfl_xor_sync(0xffffffffu, lo.z, o));
+    lo.w = psph_min(lo.w, __shfl_xor_sync(0xffffffffu, lo.w, o));
+    hi.x = psph_max(hi.x, __shfl_xor_sync(0xffffffffu, hi.x, o));
+    hi.y = psph_max(hi.y, __shfl_xor_sync(0xffffffffu, hi.y, o));
+    hi.z = psph_max(hi.z, __shfl_xor_sync(0xffffffffu, hi.z, o));
+  }
+  const bool flagged = __any_sync(0xffffffffu, bad);
+  if ((threadIdx.x & 31) == 0) {
+    const float ihm = flagged ? __int_as_float(0x7fc00000) : lo.w;
+    box[0] = make_float4(lo.x, lo.y, lo.z, ihm);
+    box[1] = make_float4(hi.x, hi.y, hi.z, 0.0f);
+  }
+}
+
+// extends a lane's box bounds by one particle
+__device__ __forceinline__ void psph_box_add(float4& lo, float4& hi, float x,
+                                             float y, float z, float ih) {
+  lo = make_float4(psph_min(lo.x, x), psph_min(lo.y, y), psph_min(lo.z, z),
+                   psph_min(lo.w, ih));
+  hi = make_float4(psph_max(hi.x, x), psph_max(hi.y, y), psph_max(hi.z, z),
+                   0.0f);
+}
+
+// the bounds of no particle
+__device__ __forceinline__ void psph_box_empty(float4& lo, float4& hi) {
+  const float inf = __int_as_float(0x7f800000);
+  lo = make_float4(inf, inf, inf, inf);
+  hi = make_float4(-inf, -inf, -inf, 0.0f);
+}
+
 // Slot slices a group's window is split into (a power of 2): with 4 both
 // windowed sweeps ran faster than with 2 on the H100 (PERF.md).
 #define PSPH_SLICES 4

@@ -204,7 +204,9 @@ def _forces_dense(pos, h, mass, cfg: SimConfig, vel=None, u=None,
     # wrappers run their plain versions). They have no energy column, in
     # the reference either: an evolved u takes ops/dense.py
     sweeps = pairwise if cfg.use_pallas and not energy else dense
-    p1 = sweeps.pass1(pos, h, mass, cfg)
+    # the kernels' sweep order (from a size on): one for both passes
+    pk = {"plan": pairwise.plan_for(pos)} if sweeps is pairwise else {}
+    p1 = sweeps.pass1(pos, h, mass, cfg, **pk)
     rho, nn, phi, grad_phi, n_direct = p1
     n_approx = torch.zeros_like(n_direct)
     ov = None
@@ -222,7 +224,7 @@ def _forces_dense(pos, h, mass, cfg: SimConfig, vel=None, u=None,
                            u=u, **kw)
         grad_p, du_dt = out[:2]
     else:
-        out = sweeps.pass2(pos, h, mass, rho, prs, cfg, vel=vel, **kw)
+        out = sweeps.pass2(pos, h, mass, rho, prs, cfg, vel=vel, **kw, **pk)
         grad_p = out[0] if isinstance(out, tuple) else out
         du_dt = torch.zeros_like(rho)
     f_next = None

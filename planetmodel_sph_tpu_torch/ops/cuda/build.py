@@ -39,8 +39,14 @@ SIGNATURES = {
     # rows, nv_blk, 10 far rows, accept, 6 outputs; g, b, sp, sr, sb, nbpad,
     # nm and three flags (has_p2p, receiver_soft, bf16)
     "gravity_fused": "p" * 49 + "i" * 10 + "f" + "p",
-    "pairwise_pass1": "p" * 10 + "iiii" + "f" + "p",
-    "pairwise_pass2": "p" * 12 + "iiiiii" + "ff" + "p",
+    # 3 inputs, perm, work, counts, 5 outputs, 2 scratch; n, splits, two
+    # flags; g_const
+    "pairwise_pass1": "p" * 13 + "iiii" + "f" + "p",
+    # 9 inputs, perm, work, counts, 2 outputs, scratch; n, splits, four
+    # flags; av_alpha, av_beta
+    "pairwise_pass2": "p" * 15 + "iiiiii" + "ff" + "p",
+    # an all-pairs plan's Morton keys: pos, keys, counts; n
+    "pairwise_plan": "ppp" + "i" + "p",
     # the tools' probes: x, o, n, reps; x, o, n; packed, idx, out, nb,
     # width, rows; nv, 4 target columns, 5 rows, rho, gb, tb, s, chunk
     "probe_fma": "pp" + "ii" + "p",
@@ -48,6 +54,9 @@ SIGNATURES = {
     "probe_gather": "ppp" + "iii" + "p",
     "probe_pass1_tile": "p" * 11 + "iiii" + "p",
 }
+
+# entry points compiled into another kernel's source (and library)
+SOURCE = {"pairwise_plan": "pairwise_pass1"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -76,8 +85,14 @@ def nvcc_path() -> str:
                        "the CUDA toolkit is installed")
 
 
+def source(name: str) -> str:
+    """The source (``csrc/<source>.cu``) whose library holds entry point
+    `name`."""
+    return SOURCE.get(name, name)
+
+
 def lib_path(name: str, out: str = BUILD) -> str:
-    return os.path.join(out, f"lib{name}.so")
+    return os.path.join(out, f"lib{source(name)}.so")
 
 
 def _stale(name: str, src: str, out: str) -> bool:
@@ -90,13 +105,14 @@ def _stale(name: str, src: str, out: str) -> bool:
 
 
 def build_all(names=None, force=False, src=CSRC, out=BUILD) -> dict:
-    """Compile the named kernels (default: all) in parallel, from the
-    sources in `src` into libraries in `out` (another checkout's sources
-    build into its own directory, to time the two versions in turns).
+    """Compile the sources of the named kernels (default: all) in
+    parallel, from the sources in `src` into libraries in `out` (another
+    checkout's sources build into its own directory, to time the two
+    versions in turns).
 
-    Returns {name: (seconds, ptxas report)}; raises with the compiler's
+    Returns {source: (seconds, ptxas report)}; raises with the compiler's
     output if any build fails."""
-    names = list(names or SIGNATURES)
+    names = list(dict.fromkeys(source(n) for n in names or SIGNATURES))
     todo = [n for n in names if force or _stale(n, src, out)]
     if not todo:
         return {}
@@ -124,13 +140,14 @@ def build_all(names=None, force=False, src=CSRC, out=BUILD) -> dict:
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
-def load(name: str, path: str):
-    """The C entry point ``psph_<name>`` of the library at `path`. The
-    library is loaded as a ``ctypes.PyDLL``: a call keeps the GIL, which
-    costs less than releasing it for a function that only enqueues a
-    launch."""
+def load(name: str, path: str, sig: str | None = None):
+    """The C entry point ``psph_<name>`` of the library at `path`, with
+    signature `sig` (default ``SIGNATURES[name]``; another checkout's
+    library may have another). The library is loaded as a
+    ``ctypes.PyDLL``: a call keeps the GIL, which costs less than
+    releasing it for a function that only enqueues a launch."""
     fn = getattr(ctypes.PyDLL(path), f"psph_{name}")
-    fn.argtypes = [_CT[c] for c in SIGNATURES[name]]
+    fn.argtypes = [_CT[c] for c in sig or SIGNATURES[name]]
     fn.restype = ctypes.c_int
     return fn
 
@@ -145,11 +162,12 @@ def kernel(name: str):
 
 
 @contextlib.contextmanager
-def library(name: str, path: str):
+def library(name: str, path: str, sig: str | None = None):
     """Within the block, launches of `name` go to the library at `path`
-    (another version of its source, built by :func:`build_all`)."""
+    (another version of its source, built by :func:`build_all`; `sig`: its
+    entry point's signature, when not this checkout's)."""
     saved = _LIBS.get(name)
-    _LIBS[name] = load(name, path)
+    _LIBS[name] = load(name, path, sig)
     try:
         yield
     finally:

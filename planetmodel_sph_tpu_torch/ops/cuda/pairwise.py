@@ -25,32 +25,119 @@ loops run over the n particles directly. Counts (n_neighbors: q_i < 2;
 n_direct: every j != i) are exact between kernel and plain version;
 ``ops/dense.py`` computes q = r/h with a division instead and can differ
 from both by one count at a knife edge.
+
+The plan (:func:`plan`, :func:`plan_for`): a force evaluation on the card
+from ``PLAN_MIN_N`` particles on sweeps both passes in one Morton order of
+its particles (its keys from one hand kernel, ``pairwise_plan``, then one
+stable sort; no host read), so that each warp's 64 targets and each
+64-source sub-tile are compact boxes, and a sub-tile whose box is out of
+reach of a warp's is culled: pass 2 skips it, pass 1 sweeps it for
+gravity's outer branch alone (``csrc/pairwise_pass1.cu``'s note). The
+outputs stay in the particles' own order. What bounds the kernels then is
+pass 1's far sweep, some 15 instructions a pair, and the near sub-tiles'
+pairs. Below a size the plan's launches and host work cost more than the
+cull saves: ``PLAN_MIN_N`` is the least of the sizes measured at which
+both sweeps with a plan, its build included, took less wall than without
+(``chip_smoke.py``'s ``plan n=`` lines, the cold ball, in turns, H100
+80GB HBM3 at 700 W; wrapper ms, host work to the last kernel's end, device
+ms in brackets): n = 3000 0.51–0.69 (0.156–0.158) against 0.27–0.34 (0.080);
+8192 0.52–0.63 (0.285) against 0.38–0.53 (0.190); 16,384 0.84–0.91
+(0.525) against 0.76–0.78 (0.539–0.560); 32,768 1.69–1.78 (1.33) against
+2.25–2.29 (1.93–1.95). At 16,384 the plan saves a little device time but
+adds some 0.1 ms of host work a step, and a step there waits on the host.
+The plan's ``counts`` (near and tested (warp, sub-tile) pairs, on the
+card) are read only by tools (:func:`near_share`); its span is
+``psph.kernel.pairwise_plan``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import eos as eos_ops
+from .. import morton
 from ..dense import Pass1Out
 from .launch import (LAUNCHES, is_cuda, launch, need,  # noqa: F401
                      reset_launches, spanned)
 
 INV_PI = 1.0 / 3.14159265358979323846
-KERNELS = ("pairwise_pass1", "pairwise_pass2")
+KERNELS = ("pairwise_pass1", "pairwise_pass2", "pairwise_plan")
 PLAIN_BLOCK = 512         # target rows per [block, n] broadcast
 _TARGETS = 256            # targets a block of the kernels (PW_TARGETS)
 _TARGET_BLOCKS = 4224     # four waves of 8 blocks on each of the 132 SMs
 _MAX_SPLITS = 96
+SUB = 64                  # particles a box: a warp's targets, a sub-tile
+PLAN_SLOTS = 64           # slots of each of a plan's two counters
+# the least n at which a force evaluation sweeps in a plan's order (the
+# module's note has its measurement)
+PLAN_MIN_N = 32768
 
 
 def splits_for(n: int) -> int:
     """Source-range splits (blockIdx.y) that give the card enough blocks:
     the targets alone are only n/256 blocks. Four waves of blocks keep the
     last one's share of the time small; at most 96 splits (n = 3000 then
-    runs 1152 blocks of some 32 sources each)."""
+    runs 1152 blocks of some 32 sources each). Under a plan a split takes
+    every splits-th sub-tile of SUB sources instead of one range."""
     iblocks = max(1, -(-n // _TARGETS))
     return max(1, min(_MAX_SPLITS, -(-_TARGET_BLOCKS // iblocks)))
+
+
+# ---------------------------------------------------------------------------
+# the plan: a Morton order of the particles for both sweeps
+# ---------------------------------------------------------------------------
+
+class Plan(NamedTuple):
+    """One force evaluation's order of its particles for the sweeps:
+    position p is particle perm[p] (int64 [n]); `counts` (int32 [2,
+    PLAN_SLOTS], on the card) the (warp, sub-tile) pairs its sweeps found
+    near and tested, each spread over slots (:func:`near_share`)."""
+    perm: torch.Tensor
+    counts: torch.Tensor
+
+
+def plan_for(pos):
+    """The plan of a force evaluation on the card from PLAN_MIN_N
+    particles on, else None (the sweeps in the particles' own order)."""
+    if pos.is_cuda and pos.shape[0] >= PLAN_MIN_N:
+        return plan(pos)
+    return None
+
+
+def plan_keys_plain(pos):
+    """The plan's Morton keys: ``morton.encode`` over the positions' own
+    bounds."""
+    return morton.encode(pos, pos.amin(dim=0), pos.amax(dim=0))
+
+
+@spanned("pairwise_plan")
+def plan(pos) -> Plan:
+    """The Morton order of pos [n,3] (f32 contiguous): 30-bit keys over
+    the positions' own bounds (on the card one hand kernel, which also
+    zeroes the counters), then one stable sort, so equal keys keep their
+    index order and the same positions give the same permutation. Nothing
+    is read back to the host."""
+    name = "pairwise_plan"
+    n = _check_particles(name, pos, [])
+    if not is_cuda(name, [pos]):
+        keys = plan_keys_plain(pos)
+        counts = torch.zeros((2, PLAN_SLOTS), dtype=torch.int32)
+    else:
+        keys = torch.empty(n, dtype=torch.int32, device=pos.device)
+        counts = torch.empty((2, PLAN_SLOTS), dtype=torch.int32,
+                             device=pos.device)
+        launch(name, [pos, keys, counts, n])
+    return Plan(torch.sort(keys, stable=True).indices, counts)
+
+
+def near_share(plan: Plan):
+    """The share of (warp, sub-tile) pairs the sweeps run with `plan` found
+    near (swept, not culled), over every pair they tested; None before any
+    test. One read from the card: for tools, not for a timed path."""
+    near, tested = (int(v) for v in plan.counts.sum(dim=1).tolist())
+    return near / tested if tested else None
 
 
 def _guard(x):
@@ -238,13 +325,29 @@ def _check_particles(name, pos, fields):
     return n
 
 
+def _plan_args(name, plan, pos, words):
+    """A launch's plan arguments: perm, work (`words` floats of staged
+    copies, then the boxes) and counts; None each without a plan."""
+    if plan is None:
+        return [None, None, None]
+    n = pos.shape[0]
+    need(name, "plan.perm", plan.perm, (n,), torch.int64)
+    need(name, "plan.counts", plan.counts, (2, PLAN_SLOTS), torch.int32)
+    is_cuda(name, [pos, plan.perm, plan.counts])
+    work = torch.empty(-(-words // 4) * 4 + 8 * -(-n // SUB),
+                       dtype=torch.float32, device=pos.device)
+    return [plan.perm, work, plan.counts]
+
+
 @spanned("pairwise_pass1")
-def pass1(pos, h, mass, cfg) -> Pass1Out:
+def pass1(pos, h, mass, cfg, plan: Plan | None = None) -> Pass1Out:
     """Density, neighbour count and (gravity_solver='direct') Dyer-Ip
     gravity over all pairs. pos [n,3], h [n], mass [n], f32 contiguous on
     one device. Returns ``dense.Pass1Out`` (rho, n_neighbors, phi,
     grad_phi, n_direct); with another gravity solver phi, grad_phi and
-    n_direct are zero."""
+    n_direct are zero. With a `plan` (:func:`plan`) the kernel sweeps in
+    its order and culls far sub-tiles; the outputs are in the particles'
+    own order either way (the plain version ignores it)."""
     name = "pairwise_pass1"
     cuda = is_cuda(name, [pos, h, mass])
     n = _check_particles(name, pos, [("h", h, None), ("mass", mass, None)])
@@ -257,7 +360,8 @@ def pass1(pos, h, mass, cfg) -> Pass1Out:
     i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
     rho, phi, gphi = f32(n), f32(n), f32(n, 3)
     nn, nd = i32(n), i32(n)
-    launch(name, [pos, inv_h, mass, rho, nn, phi, gphi, nd,
+    launch(name, [pos, inv_h, mass, *_plan_args(name, plan, pos, 5 * n),
+                  rho, nn, phi, gphi, nd,
                   f32(splits, 5, n), i32(splits, 2, n), n, splits,
                   int(cfg.gravity_solver == "direct"),
                   int(cfg.softening_mode == "receiver_h"),
@@ -266,7 +370,8 @@ def pass1(pos, h, mass, cfg) -> Pass1Out:
 
 
 @spanned("pairwise_pass2")
-def pass2(pos, h, mass, rho, pressure, cfg, vel=None, fbal=None):
+def pass2(pos, h, mass, rho, pressure, cfg, vel=None, fbal=None,
+          plan: Plan | None = None):
     """Pressure gradient grad P [n,3] over all pairs
     (cfg.grad_p_mode 'symmetric' or 'reference_asymmetric', with
     cfg.kernel_deriv_sign_bug).
@@ -274,7 +379,8 @@ def pass2(pos, h, mass, rho, pressure, cfg, vel=None, fbal=None):
     With `vel` and cfg.av_alpha > 0 the Monaghan viscosity is fused into
     the sweep as -rho_i a_AV. Under cfg.av_balsara `fbal` (the lagged
     limiter factors, default 1) scales Pi_ij by 0.5 (f_i + f_j) and the
-    raw div/curl sums dc [n,4] are returned second."""
+    raw div/curl sums dc [n,4] are returned second. `plan`: as in
+    :func:`pass1`; a far sub-tile is neither staged nor swept."""
     name = "pairwise_pass2"
     if cfg.grad_p_mode not in ("symmetric", "reference_asymmetric"):
         raise ValueError(f"{name}: grad_p_mode={cfg.grad_p_mode!r}")
@@ -300,7 +406,8 @@ def pass2(pos, h, mass, rho, pressure, cfg, vel=None, fbal=None):
     gp = f32(n, 3)
     dc = f32(n, 4) if balsara else None
     launch(name, [pos, inv_h, mass, rr, pressure,
-                  vel if av else None, hh if av else None, cs, fb, gp, dc,
+                  vel if av else None, hh if av else None, cs, fb,
+                  *_plan_args(name, plan, pos, 13 * n), gp, dc,
                   f32(splits, 7 if balsara else 3, n), n, splits,
                   int(cfg.grad_p_mode == "reference_asymmetric"),
                   int(cfg.kernel_deriv_sign_bug), int(av), int(balsara),

@@ -89,18 +89,20 @@ def test_scan_sees_the_package():
 
 
 def test_every_kernel_has_its_source_signature_and_counter():
-    """Each kernel the wrappers launch is a source in csrc/ with a C
-    signature and a launch counter, and the sources include nothing but the
-    CUDA runtime and the package's own header."""
+    """Each kernel the wrappers launch is an entry point of a source in
+    csrc/ (its own, or the one ``build.SOURCE`` names) with a C signature
+    and a launch counter, and the sources include nothing but the CUDA
+    runtime and the package's own header."""
     from planetmodel_sph_tpu_torch.ops.cuda import build, groups2, launch
     from planetmodel_sph_tpu_torch.ops.cuda import pairwise, probes
     names = set(groups2.KERNELS) | set(pairwise.KERNELS) | set(
         probes.KERNELS)
     assert names == set(build.SIGNATURES) == set(launch.LAUNCHES)
     assert {"pass1_sym", "p2p", "probe_gather"} <= names
-    assert len(names) == 12
+    assert len(names) == 13
+    assert len({build.source(n) for n in names}) == 12
     for n in names:
-        src = open(os.path.join(PKG, "csrc", n + ".cu")).read()
+        src = open(os.path.join(PKG, "csrc", build.source(n) + ".cu")).read()
         assert f'extern "C" int psph_{n}(' in src
         inc = [ln.split()[1] for ln in src.splitlines()
                if ln.startswith("#include")]

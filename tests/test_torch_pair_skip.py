@@ -766,13 +766,13 @@ def test_standing_nan_differences_of_the_other_kernels():
         # a self pair is listed only for a flagged target
         assert "(!self || target_bad[u])" in src
     # pass 2 stages its factor P/rho (P/rho^2) and tests it with the rows
-    assert "mass[j], asymmetric ? prs[j] / rj : prs[j] / (rj * rj)," in pw2
+    assert "v[5] = asymmetric ? prs[j] / rj : prs[j] / (rj * rj);" in pw2
     # the self pair weighs m = 0, and pass 1 counts it in neither count
     assert "const float m = self ? 0.0f : cm[k];" in pw2
     assert "near(u, jh, self ? 0.0f : p.w, dxx, dxy, dxz," in pw1
     assert "self ? 0 : 1);" in pw1
     assert "nn[u] += qi < 2.0f ? other : 0;" in pw1
-    assert "GRAV ? sources - (ti[u] >= j0 && ti[u] < j1 ? 1 : 0) : 0" in pw1
+    assert "pi[(size_t)n] = GRAV ? sources - (own ? 1 : 0) : 0;" in pw1
     for gate in gates:
         gated_out = _c_test(gate.group(1))
         ih_tile = _c_test("all_pairs ? 0.0f : ih")
@@ -909,6 +909,433 @@ def test_pairwise_skip_keeps_nan_zero_ih_and_flagged_pairs(kernel):
     assert skipped(inf, f(0), f(0), f(1), f(1))     # r2 = inf, unflagged
     for d in (far, inf, f(2.1)):
         assert not skipped(d, f(0), f(0), f(1), f(1), flagged=True)
+
+
+# ---------------------------------------------------------------------------
+# the all-pairs kernels' cull of far (warp, sub-tile) pairs under a plan
+# ---------------------------------------------------------------------------
+
+def _cull_tests():
+    """common.cuh's box test (psph_gap, psph_box_far), the flag its boxes
+    carry (psph_box_store) and PSPH_FAR_Q2, as the header states them,
+    and each all-pairs sweep's use of it: a function far(alo, ahi, blo,
+    bhi) of [4, ...] float32 arrays (x, y, z and 1/h: a box's lo.w)."""
+    hdr = _source("common.cuh")
+    gap = re.search(r"float psph_gap\([^)]*\) \{\s*return ([^;]+);", hdr)
+    body = re.search(r"bool psph_box_far\(.*?\n}\n", hdr, re.S)
+    const = re.search(r"#define\s+PSPH_FAR_Q2\s+([0-9.eE+-]+)f", hdr)
+    assert gap and body and const, "the box test was not found"
+    body = body.group(0)
+    axes = re.findall(r"const float g([xyz]) = psph_gap\(alo\.\1, ahi\.\1, "
+                      r"blo\.\1, bhi\.\1\);", body)
+    d2 = re.search(r"const float d2 = ([^;]+);", body)
+    ihm = re.search(r"const float ihm = psph_min\(alo\.w, blo\.w\);", body)
+    far = re.search(r"return (\(d2 \* ihm\) \* ihm > PSPH_FAR_Q2 && "
+                    r"d2 >= PSPH_R2_FLOOR);", body)
+    floor = re.search(r"#define\s+PSPH_R2_FLOOR\s+([0-9.eE+-]+)f", hdr)
+    assert axes == ["x", "y", "z"] and d2 and ihm and far and floor
+    f_gap, f_d2, f_far = (_c_test(e.group(1)) for e in (gap, d2, far))
+    far_q2 = np.float32(const.group(1))
+    r2_floor = np.float32(floor.group(1))
+
+    def box_far(alo, ahi, blo, bhi):
+        g = [f_gap(alo=alo[c], ahi=ahi[c], blo=blo[c], bhi=bhi[c])
+             for c in range(3)]
+        d2 = f_d2(gx=g[0], gy=g[1], gz=g[2])
+        with np.errstate(invalid="ignore"):
+            m = np.minimum(np.asarray(alo[3], np.float32),
+                           np.asarray(blo[3], np.float32))
+        return np.asarray(f_far(d2=d2, ihm=m, PSPH_FAR_Q2=far_q2,
+                                PSPH_R2_FLOOR=r2_floor))
+    return box_far, far_q2, r2_floor
+
+
+BOX_FAR, FAR_Q2, R2_FLOOR = _cull_tests()
+
+
+def test_the_cull_is_the_sweeps_and_its_boxes_flag_non_finite_values():
+    """Under a plan both sweeps take a sub-tile only when it is live and
+    not far from the warp's own box; a far sub-tile is not staged by
+    pass 2 nor by pass 1 without gravity, and pass 1 stages it without its
+    1/h and sweeps it for gravity's outer branch alone. A staged
+    sub-tile's flag is any of its staged values not finite, on any lane. A box is flagged (lo.w NaN) when a value
+    a stage copies of one of its particles is not finite; both stage
+    kernels test every value they copy (and pass 2 the factors P/rho,
+    P/rho^2 the sweep forms). PSPH_FAR_Q2 lies above PSPH_Q2_SKIP."""
+    assert FAR_Q2 > Q2_SKIP
+    assert FAR_Q2 == np.float32(4.0) * (1 + np.float32(2.0) ** -10)
+    hdr = _source("common.cuh")
+    assert "const bool flagged = __any_sync(0xffffffffu, bad);" in hdr
+    assert "const float ihm = flagged ? __int_as_float(0x7fc00000) : lo.w;" \
+        in hdr
+    assert np.isnan(np.array([0x7fc00000], np.uint32).view(np.float32)[0])
+    for name in ("pairwise_pass1.cu", "pairwise_pass2.cu"):
+        src = _source(name)
+        assert ("const bool keep = live && !psph_box_far(tlo, thi, "
+                "box[2 * sb],\n                                              "
+                "box[2 * sb + 1]);") in src, name
+        assert "const float4 tlo = box[2 * (wlo / PSPH_SUB)];" in src, name
+        assert "const bool tile_bad = __any_sync(0xffffffffu, bad);" in src
+        assert "psph_box_store(lo, hi, bad, box + 2 * (size_t)sub);" in src
+    pw1, pw2 = _source("pairwise_pass1.cu"), _source("pairwise_pass2.cu")
+    assert "bad = bad || !psph_all_finite(v);" in pw1
+    assert "return psph_all_finite(v);" in pw2
+    assert "if (!put(k, v)) bad = true;" in pw2
+    assert "if (lane + 32 * t < cnt && !put(k0 + lane + 32 * t, v[t]))" in pw2
+    assert "bad = bad || !psph_all_finite(v[t]);" in pw1
+    assert "for (unsigned todo = GRAV ? lives : keeps; todo;" in pw1
+    assert "for (unsigned todo = keeps; todo; todo &= todo - 1) {" in pw2
+    assert "v[t][3] = far ? 1.0f : inv_h[j];" in pw1
+    assert ("const float v[5] = {pos[3 * i], pos[3 * i + 1], "
+            "pos[3 * i + 2],\n                        inv_h[i], mass[i]};"
+            ) in pw1
+    assert ("float v[14] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], "
+            "inv_h[i],\n                   mass[i], rj, prs[i],\n"
+            "                   asymmetric ? prs[i] / rj : prs[i] / "
+            "(rj * rj),\n                   prs[i] / (rj * rj),") in pw2
+    assert "bad = bad || !isfinite(fb[i]);" in pw2
+    # the far sweep: the outer branch's m/r and m/r^3 with the bare rsqrt
+    # (a far box pair's r2 lies at or above the plain version's clamp)
+    assert ("const float inv_r = psph_rsqrt_ftz(r2);\n"
+            "              const float mr = p.w * inv_r;\n"
+            "              const float mag = mr * inv_r * inv_r;") in pw1
+    assert R2_FLOOR == np.float32(1e-30)
+
+
+def _box_knife_edges(rng, n, rel, log_lo=-3.0, log_hi=3.0):
+    """n box pairs whose closest corners lie (2 / ihm) rel (1 + k 2^-23)
+    apart, k in [-300, 300], ihm the smaller of the boxes' 1/h, in random
+    directions of random signs; the boxes' other corners up to 40 support
+    radii away. Returns the boxes (lo, hi: [4, n], 1/h in lo[3]) and the
+    two closest corners' (d, ih_i, jh) as float32."""
+    ih = (10.0 ** rng.uniform(log_lo, log_hi, n)).astype(np.float32)
+    jh = (ih * 10.0 ** rng.uniform(-1, 1, n)).astype(np.float32)
+    u = np.abs(rng.normal(size=(3, n)))
+    u /= np.linalg.norm(u, axis=0)
+    k = rng.integers(-300, 301, n)
+    ihm = np.minimum(ih, jh).astype(np.float64)
+    g = (2.0 / ihm) * rel * (1 + k * 2.0 ** -23) * u
+    sign = rng.choice([-1.0, 1.0], size=(3, n))
+    # corner a of box A at c; B's corner at c + sign g; A extends away
+    # from B and B away from A
+    c = rng.uniform(-100, 100, size=(3, n)) / ihm
+    ext_a = rng.uniform(0, 40, size=(3, n)) / ihm
+    ext_b = rng.uniform(0, 40, size=(3, n)) / ihm
+    a_near = c.astype(np.float32)
+    b_near = (c + sign * g).astype(np.float32)
+    a_far = (c - sign * ext_a).astype(np.float32)
+    b_far = (c + sign * (g + ext_b)).astype(np.float32)
+    alo, ahi = np.minimum(a_near, a_far), np.maximum(a_near, a_far)
+    blo, bhi = np.minimum(b_near, b_far), np.maximum(b_near, b_far)
+    alo = np.vstack([alo, ih[None]])
+    blo = np.vstack([blo, jh[None]])
+    d = a_near - b_near
+    return (alo, ahi, blo, bhi), d, ih, jh
+
+
+def _box_pairs(rng, boxes, ih, jh, m=8):
+    """m more particle pairs of each box pair: one point drawn in each box
+    (their 1/h at least the box's), and the two closest corners."""
+    alo, ahi, blo, bhi = boxes
+    out = []
+    for _ in range(m):
+        pa = (alo[:3] + rng.uniform(size=alo[:3].shape)
+              * (ahi - alo[:3])).astype(np.float32)
+        pb = (blo[:3] + rng.uniform(size=blo[:3].shape)
+              * (bhi - blo[:3])).astype(np.float32)
+        pa = np.clip(pa, alo[:3], ahi)
+        pb = np.clip(pb, blo[:3], bhi)
+        ih_p = (ih * rng.uniform(1, 3, ih.shape)).astype(np.float32)
+        jh_p = (jh * rng.uniform(1, 3, jh.shape)).astype(np.float32)
+        out.append((pa - pb, ih_p, jh_p))
+    return out
+
+
+@pytest.mark.parametrize("scale", [(-3.0, 3.0), (-9.0, -6.0)],
+                         ids=["code_units", "cgs"])
+@pytest.mark.parametrize("rel", [1.0, float(np.sqrt(FAR_Q2 / 4.0))],
+                         ids=["q_at_2", "at_the_far_threshold"])
+@pytest.mark.parametrize("kernel", sorted(PW_SKIPS))
+def test_a_far_box_pair_holds_no_pair_the_q2_test_keeps(kernel, rel, scale):
+    """At the knife edge of the boxes' gap (their closest corners 2/ihm
+    rel (1 +- k 2^-23) apart), a box pair the cull calls far holds no
+    pair that the kernel's q^2 test keeps, nor one with sqrtf(r2) ih < 2
+    for either 1/h (r2 as the plain version forms it): neither the closest
+    corners at the boxes' own 1/h nor points drawn inside the boxes at
+    larger 1/h."""
+    rng = np.random.default_rng(29)
+    boxes, d, ih, jh = _box_knife_edges(rng, 200_000, rel, *scale)
+    far = BOX_FAR(*boxes)
+    for dd, ih_p, jh_p in [(d, ih, jh)] + _box_pairs(rng, boxes, ih, jh):
+        kept = ~PW_SKIPS[kernel](dd[0], dd[1], dd[2], ih_p, jh_p)
+        assert not np.any(far & kept)
+        r2 = _r2(*dd)
+        assert not np.any(far & (_q(r2, ih_p) < 2.0))
+        assert not np.any(far & (_q(r2, jh_p) < 2.0))
+        # the far sweep's r2 (its multiply-adds) needs no clamp
+        assert not np.any(far & (_fmaf(dd[2], dd[2], _fmaf(
+            dd[1], dd[1], dd[0] * dd[0])) < R2_FLOOR))
+    if rel == 1.0:
+        assert not far.any()            # gaps within 300 ulps of 2/ihm
+    else:
+        assert 0 < far.sum() < far.size  # both sides of the threshold
+
+
+@settings(max_examples=300, deadline=None)
+@given(log_ih=st.floats(-9.0, 3.0), log_ratio=st.floats(-2.0, 2.0),
+       k=st.integers(-8, 8), ux=st.floats(0.0, 1.0), uy=st.floats(0.0, 1.0),
+       uz=st.floats(0.0, 1.0), ext=st.floats(0.0, 50.0))
+def test_a_far_box_pair_property_at_the_knife_edge(log_ih, log_ratio, k, ux,
+                                                   uy, uz, ext):
+    """Boxes whose closest corners lie 2 sqrt(PSPH_FAR_Q2 / 4) / ihm (1 +
+    k 2^-23) apart, k in [-8, 8], each `ext` support radii deep: far only
+    if the corners' pair is outside both supports and skipped by both
+    kernels' q^2 tests."""
+    norm = np.sqrt(ux * ux + uy * uy + uz * uz)
+    if norm < 1e-3:
+        ux, uy, uz, norm = 1.0, 0.0, 0.0, 1.0
+    ih = np.float32(10.0 ** log_ih)
+    jh = np.float32(10.0 ** (log_ih + log_ratio))
+    ihm = float(min(ih, jh))
+    r = (2.0 / ihm) * float(np.sqrt(FAR_Q2 / 4.0)) * (1 + k * 2.0 ** -23)
+    g = np.array([ux, uy, uz]) / norm * r
+    e = ext / ihm
+    a_hi = np.zeros(3, np.float32)
+    b_lo = g.astype(np.float32)
+    alo = np.append(np.float32(-e) * np.ones(3, np.float32), ih)
+    blo = np.append(b_lo, jh)
+    bhi = (b_lo + np.float32(e)).astype(np.float32)
+    two = lambda v: np.repeat(v[:, None], 2, axis=1)   # (no 0-d arrays)
+    if BOX_FAR(two(alo), two(a_hi), two(blo), two(bhi))[0]:
+        d = a_hi - b_lo
+        r2 = _r2(*d)
+        assert _q(r2, ih) >= 2.0 and _q(r2, jh) >= 2.0
+        for skipped in PW_SKIPS.values():
+            assert skipped(d[0], d[1], d[2], ih, jh)
+
+
+def test_a_box_with_a_nan_or_a_flag_is_never_far():
+    """A NaN in any bound of either box, or in either box's 1/h (a flagged
+    box: psph_box_store writes NaN there), is never far, nor are
+    overlapping or touching boxes, nor a box of zero 1/h (h = inf), nor
+    boxes whose gap squared lies below PSPH_R2_FLOOR; a far pair of finite
+    boxes is far."""
+    nan, f = np.float32(np.nan), np.float32
+    lo_a = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+    hi_a = np.array([1.0, 1.0, 1.0, 0.0], np.float32)
+    lo_b = np.array([100.0, 0.0, 0.0, 1.0], np.float32)
+    hi_b = np.array([101.0, 1.0, 1.0, 0.0], np.float32)
+
+    def far(la, ha, lb, hb):
+        two = lambda v: np.repeat(v[:, None], 2, axis=1)
+        return bool(BOX_FAR(two(la), two(ha[:3]), two(lb), two(hb[:3]))[0])
+    assert far(lo_a, hi_a, lo_b, hi_b) and far(lo_b, hi_b, lo_a, hi_a)
+    for box in ("a", "b"):
+        for c in range(4):
+            for which in ("lo", "hi"):
+                if which == "hi" and c == 3:
+                    continue
+                la, ha, lb, hb = (v.copy() for v in (lo_a, hi_a, lo_b, hi_b))
+                v = {("a", "lo"): la, ("a", "hi"): ha, ("b", "lo"): lb,
+                     ("b", "hi"): hb}[(box, which)]
+                v[c] = nan
+                assert not far(la, ha, lb, hb), (box, which, c)
+    # touching, overlapping, a zero 1/h
+    lb = lo_b.copy()
+    lb[0] = f(1.0)
+    assert not far(lo_a, hi_a, lb, hi_b)
+    lb[0] = f(-5.0)
+    assert not far(lo_a, hi_a, lb, hi_b)
+    lb = lo_b.copy()
+    lb[3] = f(0.0)
+    assert not far(lo_a, hi_a, lb, hi_b)
+    # an infinite bound that is not flagged is far; the stage flags it
+    hb = hi_b.copy()
+    hb[0] = np.inf
+    assert far(lo_a, hi_a, lo_b, hb)
+    # a gap far beyond both supports, but its square below PSPH_R2_FLOOR
+    la, ha = lo_a.copy(), hi_a.copy()
+    lb, hb = lo_b.copy(), hi_b.copy()
+    la[3] = lb[3] = f(1e18)
+    ha[0] = f(0.0)
+    lb[0], hb[0] = f(1e-16), f(1.0)
+    assert not far(la, ha, lb, hb)
+    lb[0] = f(1e-14)
+    assert far(la, ha, lb, hb)
+
+
+def _plain_boxes(pos, inv_h, perm, bad):
+    """The plan's boxes as the stage kernels form them: the particles in
+    the plan's order, PSPH_SUB a box, each box's bounds and least 1/h,
+    NaN for a flagged box (`bad`: a particle with a non-finite value)."""
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    n = pos.shape[0]
+    p = pos[perm].numpy()
+    ih = inv_h[perm].numpy()
+    b = bad[perm].numpy()
+    nb = -(-n // pw.SUB)
+    lo = np.zeros((4, nb), np.float32)
+    hi = np.zeros((3, nb), np.float32)
+    for k in range(nb):
+        s = slice(k * pw.SUB, min(n, (k + 1) * pw.SUB))
+        lo[:3, k], hi[:, k] = p[s].min(axis=0), p[s].max(axis=0)
+        lo[3, k] = np.float32(np.nan) if b[s].any() else ih[s].min()
+    return lo, hi
+
+
+def _culled(pos, h, plan, cfg, bad=None):
+    """[n, n] the pairs the sweeps visit under `plan`: the pairs of near
+    box pairs (BOX_FAR on the plan's boxes, as the kernels form them)
+    that the kernel's q^2 test keeps; and the far mask itself."""
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    n = pos.shape[0]
+    inv_h = 1.0 / torch.where(h > 0, h, 1.0)
+    if bad is None:
+        bad = torch.zeros(n, dtype=torch.bool)
+    lo, hi = _plain_boxes(pos, inv_h, plan.perm, bad)
+    nb = lo.shape[1]
+    far_box = BOX_FAR(lo[:, :, None], hi[:, :, None], lo[:, None, :],
+                      hi[:, None, :])
+    rank = torch.empty_like(plan.perm)
+    rank[plan.perm] = torch.arange(n)
+    cell = (rank // pw.SUB).numpy()
+    far = far_box[cell[:, None], cell[None, :]]
+    p = pos.numpy()
+    d = p[:, None, :] - p[None, :, :]
+    ih = inv_h.numpy()
+    skipped = PW_SKIPS["pairwise_pass1.cu"](
+        d[..., 0], d[..., 1], d[..., 2], ih[:, None], ih[None, :])
+    assert nb == -(-n // pw.SUB)
+    return ~far & ~skipped, far
+
+
+def _ball(n, clustered, seed):
+    """A seeded cold ball (uniform, radius 12, h 1.2 (1 + U[0, 0.5))) or a
+    clustered one (two Gaussian clumps of unequal size and a uniform
+    halo, h following the local spacing): float32 pos [n,3], h, m."""
+    rng = np.random.default_rng(seed)
+    if not clustered:
+        u = rng.normal(size=(n, 3))
+        u /= np.linalg.norm(u, axis=1)[:, None]
+        pos = u * 12.0 * rng.uniform(size=(n, 1)) ** (1 / 3)
+        h = 1.2 * (1 + 0.5 * rng.uniform(size=n))
+    else:
+        a, b = n // 2, n // 4
+        pos = np.concatenate([rng.normal(0.0, 1.5, (a, 3)),
+                              rng.normal((30.0, 0.0, 0.0), 0.7, (b, 3)),
+                              rng.uniform(-25, 25, (n - a - b, 3))])
+        h = np.concatenate([np.full(a, 0.8), np.full(b, 0.45),
+                            np.full(n - a - b, 3.5)]) \
+            * (1 + 0.3 * rng.uniform(size=n))
+    f = lambda v: torch.from_numpy(np.asarray(v, np.float32))
+    return f(pos), f(h), f(rng.uniform(0.5, 1.5, n))
+
+
+@pytest.mark.parametrize("clustered,n", [(False, 2000), (True, 1500)],
+                         ids=["ball_2000", "clustered_1500"])
+def test_pass1_on_the_culled_pairs_matches(clustered, n):
+    """The plain pass 1 of each target over just the sources the cull and
+    the q^2 test leave it (its own row of pass1_plain on [target,
+    sources]) against pass1_plain over every pair: counts bit-equal,
+    density within the tolerances of the all-pairs kernels. Every pair of
+    a far box pair takes gravity's outer branch in the plain version (x =
+    r / a >= 1 under both softenings), which the far sweep adds alone."""
+    from planetmodel_sph_tpu_torch import config as tc
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    pos, h, m = _ball(n, clustered, 5)
+    plan = pw.plan(pos)
+    cfg = tc.jupiter_3k(n=n, gravity_solver="none")
+    visit, far = _culled(pos, h, plan, cfg)
+    assert 0.1 < far.mean() < 0.95, far.mean()  # the cull engages
+    ref = pw.pass1_plain(pos, h, m, cfg)
+    rho, nn = np.zeros(n, np.float32), np.zeros(n, np.int32)
+    for i in range(n):
+        js = np.flatnonzero(visit[i] & (np.arange(n) != i))
+        idx = torch.from_numpy(np.concatenate([[i], js]))
+        out = pw.pass1_plain(pos[idx], h[idx], m[idx], cfg)
+        rho[i], nn[i] = float(out.rho[0]), int(out.n_neighbors[0])
+    np.testing.assert_array_equal(nn, ref.n_neighbors.numpy())
+    assert nn.mean() > 10
+    np.testing.assert_allclose(rho, ref.rho.numpy(), rtol=1e-5)
+    # gravity's branch on the far pairs: x >= 1 under both softenings
+    ih = (1.0 / h).numpy()
+    p = pos.numpy()
+    r = np.sqrt(_r2(*(p[:, None, :] - p[None, :, :]).transpose(2, 0, 1)))
+    for inv_a in (ih[:, None] + 0 * ih[None, :],
+                  np.minimum(ih[:, None], ih[None, :])):
+        assert np.all((r * inv_a)[far] >= 1.0)
+
+
+@pytest.mark.parametrize("case", ["symmetric", "asymmetric+sign_bug",
+                                  "av+balsara"])
+@pytest.mark.parametrize("clustered,n", [(False, 2000), (True, 1500)],
+                         ids=["ball_2000", "clustered_1500"])
+def test_pass2_on_the_culled_pairs_matches(case, clustered, n):
+    """pass2_plain of each target over just the sources the cull and the
+    q^2 test leave it against pass2_plain over every pair, within the
+    tolerances of the all-pairs kernels (rtol 1e-4 and 1e-4 of the
+    largest magnitude), in each form of the sweep."""
+    from planetmodel_sph_tpu_torch import config as tc
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    pos, h, m = _ball(n, clustered, 8)
+    plan = pw.plan(pos)
+    kw = dict(symmetric={}, **{
+        "asymmetric+sign_bug": dict(grad_p_mode="reference_asymmetric",
+                                    kernel_deriv_sign_bug=True),
+        "av+balsara": dict(av_alpha=1.0, av_beta=2.0, av_balsara=True)})
+    cfg = tc.jupiter_3k(n=n, **kw[case])
+    visit, _ = _culled(pos, h, plan, cfg)
+    rho = pw.pass1_plain(pos, h, m, cfg).rho
+    prs = 1000.0 * rho * rho
+    extra = {}
+    if case == "av+balsara":
+        rng = np.random.default_rng(2)
+        extra = dict(vel=-0.05 * pos + torch.from_numpy(
+            rng.normal(scale=0.2, size=(n, 3)).astype(np.float32)),
+            fbal=torch.from_numpy(rng.uniform(0.3, 1.0, n).astype(
+                np.float32)))
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+    ref = as_tuple(pw.pass2_plain(pos, h, m, rho, prs, cfg, **extra))
+    got = [np.zeros_like(r.numpy()) for r in ref]
+    for i in range(n):
+        js = np.flatnonzero(visit[i] & (np.arange(n) != i))
+        idx = torch.from_numpy(np.concatenate([[i], js]))
+        sub = {k: v[idx] for k, v in extra.items()}
+        out = as_tuple(pw.pass2_plain(pos[idx], h[idx], m[idx], rho[idx],
+                                      prs[idx], cfg, **sub))
+        for g, o in zip(got, out):
+            g[i] = o[0].numpy()
+    for g, r in zip(got, ref):
+        r = r.numpy()
+        np.testing.assert_allclose(g, r, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(r).max()))
+
+
+def test_a_non_finite_value_flags_its_box_and_opens_it_to_every_warp():
+    """A NaN (or infinity) in any value a stage copies of one particle
+    flags that particle's box, which is then near every other box, so
+    every target visits the particle's pairs under the kernels' all_pairs
+    rule and the value reaches the outputs as in the plain version; the
+    other boxes keep their far pairs."""
+    from planetmodel_sph_tpu_torch import config as tc
+    from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
+    pos, h, m = _ball(2000, False, 3)
+    plan = pw.plan(pos)
+    cfg = tc.jupiter_3k(n=2000)
+    j = 333
+    bad = torch.zeros(2000, dtype=torch.bool)
+    bad[j] = True
+    _, far_clean = _culled(pos, h, plan, cfg)
+    _, far = _culled(pos, h, plan, cfg, bad)
+    assert far_clean[:, j].any() and not far[:, j].any()
+    assert not far[j].any()
+    # the rest keep their far pairs: only the flagged box's rows and
+    # columns opened
+    rank = torch.empty_like(plan.perm)
+    rank[plan.perm] = torch.arange(2000)
+    mine = (rank // pw.SUB == int(rank[j]) // pw.SUB).numpy()
+    other = ~mine[:, None] & ~mine[None, :]
+    np.testing.assert_array_equal(far[other], far_clean[other])
 
 
 # ---------------------------------------------------------------------------

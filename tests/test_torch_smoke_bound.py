@@ -576,31 +576,42 @@ def test_probe_pass1_tile_ops_and_bytes_by_branch():
 
 
 def test_parent_splits_are_read_from_the_checkouts_own_source():
-    """--parent times the other checkout's all-pairs kernels with its own
-    wrapper's source splits: read from its source, this checkout's gives
-    the wrapper's own numbers."""
+    """--parent times the other checkout's all-pairs kernels through its
+    own wrappers, with its own source splits: loaded from its source,
+    this checkout's gives the wrapper's own numbers, and its wrappers run
+    their plain versions here as this checkout's do."""
+    from planetmodel_sph_tpu_torch import config as tc
     from planetmodel_sph_tpu_torch.ops.cuda import pairwise as pw
-    splits = cs.parent_splits_for(ROOT)
+    mod = cs.parent_pairwise(ROOT)
+    assert mod is not pw
     for n in (1, 301, 3000, 32768, 10 ** 6):
-        assert splits(n) == pw.splits_for(n)
+        assert mod.splits_for(n) == pw.splits_for(n)
+    cfg = tc.jupiter_3k(n=4)
+    args = _four_particles()
+    assert all(torch.equal(a, b) for a, b in zip(mod.pass1(*args, cfg),
+                                                 pw.pass1(*args, cfg)))
 
 
 def test_pairwise_instances_follow_the_flags():
     from planetmodel_sph_tpu_torch import config as tc
     cfg = tc.jupiter_3k(n=4)
     assert cs.pairwise_instance("pairwise_pass1", cfg, {}) == (
-        "pairwise_pass1", (1, 0))
+        "pairwise_pass1", (1, 0, 0))
     assert cs.pairwise_instance(
         "pairwise_pass1", cfg.replace(softening_mode="receiver_h"), {}) == (
-        "pairwise_pass1", (1, 1))
+        "pairwise_pass1", (1, 1, 0))
     assert cs.pairwise_instance(
         "pairwise_pass1", cfg.replace(gravity_solver="none"), {}) == (
-        "pairwise_pass1", (0, 0))
+        "pairwise_pass1", (0, 0, 0))
+    assert cs.pairwise_instance("pairwise_pass1", cfg, {}, True) == (
+        "pairwise_pass1", (1, 0, 1))
     av = cfg.replace(av_alpha=1.0, av_balsara=True)
     assert cs.pairwise_instance("pairwise_pass2", av, {}) == (
-        "pairwise_pass2", (0, 0))
+        "pairwise_pass2", (0, 0, 0))
     assert cs.pairwise_instance("pairwise_pass2", av, {"vel": 1}) == (
-        "pairwise_pass2", (1, 1))
+        "pairwise_pass2", (1, 1, 0))
+    assert cs.pairwise_instance("pairwise_pass2", av, {"vel": 1}, True) == (
+        "pairwise_pass2", (1, 1, 1))
 
 
 @pytest.mark.parametrize("receiver", [False, True])

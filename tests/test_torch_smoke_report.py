@@ -356,7 +356,8 @@ def test_nan_agreement_plants_the_near_tiers_dead_slot(receiver):
 
 
 def test_library_routes_a_kernel_and_restores_it(monkeypatch):
-    monkeypatch.setattr(build, "load", lambda name, path: (name, path))
+    monkeypatch.setattr(build, "load",
+                        lambda name, path, sig=None: (name, path))
     monkeypatch.setattr(build, "_LIBS", {"pass2": "this"})
     with build.library("pass2", "/x/libpass2.so"):
         with build.library("pass1_gradh", "/x/libpass1_gradh.so"):

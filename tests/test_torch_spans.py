@@ -176,7 +176,8 @@ def test_by_span_reads_the_real_trace(traced):
 @pytest.mark.parametrize("module, wrapper, name", [
     *[(groups2, k, k) for k in groups2.KERNELS],
     (pairwise, "pass1", "pairwise_pass1"),
-    (pairwise, "pass2", "pairwise_pass2")])
+    (pairwise, "pass2", "pairwise_pass2"),
+    (pairwise, "plan", "pairwise_plan")])
 def test_kernel_wrappers_span_their_cuda_path(module, wrapper, name):
     fn = getattr(module, wrapper)
     assert launch.SPANS[name] == "psph.kernel." + name
